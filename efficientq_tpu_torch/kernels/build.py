@@ -1,0 +1,64 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+
+Each source compiles on first use into its own shared library with a
+plain C interface, under ``efficientq_tpu_torch/_build/`` (listed in
+.gitignore), named by a hash of the source and the flags so an edited
+source rebuilds.  There is no fallback: a missing nvcc or a failed build
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+# sm_90a (Hopper); no fast math, and no FMA contraction, so the float
+# epilogues round exactly as the reference does
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (once per process and per source hash)
+    and return the loaded library."""
+    with _lock:
+        if source in _loaded:
+            return _loaded[source]
+        path = os.path.join(CSRC, source)
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+        stem = os.path.splitext(source)[0]
+        lib = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+        if not os.path.exists(lib):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, path],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+            os.replace(tmp, lib)
+        _loaded[source] = ctypes.CDLL(lib)
+        return _loaded[source]

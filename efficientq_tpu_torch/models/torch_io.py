@@ -1,0 +1,157 @@
+"""Checkpoint interop.
+
+Counterpart of the JAX package's ``models/torch_io.py``.  Graph node names
+mirror the reference's torch module paths, so conversion is mechanical:
+
+- conv node ``X``  <->  ``X.weight`` (OIDHW <-> DHWIO), ``X.bias``,
+  ``X.alpha_w``, ``X.alpha_act``
+- bn node ``X``    <->  ``X.weight`` (scale), ``X.bias``, ``X.running_mean``,
+  ``X.running_var``
+
+``from_jax_variables`` carries the JAX package's variables (as NumPy
+arrays) over to the port, key for key.
+"""
+from __future__ import annotations
+
+import pickle
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..nnir import Graph
+from ..quant import unpack_int_weight
+
+
+def _to_np(v):
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def from_jax_variables(variables_np, device="cpu") -> Dict:
+    """{'params': {node: {k: array}}, 'state': ...} of NumPy arrays (e.g.
+    ``jax.tree_util.tree_map(np.asarray, variables)``) -> the same dict of
+    torch tensors on ``device``."""
+    return {group: {node: {k: torch.tensor(np.asarray(v), device=device)
+                           for k, v in entries.items()}
+                    for node, entries in variables_np.get(group, {}).items()}
+            for group in ("params", "state")}
+
+
+def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
+                          strict=False):
+    """Map a torch-style flat state dict into {'params', 'state'} dicts.
+
+    Returns new variables (input untouched).  Missing keys keep current
+    values unless ``strict``."""
+    sd = {k: _to_np(v) for k, v in state_dict.items()}
+    params = {k: dict(v) for k, v in variables["params"].items()}
+    state = {k: dict(v) for k, v in variables.get("state", {}).items()}
+    missing = []
+
+    def take(key):
+        if key in sd:
+            return torch.from_numpy(np.array(sd[key], np.float32))
+        missing.append(key)
+        return None
+
+    for node in graph.nodes:
+        if node.op == "conv":
+            if f"{node.name}.act_k" in sd:
+                raise NotImplementedError(
+                    f"{node.name}: offset activation grids (act_k) are not "
+                    f"ported yet")
+            w = take(f"{node.name}.weight")
+            if w is not None:
+                params[node.name]["kernel"] = w.permute(2, 3, 4, 1, 0).contiguous()
+            if "bias" in params[node.name]:
+                b = take(f"{node.name}.bias")
+                if b is not None:
+                    params[node.name]["bias"] = b
+            for alpha in ("alpha_w", "alpha_act"):
+                if alpha in params[node.name] and f"{node.name}.{alpha}" in sd:
+                    a = take(f"{node.name}.{alpha}")
+                    # reference alphas are 0-d/1-element tensors; ours may
+                    # be per-output-channel vectors (channel_wise)
+                    params[node.name][alpha] = a.reshape(()) if a.numel() == 1 else a
+        elif node.op == "bn":
+            for ours, theirs in (("scale", "weight"), ("bias", "bias")):
+                v = take(f"{node.name}.{theirs}")
+                if v is not None:
+                    params[node.name][ours] = v
+            for ours, theirs in (("mean", "running_mean"),
+                                 ("var", "running_var")):
+                v = take(f"{node.name}.{theirs}")
+                if v is not None:
+                    state[node.name][ours] = v
+    if strict and missing:
+        raise KeyError(f"missing keys in state dict: {missing}")
+    return {"params": params, "state": state}
+
+
+def _read_export_state_dict(path: str):
+    # PTQ exports written by this project's ptq mission
+    if path.endswith(".npz"):
+        return np.load(path, allow_pickle=True)["state_dict"].item()
+    with open(path, "rb") as f:
+        return pickle.load(f)["state_dict"]
+
+
+def read_export_qlvl_overrides(path: str):
+    """The per-layer (qlvl_w, qlvl_act) map a PTQ export carries
+    (``__qlvl_overrides__``); {} for uniform-precision exports."""
+    return dict(_read_export_state_dict(path).get("__qlvl_overrides__", {}))
+
+
+def load_int8_checkpoint(graph: Graph, variables, path: str):
+    """Load a PTQ int8-packed export (state_in_int8.pkl /
+    state_in_int8_compress.npz) and restore FP-valued quantized weights.
+    A code outside [0, qlvl_w-1], or a packing grid other than the graph's,
+    raises."""
+    sd = dict(_read_export_state_dict(path))
+    overrides = dict(sd.pop("__qlvl_overrides__", {}))
+    for node in graph.qconv_nodes():
+        qcfg = node.attrs["qcfg"]
+        key = f"{node.name}.weight"
+        if not qcfg.q_weight or key not in sd:
+            continue
+        w = np.asarray(sd[key])
+        if w.dtype in (np.uint8, np.int32):
+            saved = overrides.get(node.name)
+            if saved is not None and int(saved[0]) != qcfg.qlvl_w:
+                raise ValueError(
+                    f"{node.name}: export was packed at qlvl_w={saved[0]} "
+                    f"but the graph expects {qcfg.qlvl_w} (mixed-precision "
+                    f"export)")
+            if int(w.max(initial=0)) > qcfg.qlvl_w - 1:
+                raise ValueError(
+                    f"{node.name}: packed code {int(w.max())} exceeds "
+                    f"qlvl_w-1={qcfg.qlvl_w - 1} — the export was produced "
+                    f"at a different grid than the graph's qcfg")
+            alpha = np.asarray(sd[f"{node.name}.alpha_w"])
+            sd[key] = unpack_int_weight(w, alpha, qcfg.qlvl_w)
+    return load_torch_state_dict(graph, variables, sd)
+
+
+def to_torch_state_dict(graph: Graph, variables) -> Dict[str, np.ndarray]:
+    """Export variables as a torch-style flat NumPy state dict."""
+    out: Dict[str, np.ndarray] = {}
+    params = variables["params"]
+    state = variables.get("state", {})
+    for node in graph.nodes:
+        if node.op == "conv":
+            p = params[node.name]
+            out[f"{node.name}.weight"] = np.transpose(_to_np(p["kernel"]),
+                                                      (4, 3, 0, 1, 2))
+            for k in ("bias", "alpha_w", "alpha_act"):
+                if k in p:
+                    out[f"{node.name}.{k}"] = _to_np(p[k])
+        elif node.op == "bn":
+            p = params[node.name]
+            s = state[node.name]
+            out[f"{node.name}.weight"] = _to_np(p["scale"])
+            out[f"{node.name}.bias"] = _to_np(p["bias"])
+            out[f"{node.name}.running_mean"] = _to_np(s["mean"])
+            out[f"{node.name}.running_var"] = _to_np(s["var"])
+    return out

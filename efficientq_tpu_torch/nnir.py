@@ -1,0 +1,342 @@
+"""A minimal functional graph IR for 3D segmentation networks (PyTorch).
+
+Counterpart of the JAX package's ``nnir.py``: the same ``Node`` / ``Graph``
+data and the same flat ``{"params": {node: {...}}, "state": {...}}``
+variables, with torch tensors in place of jax arrays.  Tensors are NDHWC
+and conv kernels DHWIO (see ops.py).
+
+``apply`` interprets the graph eagerly, so it does by hand what XLA's
+dead-code elimination and buffer reuse did for the JAX interpreter under
+``jit``:
+
+- it evaluates only the nodes that the selected outputs reach (the aux
+  heads that ``heads=slice(-1, None)`` drops, and the relus that
+  ``kernels.epilogue`` rewires away, are never computed);
+- it frees each value after its last consumer.
+
+``GraphModule`` holds a graph and its variables as an ``nn.Module``, so
+``.to(device)`` moves every tensor of the network at once.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import ops
+from .kernels.qconv3d import qconv3x3_int8_ndhwc
+from .quant import act_codes, fake_quant_act
+
+
+@dataclasses.dataclass(frozen=True)
+class QCfg:
+    """Per-conv quantization config."""
+
+    q_weight: bool
+    qlvl_w: int
+    q_act: bool
+    qlvl_act: int
+
+
+@dataclasses.dataclass
+class Node:
+    name: str
+    op: str
+    inputs: Tuple[str, ...]
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Graph:
+    nodes: List[Node]
+    outputs: List[str]  # head node names, shallow-to-deep aux heads then final
+    input_name: str = "input"
+
+    _index: Optional[Dict[str, Node]] = None
+
+    def node(self, name: str) -> Node:
+        if self._index is None or len(self._index) != len(self.nodes):
+            self._index = {n.name: n for n in self.nodes}
+        return self._index[name]
+
+    def qconv_nodes(self) -> List[Node]:
+        """Convs carrying a quantization config, in topological order."""
+        return [n for n in self.nodes if n.op == "conv" and n.attrs.get("qcfg")]
+
+    def consumers(self, nodes: Optional[Dict[str, Node]] = None
+                  ) -> Dict[str, List[str]]:
+        """{producer name: [consumer names]}; graph outputs appear as the
+        external consumer ``"__output__"``.  ``nodes`` optionally substitutes
+        in-flight rewritten nodes (same names, possibly rewired inputs)."""
+        out: Dict[str, List[str]] = {}
+        for n in self.nodes:
+            for i in (nodes[n.name] if nodes is not None else n).inputs:
+                out.setdefault(i, []).append(n.name)
+        for o in self.outputs:
+            out.setdefault(o, []).append("__output__")
+        return out
+
+
+class GraphBuilder:
+    def __init__(self):
+        self.nodes: List[Node] = []
+        self.names = set()
+
+    def add(self, name: str, op: str, inputs: Sequence[str], **attrs) -> str:
+        assert name not in self.names, f"duplicate node {name}"
+        self.names.add(name)
+        self.nodes.append(Node(name, op, tuple(inputs), attrs))
+        return name
+
+    def input(self, name="input"):
+        return self.add(name, "input", ())
+
+    def conv(self, name, x, in_ch, out_ch, kernel_size, stride=1, padding=0,
+             dilation=1, groups=1, bias=True, qcfg: Optional[QCfg] = None):
+        return self.add(name, "conv", [x], in_ch=in_ch, out_ch=out_ch,
+                        kernel_size=ops.triple(kernel_size),
+                        stride=ops.triple(stride),
+                        padding=ops.triple(padding),
+                        dilation=ops.triple(dilation),
+                        groups=groups, bias=bias, qcfg=qcfg)
+
+    def bn(self, name, x, ch, eps=1e-5, momentum=0.1):
+        return self.add(name, "bn", [x], ch=ch, eps=eps, momentum=momentum)
+
+    def relu(self, name, x):
+        return self.add(name, "relu", [x])
+
+    def maxpool(self, name, x, kernel, stride=None):
+        return self.add(name, "maxpool", [x], kernel=ops.triple(kernel),
+                        stride=ops.triple(stride if stride is not None
+                                          else kernel))
+
+    def upsample(self, name, x, scale_factor):
+        return self.add(name, "upsample", [x],
+                        scale_factor=ops.triple(scale_factor))
+
+    def dropout(self, name, x, rate):
+        return self.add(name, "dropout", [x], rate=float(rate))
+
+    def add_op(self, name, a, b):
+        return self.add(name, "add", [a, b])
+
+    def identity(self, name, x):
+        return self.add(name, "identity", [x])
+
+    def build(self, outputs: Sequence[str], input_name="input") -> Graph:
+        return Graph(self.nodes, list(outputs), input_name)
+
+
+def init(graph: Graph, seed: int = 0, device="cpu"):
+    """{'params': ..., 'state': ...} on ``device``, with kaiming-normal conv
+    kernels drawn from ``np.random.default_rng(seed)``, zero biases, unit
+    alphas, and identity batch norms.  The numbers differ from the JAX
+    package's ``init`` (another generator); tests carry weights across with
+    ``models.torch_io.from_jax_variables``."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    params: Dict[str, Dict[str, torch.Tensor]] = {}
+    state: Dict[str, Dict[str, torch.Tensor]] = {}
+    for node in graph.nodes:
+        if node.op == "conv":
+            a = node.attrs
+            kshape = (*a["kernel_size"], a["in_ch"] // a["groups"], a["out_ch"])
+            std = np.sqrt(2.0 / (np.prod(a["kernel_size"]) * kshape[3]))
+            p = {"kernel": torch.as_tensor(
+                std * rng.standard_normal(kshape), **f32)}
+            if a["bias"]:
+                p["bias"] = torch.zeros(a["out_ch"], **f32)
+            if a.get("qcfg"):
+                p["alpha_w"] = torch.tensor(1.0, **f32)
+                p["alpha_act"] = torch.tensor(1.0, **f32)
+            params[node.name] = p
+        elif node.op == "bn":
+            ch = node.attrs["ch"]
+            params[node.name] = {"scale": torch.ones(ch, **f32),
+                                 "bias": torch.zeros(ch, **f32)}
+            state[node.name] = {"mean": torch.zeros(ch, **f32),
+                                "var": torch.ones(ch, **f32)}
+    return {"params": params, "state": state}
+
+
+def _pallas_3x3_int8_eligible(a) -> bool:
+    """Interior 3^3 qconvs: stride 1, isotropic 'same' padding = dilation."""
+    return (a["kernel_size"] == (3, 3, 3) and a["stride"] == (1, 1, 1)
+            and a["padding"] == a["dilation"] and len(set(a["dilation"])) == 1
+            and a["groups"] == 1)
+
+
+def int_conv_dtype(taps: int, c: int, qlvl_act: int, qlvl_w: int):
+    """Float type in which a conv of integer codes is exact.  Every partial
+    sum is an integer of magnitude at most taps*C*(na-1)*(nw-1); float32
+    holds those exactly below 2**24 (every preset's 1x1 int8 convs: at most
+    512*127*127 = 8.2 M), float64 beyond."""
+    bound = taps * c * (qlvl_act - 1) * (qlvl_w - 1)
+    return torch.float32 if bound < 2 ** 24 else torch.float64
+
+
+def _int8_conv(qa: torch.Tensor, codes: torch.Tensor, a, qcfg: QCfg):
+    """Integer conv of int8 codes computed exactly in a float type (the
+    JAX package's XLA int8 conv with int32 accumulation), returned as
+    float32: an exact integer, or the float64 sum rounded half to even as
+    int32 -> float32 rounds."""
+    k = a["kernel_size"]
+    c = qa.shape[-1]
+    dt = int_conv_dtype(k[0] * k[1] * k[2], c, qcfg.qlvl_act, qcfg.qlvl_w)
+    if (k == (1, 1, 1) and a["stride"] == (1, 1, 1)
+            and a["padding"] == (0, 0, 0) and a["groups"] == 1):
+        y = torch.matmul(qa.reshape(-1, c).to(dt), codes.reshape(c, -1).to(dt))
+        y = y.reshape(*qa.shape[:-1], -1)
+    else:
+        y = ops.conv3d(qa.to(dt), codes.to(dt), None, a["stride"],
+                       a["padding"], a["dilation"], a["groups"])
+    return y.to(torch.float32)
+
+
+def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable):
+    a = node.attrs
+    p = params[node.name]
+    x = ins[0]
+    qcfg: Optional[QCfg] = a.get("qcfg")
+    if (a.get("pallas") and mode == "quantized" and qcfg is not None
+            and qcfg.q_act):
+        # the deployed hot path: the int8 3^3 conv with its fused
+        # epilogues (kernels/qconv3d.py; flags from kernels/qmatmul.py and
+        # kernels/epilogue.py)
+        quant_for = a.get("epilogue_quant_for")
+        return conv3x3_int8(
+            x, p["kernel_int8"], p.get("bias"), p["alpha_act"], p["scale"],
+            qcfg.qlvl_act, dilation=a["dilation"][0],
+            residual=ins[1] if a.get("residual") else None,
+            quant_alpha=(params[quant_for]["alpha_act"] if quant_for
+                         else None),
+            quant_qlvl=a.get("epilogue_qlvl", 0) if quant_for else 0,
+            x_quantized=bool(a.get("input_quantized")),
+            residual_relu=bool(a.get("residual_relu")),
+            pool=bool(a.get("epilogue_pool")),
+            w_packed=p.get("kernel_packed"))
+    if a.get("int8") and mode == "quantized":
+        # integer path of ptq/deploy.py: int8 codes in, exact integer conv,
+        # float32 scale epilogue
+        qa = (x if a.get("input_quantized")
+              else act_codes(x, p["alpha_act"], qcfg.qlvl_act))
+        y = _int8_conv(qa, p["kernel_int8"], a, qcfg) * p["scale"]
+        if "bias" in p:
+            y = y + p["bias"]
+        return y
+    kernel = p["kernel"]
+    if qcfg is not None and mode == "quantized" and qcfg.q_act:
+        x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
+    return ops.conv3d(x, kernel, p.get("bias"), a["stride"], a["padding"],
+                      a["dilation"], a["groups"])
+
+
+def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
+              ins, *, mode: str = "fp", conv3x3_int8: Callable = None):
+    """Evaluate one inference-mode node.  ``conv3x3_int8`` replaces the
+    int8 3^3 conv of flagged nodes (default: the K1 wrapper)."""
+    if node.op == "conv":
+        return _eval_conv(node, params, ins, mode,
+                          conv3x3_int8 or qconv3x3_int8_ndhwc)
+    if node.op == "bn":
+        p = params[node.name]
+        s = state[node.name]
+        return ops.batch_norm(ins[0], p["scale"], p["bias"], s["mean"],
+                              s["var"], node.attrs["eps"])
+    if node.op == "relu":
+        return ops.relu(ins[0])
+    if node.op == "maxpool":
+        return ops.max_pool3d(ins[0], node.attrs["kernel"],
+                              node.attrs["stride"])
+    if node.op == "upsample":
+        return ops.upsample3d(ins[0], node.attrs["scale_factor"])
+    if node.op == "tuple_get":
+        return ins[0][node.attrs["idx"]]
+    if node.op in ("dropout", "identity"):
+        return ins[0]
+    if node.op == "add":
+        return ins[0] + ins[1]
+    raise ValueError(f"unknown op {node.op}")
+
+
+def live_nodes(graph: Graph, outputs: Sequence[str]) -> set:
+    """Names of the nodes that ``outputs`` reach, walking back from them."""
+    live, stack = set(), list(outputs)
+    while stack:
+        name = stack.pop()
+        if name not in live:
+            live.add(name)
+            stack.extend(graph.node(name).inputs)
+    return live
+
+
+def apply(graph: Graph, variables: Dict[str, Any], x: torch.Tensor, *,
+          mode: str = "fp", heads: Optional[slice] = None,
+          conv3x3_int8: Callable = None) -> torch.Tensor:
+    """Interpret the graph on ``x`` (NDHWC).
+
+    mode: 'fp' (plain convs) or 'quantized' (fake-quant activations and
+    stored quantized weights; int8-deployed nodes run on integer codes).
+    ``heads`` selects output heads (e.g. ``slice(-1, None)`` for the final
+    head only); only the nodes those heads reach are evaluated.
+
+    Returns the selected head outputs stacked: (num_heads, N, D, H, W, C).
+    """
+    assert mode in ("fp", "quantized")
+    outputs = graph.outputs if heads is None else graph.outputs[heads]
+    params = variables["params"]
+    st = variables.get("state", {})
+    live = live_nodes(graph, outputs)
+    uses = collections.Counter(i for n in graph.nodes if n.name in live
+                               for i in n.inputs)
+    uses.update(outputs)
+    values = {graph.input_name: x}
+    with ops.exact_f32():
+        for node in graph.nodes:
+            if node.op == "input" or node.name not in live:
+                continue
+            values[node.name] = eval_node(
+                node, params, st, [values[n] for n in node.inputs],
+                mode=mode, conv3x3_int8=conv3x3_int8)
+            for n in node.inputs:
+                uses[n] -= 1
+                if uses[n] == 0:
+                    del values[n]
+    return torch.stack([values[o] for o in outputs])
+
+
+class GraphModule(nn.Module):
+    """A graph and its variables.  Every tensor of ``variables`` is a
+    buffer, so ``.to(device)`` moves the whole network; ``variables``
+    rebuilds the flat dict view on each access."""
+
+    def __init__(self, graph: Graph, variables: Dict[str, Any],
+                 mode: str = "fp"):
+        super().__init__()
+        self.graph = graph
+        self.mode = mode
+        self._slots = []
+        for group in ("params", "state"):
+            for node, entries in variables.get(group, {}).items():
+                for key, v in entries.items():
+                    buf = f"v{len(self._slots)}"
+                    self.register_buffer(buf, torch.as_tensor(v))
+                    self._slots.append((group, node, key, buf))
+
+    @property
+    def variables(self) -> Dict[str, Any]:
+        out: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {
+            "params": {}, "state": {}}
+        for group, node, key, buf in self._slots:
+            out[group].setdefault(node, {})[key] = getattr(self, buf)
+        return out
+
+    def forward(self, x: torch.Tensor, heads: Optional[slice] = None,
+                conv3x3_int8: Callable = None) -> torch.Tensor:
+        return apply(self.graph, self.variables, x, mode=self.mode,
+                     heads=heads, conv3x3_int8=conv3x3_int8)

@@ -1,0 +1,112 @@
+"""3D NN primitives in NDHWC layout (PyTorch).
+
+Counterpart of the JAX package's ``ops.py``.  Every op takes and returns
+``(N, D, H, W, C)`` tensors, and conv kernels are DHWIO, as in the JAX
+package.  A contiguous NDHWC tensor is exactly a logical NCDHW tensor in
+``torch.channels_last_3d`` memory format, so ``x.permute(0, 4, 1, 2, 3)``
+hands it to ``F.conv3d`` / ``F.max_pool3d`` / ``F.interpolate`` without a
+copy.
+
+Float convs run in full float32: ``exact_f32`` turns TF32 off for cuDNN
+convs and cuBLAS matmuls (cuDNN's f32 conv defaults to TF32; the JAX
+reference on the CPU is exact f32).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+IntOr3 = Union[int, Sequence[int]]
+
+
+def triple(v: IntOr3) -> Tuple[int, int, int]:
+    if isinstance(v, (int, np.integer)):
+        return (int(v),) * 3
+    t = tuple(int(x) for x in v)
+    if len(t) == 1:
+        return t * 3
+    assert len(t) == 3, f"expected 3-tuple, got {v}"
+    return t
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """Full-float32 convs and matmuls inside the block (TF32 off), restoring
+    the caller's settings on exit."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def ndhwc_to_ncdhw(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def ncdhw_to_ndhwc(x):
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def oidhw_to_dhwio(k):
+    """torch conv3d kernel (O, I, kD, kH, kW) -> DHWIO."""
+    return k.permute(2, 3, 4, 1, 0)
+
+
+def dhwio_to_oidhw(k):
+    return k.permute(4, 3, 0, 1, 2)
+
+
+def _ndhwc_out(y_ncdhw):
+    # a channels_last_3d result comes back as a contiguous NDHWC view
+    return ncdhw_to_ndhwc(y_ncdhw).contiguous()
+
+
+def conv3d(x: torch.Tensor, kernel: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: IntOr3 = 1,
+           padding: IntOr3 = 0, dilation: IntOr3 = 1,
+           groups: int = 1) -> torch.Tensor:
+    """3D convolution, NDHWC activations x DHWIO kernel -> NDHWC, in the
+    dtype of the operands (callers wrap it in ``exact_f32`` for float32)."""
+    y = F.conv3d(ndhwc_to_ncdhw(x), dhwio_to_oidhw(kernel), None,
+                 triple(stride), triple(padding), triple(dilation), groups)
+    y = _ndhwc_out(y)
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def max_pool3d(x: torch.Tensor, kernel: IntOr3,
+               stride: Optional[IntOr3] = None) -> torch.Tensor:
+    """Max pooling over D, H, W (VALID, like torch MaxPool3d padding=0)."""
+    k = triple(kernel)
+    s = triple(stride) if stride is not None else k
+    return _ndhwc_out(F.max_pool3d(ndhwc_to_ncdhw(x), k, s))
+
+
+def upsample3d(x: torch.Tensor, scale_factor: IntOr3) -> torch.Tensor:
+    """Trilinear upsampling by integer factors, half-pixel centres
+    (``align_corners=False``), as ``jax.image.resize`` does it."""
+    f = triple(scale_factor)
+    n, d, h, w, c = x.shape
+    y = F.interpolate(ndhwc_to_ncdhw(x), size=(d * f[0], h * f[1], w * f[2]),
+                      mode="trilinear", align_corners=False)
+    return _ndhwc_out(y)
+
+
+def batch_norm(x, scale, bias, mean, var, eps: float = 1e-5):
+    """Inference-mode batch norm over the channel (last) axis."""
+    inv = torch.rsqrt(var + eps)
+    return (x - mean) * inv * scale + bias
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)

@@ -1,0 +1,118 @@
+"""Quantization math core (PyTorch).
+
+Counterpart of the JAX package's ``quant.py``: the uniform fake-quantizer,
+integer weight packing, and the float64 NumPy oracle of the alternating
+scale search.  The JAX-traced ``project_by_iter`` / ``project_by_iter_rows``
+belong to the PTQ calibration slice and are not here yet.
+
+Every divisor is made a tensor on the operand's device before dividing: on
+a CUDA tensor PyTorch turns ``x / python_float`` into ``x * (1 / float)``,
+which rounds differently from the true division the JAX reference does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class _SteRound(torch.autograd.Function):
+    """Round half to even, with a straight-through gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    return _SteRound.apply(x)
+
+
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a float32 0-d (or per-channel) tensor on ``like``'s device."""
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
+def discretize(var, num_lvl, lo, hi):
+    """Uniform fake-quantization of ``var`` onto ``num_lvl`` levels in
+    [lo, hi]; the gradient is straight-through.  Same op order as the JAX
+    version: clip, subtract lo, divide by the step, round, rescale."""
+    delta = _scalar((hi - lo) / (num_lvl - 1), var)
+    lo_t = _scalar(lo, var)
+    var = torch.clamp(var, lo, hi)
+    q = ste_round((var - lo_t) / delta)
+    return q * delta + lo_t
+
+
+def fake_quant_weight(w, alpha_w, num_lvl):
+    """Symmetric weight fake-quant: clip(w/a, -1, 1) on the grid, times a."""
+    a = _scalar(alpha_w, w)
+    return discretize(w / a, num_lvl, -1.0, 1.0) * a
+
+
+def fake_quant_act(x, alpha_act, num_lvl):
+    """Unsigned activation fake-quant: clip(x/a, 0, 1) on the grid, times a."""
+    a = _scalar(alpha_act, x)
+    return discretize(x / a, num_lvl, 0.0, 1.0) * a
+
+
+def act_codes(x, alpha_act, num_lvl):
+    """The int8 activation codes ``round(clip(x/a, 0, 1) * (n-1))`` that an
+    int8 conv consumes (the JAX ``qconv3x3_int8_ndhwc`` prologue)."""
+    a = _scalar(alpha_act, x)
+    return torch.round(torch.clamp(x / a, 0.0, 1.0)
+                       * (num_lvl - 1)).to(torch.int8)
+
+
+def pack_int_weight(qweight, alpha_w, num_lvl):
+    """Fake-quantized weight (values = alpha_w * grid) -> integer codes
+    ``round((w/alpha + 1) / delta)`` in [0, num_lvl-1]; uint8 for <= 256
+    levels, int32 otherwise.  NumPy in and out, torch layout (O, I, D, H, W);
+    ``alpha_w`` is a scalar or a per-output-channel vector."""
+    w = np.asarray(qweight)
+    b = w / _alpha_bcast(alpha_w, w.ndim)
+    delta = 2.0 / (num_lvl - 1)
+    w_int = np.round((b + 1.0) / delta)
+    return w_int.astype(np.uint8 if num_lvl <= 256 else np.int32)
+
+
+def _alpha_bcast(alpha_w, ndim):
+    a = np.asarray(alpha_w, np.float64)
+    if a.ndim == 0:
+        return float(a)
+    return a.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def unpack_int_weight(w_int, alpha_w, num_lvl, dtype=np.float32):
+    """Inverse of :func:`pack_int_weight` (NumPy)."""
+    delta = 2.0 / (num_lvl - 1)
+    b = np.asarray(w_int).astype(dtype) * delta - 1.0
+    return (_alpha_bcast(alpha_w, b.ndim) * b).astype(dtype)
+
+
+def project_by_iter_np(var, num_lvl, lo=-1.0, hi=1.0, tol=1e-5):
+    """Float64 NumPy oracle of the alternating (scale, code) search:
+    b = discretize(var/a), a = <b,var>/<b,b> until |a - a_prev| <= tol or
+    ``num_lvl*100`` iterations.  Returns (a, b)."""
+    v = np.asarray(var, dtype=np.float64)
+    max_iter = int(num_lvl) * 100
+    a = float(np.abs(v).mean())
+    a_prev = -999.0
+    c = 0
+    delta = (hi - lo) / (num_lvl - 1)
+
+    def disc(x):
+        return np.round((np.clip(x, lo, hi) - lo) / delta) * delta + lo
+
+    while abs(a - a_prev) > tol and c < max_iter:
+        b = disc(v / a)
+        a_prev = a
+        den = float((b * b).sum())
+        if den > 0:
+            a = float((b * v).sum()) / den
+        c += 1
+    b = disc(v / a)
+    return a, b.astype(var.dtype if hasattr(var, "dtype") else np.float32)

@@ -1,0 +1,149 @@
+"""The port on a CUDA card: K1 (csrc/qconv3d_int8.cu) against its plain
+PyTorch version, and the int8 serving slice of a small net with K1 against
+the same slice with the plain K1.  Both must agree exactly: the kernel
+accumulates in integers and rounds its float epilogue as the plain version
+does.
+
+These tests are marked ``cuda`` and skip without a card.  This file imports
+neither JAX nor the JAX package, so it also runs where JAX is not
+installed:
+
+    python -m pytest tests/test_torch_port_cuda.py -q --noconftest -m cuda
+
+The K1 cases are shared with test_torch_port_qconv3d.py, which holds the
+plain version against the JAX package on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from efficientq_tpu_torch import nnir
+from efficientq_tpu_torch.data import synthetic
+from efficientq_tpu_torch.eval import sliding
+from efficientq_tpu_torch.kernels import qconv3d as K
+from efficientq_tpu_torch.models import UResQConfig, build_uresq
+from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+from efficientq_tpu_torch.quant import fake_quant_weight
+
+NA = 4  # activation levels (W4A4 preset)
+
+CASES = {
+    "plain-c3": dict(c=3),
+    "plain-c4-dil2": dict(c=4, dil=2),
+    "plain-c8": dict(c=8),
+    "quant-c8": dict(c=8, quant=True),
+    "quant-c3-dil2": dict(c=3, dil=2, quant=True),
+    "residual-c4": dict(c=4, res=True),
+    "residual-relu-c8": dict(c=8, res=True, relu=True),
+    "pool-even-c4": dict(c=4, pool=True),
+    "pool-odd-c4": dict(c=4, pool=True, odd=True),
+    "xq-res-relu-pool-c8-dil2": dict(c=8, dil=2, xq=True, res=True,
+                                     relu=True, pool=True),
+    "xq-c4": dict(c=4, xq=True),
+    "per-channel-c8": dict(c=8, per_channel=True),
+    "per-channel-res-pool-c3": dict(c=3, per_channel=True, res=True,
+                                    pool=True),
+}
+
+
+def make_case(seed, c, dil=1, quant=False, res=False, relu=False, pool=False,
+              odd=False, xq=False, per_channel=False):
+    """NumPy inputs of one K1 call (N=2, 6^3 or 5x6x7 volume, O=6)."""
+    rng = np.random.RandomState(seed)
+    n, d, h, w, o = 2, (5 if odd else 6), 6, (7 if odd else 6), 6
+    x = (np.abs(rng.randn(n, d, h, w, c)) * 0.8).astype(np.float32)
+    alpha = np.float32(0.9)
+    if xq:
+        x = np.round(np.clip(x / alpha, 0, 1) * (NA - 1)).astype(np.int8)
+    kw = dict(dilation=dil, residual_relu=relu, pool=pool, x_quantized=xq)
+    if quant:
+        kw.update(quant_alpha=np.float32(1.3), quant_qlvl=8)
+    return dict(
+        x=x,
+        codes=(2 * rng.randint(0, 4, size=(3, 3, 3, c, o)) - 3).astype(np.int8),
+        bias=rng.randn(o).astype(np.float32), alpha=alpha,
+        scale=(rng.rand(o).astype(np.float32) * 0.1 if per_channel
+               else np.float32(0.0371)),
+        residual=rng.randn(n, d, h, w, o).astype(np.float32) if res else None,
+        kw=kw)
+
+
+def run_port(case, fn=K.qconv3x3_int8_ndhwc, device="cpu"):
+    """One K1 call of the port on ``device``; outputs as NumPy arrays."""
+    def t(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    kw = dict(case["kw"])
+    if "quant_alpha" in kw:
+        kw["quant_alpha"] = t(kw["quant_alpha"])
+    out = fn(t(case["x"]), t(case["codes"]), t(case["bias"]), t(case["alpha"]),
+             t(case["scale"]), NA, residual=t(case["residual"]), **kw)
+    return tuple(o.cpu().numpy() for o in (out if isinstance(out, tuple)
+                                          else (out,)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_k1_matches_plain(name, cuda):
+    case = make_case(sorted(CASES).index(name), **CASES[name])
+    before = K.qconv3x3_int8_ndhwc.launches
+    got = run_port(case, device=cuda)
+    ref = run_port(case, K.qconv3x3_int8_ndhwc_reference, device=cuda)
+    assert K.qconv3x3_int8_ndhwc.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_rejects_mismatched_weights(cuda):
+    x = torch.zeros(1, 4, 4, 4, 8, device=cuda)
+    codes = torch.zeros(3, 3, 3, 8, 4, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="packed weights"):
+        K.qconv3x3_int8_ndhwc(x, codes, None, 1.0, 1.0, NA,
+                              w_packed=K.pack_weights(codes[..., :2]))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_slice_matches_plain_k1(cuda):
+    cfg = UResQConfig(num_mod=4, num_classes=3, depth_config=[1, 1, 1],
+                      width_config=[8, 16, 8], dilation_config=[1, 2, 1],
+                      init_stride=(2, 2, 2), drop_rate=0.0, blk_type="mid",
+                      ds="simple", ds_depth_limit=3, fuse_bn=True,
+                      quantize=True, qlvl_w=4, qlvl_act=4, q_first=(256, -1),
+                      q_last=(256, -1))
+    graph = build_uresq(cfg)
+    fg, fv = fold_bn(graph, nnir.init(graph, 0))
+    for node in fg.qconv_nodes():
+        q = node.attrs["qcfg"]
+        p = fv["params"][node.name]
+        if q.q_weight:
+            a = torch.clamp_min(p["kernel"].abs().max(), 1e-8)
+            p["kernel"] = fake_quant_weight(p["kernel"], a, q.qlvl_w)
+            p["alpha_w"] = a
+        if q.q_act:
+            p["alpha_act"] = torch.tensor(0.8)
+    dg, dv = to_int8_inference(fg, fv)
+    net = nnir.GraphModule(dg, dv, mode="quantized").to(cuda)
+    images, _ = synthetic.make_subject(np.random.default_rng(0), "brats",
+                                       (36, 40, 44))
+    vol = torch.from_numpy(np.stack(list(images.values()), -1)[None]).to(cuda)
+    kw = dict(patch_batch=2, mode="quantized", heads=slice(-1, None),
+              hard_pred=True, multilabel=True)
+    before = K.qconv3x3_int8_ndhwc.launches
+    got = sliding.make_volume_inferencer(dg, **kw)(
+        net.variables, vol, (32, 32, 32), (8, 8, 8))
+    n_forwards = -(-len(sliding.patch_grid((36, 40, 44), 32, 8)) // 2)
+    assert K.qconv3x3_int8_ndhwc.launches - before == 6 * n_forwards
+    ref = sliding.make_volume_inferencer(
+        dg, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, **kw)(
+        net.variables, vol, (32, 32, 32), (8, 8, 8))
+    assert got.shape == (1, 1, 36, 40, 44, 3) and got.dtype == torch.uint8
+    assert torch.equal(got, ref)
