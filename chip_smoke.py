@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's int8 serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 Phases, each printed on its own lines:
 
 0. setup: the card (as nvidia-smi names it), torch / CUDA / nvcc versions,
-   and the K1 build (efficientq_tpu_torch/csrc/qconv3d_int8.cu, nvcc for
-   sm_90a) with its build seconds;
+   and the builds of K1 (efficientq_tpu_torch/csrc/qconv3d_int8.cu) and K2
+   (csrc/stem_s2d.cu), one nvcc for sm_90a per source, started together,
+   with the build seconds;
 1. K1 against its plain PyTorch version on the card, at every conv shape
    and epilogue of the flagship BraTS net (N = 2, 128^3 patches) and at
    dilation 1 and 2: outputs must be identical (torch.equal); then the
@@ -22,8 +23,37 @@ Phases, each printed on its own lines:
    K1 must have launched 14 times per patch-batch forward; the first
    volume's prediction must match a run with the plain K1 on the card;
    Dice per class against the synthetic labels must be finite.
+3. K2 and K1 at bfloat16 against their plain versions on the card: K2 at
+   the flagship geometry (B = 8 s2d patches of the BraTS grid, both
+   z parities, C8 = O = 32) with float32 and bfloat16 outputs, and at an
+   odd small geometry (C = 4, O = 8, depth 23): float32 output within
+   1e-4 max|y|, bfloat16 output within one bf16 ulp (or, for values that
+   small, within 1e-4 max|y|), int8 codes equal
+   except at .5 ties of the plain clip(y/alpha, 0, 1)(n-1) (within 1e-4;
+   at bfloat16 also where the rounded outputs differ), counted; K1 with
+   bfloat16 output and residual at every flagship conv shape and epilogue
+   (torch.equal).  Times: median of 20 launches after 3 warm-ups, with
+   the plain version's, one PyTorch library call's (cuDNN) and the bound
+   (bytes over 3.35 TB/s, operations over the tensor-core peak).
+4. the s2d bf16 serving slice (``--serve_stem s2d``): the same net and
+   volumes through ``ptq.deploy.make_s2d_volume_inferencer`` (host
+   volume, channels-first tail, K2 stem, K1 at bfloat16, final head,
+   multilabel hard prediction, patch batch "auto" = the whole grid of 8).
+   K2 must launch once and K1 14 times per patch-batch forward; volume 1
+   must agree on >= 0.999 of voxel-classes with the direct bf16 inferencer
+   (cuDNN stem), equal the s2d path on the plain K1, and agree on >= 0.99
+   with the s2d path on the plain K2 and K1: the float64 stem rounds a
+   few bf16 outputs and codes apart and the random-weight net amplifies
+   them; with the plain stem's codes swapped in, the K2 path must equal
+   the plain path (a run with its activation swapped in is printed);
+   Dice must be finite.  Also the s2d transform's two placements (on the host before
+   the upload, on the card after it), timed and checked bit-equal.
 
-Then one JSON line describing each kernel of the path, the card's
+``--profile`` adds a torch.profiler probe of one volume of each serving
+path (phases 2 and 4): wall time, device time and the kernels by device
+time.
+
+Then one JSON line describing each kernel of the paths, the card's
 nvidia-smi line, and the result line.  With no CUDA device, or when any
 phase fails, it exits non-zero and prints no result.
 """
@@ -42,6 +72,11 @@ import torch
 
 K1_SOURCE = "efficientq_tpu_torch/csrc/qconv3d_int8.cu"
 K1_REPLACES = "efficientq_tpu/pallas/qconv3d.py:439"
+K2_SOURCE = "efficientq_tpu_torch/csrc/stem_s2d.cu"
+K2_REPLACES = "efficientq_tpu/pallas/stem.py:328"
+# NVIDIA H100 SXM published peaks (dense): device memory bytes/s, bf16 and
+# int8 tensor-core operations/s
+HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
 # flagship BraTS stages at a 128^3 patch (init stride 2): (extent, width)
 STAGES = [(64, 32), (32, 64), (16, 128), (8, 256), (16, 128), (32, 64),
           (64, 32)]
@@ -49,6 +84,11 @@ N_BATCH = 2
 VOL_SHAPE = (155, 240, 240)
 PATCH, OVERLAP = (128, 128, 128), (16, 16, 16)
 AGREE_MIN = 0.9999
+AGREE_S2D = 0.999  # bf16 reduction order (the JAX test's own level)
+# the plain K2 (float64 sums) against K2 (float32 tensor-core sums): the
+# random-weight net amplifies the stem's rounding-level differences
+# (phase 4 prints which of them moves the predictions)
+AGREE_PLAIN_S2D = 0.99
 
 
 class SmokeFailure(RuntimeError):
@@ -68,7 +108,7 @@ def gpu_line() -> str:
 
 
 def setup():
-    from efficientq_tpu_torch.kernels import build, qconv3d
+    from efficientq_tpu_torch.kernels import build, qconv3d, stem
 
     smi = gpu_line()
     print(smi)
@@ -80,9 +120,11 @@ def setup():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
+    build.load_all(["qconv3d_int8.cu", "stem_s2d.cu"])
     qconv3d._lib()
-    print(f"[setup] built K1 ({K1_SOURCE}, sm_90a) in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    stem._lib()
+    print(f"[setup] built K1 ({K1_SOURCE}) and K2 ({K2_SOURCE}) for sm_90a "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
     return smi
 
 
@@ -211,7 +253,7 @@ def build_net(seed: int):
 
     cfg = preset_config("brats", quantize=True)
     graph = build_uresq(cfg)
-    fgraph, fvars = fold_bn(graph, nnir.init(graph, seed))
+    fgraph, fvars = fold_bn(graph, nnir.init(graph, seed, device="cpu"))
     for node in fgraph.qconv_nodes():
         qcfg = node.attrs["qcfg"]
         p = fvars["params"][node.name]
@@ -231,7 +273,8 @@ def build_net(seed: int):
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, "smoke_state_in_int8_compress.npz")
     np.savez_compressed(path, state_dict=sd)
-    fresh = nnir.init(graph, seed + 1)  # overwritten by the export
+    # overwritten by the export
+    fresh = nnir.init(graph, seed + 1, device="cpu")
     _, fresh = fold_bn(graph, fresh)
     lvars = torch_io.load_int8_checkpoint(fgraph, fresh, path)
     os.remove(path)
@@ -311,27 +354,435 @@ def phase2(seed: int):
 
     # logits of one patch batch are finite and of the expected shape
     with torch.inference_mode():
-        x = vols[0][:, :128, :128, :128].to(dev).expand(2, -1, -1, -1, -1)
-        logits = net(x.contiguous(), heads=slice(-1, None))
-    check(tuple(logits.shape) == (1, 2, 128, 128, 128, 3)
+        x = vols[0][:, :PATCH[0], :PATCH[1], :PATCH[2]].to(dev)
+        logits = net(x.expand(2, -1, -1, -1, -1).contiguous(),
+                     heads=slice(-1, None))
+    check(tuple(logits.shape) == (1, 2, *PATCH, 3)
           and bool(torch.isfinite(logits).all()),
           f"logits {tuple(logits.shape)} not finite")
-    return launches
+    return launches, dict(dgraph=dgraph, net=net, vols=vols,
+                          subjects=subjects, infer=infer)
+
+
+def _bound(nbytes: float, ops: float, peak: float):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k1_cost(n, s, c, kw, out_bytes, res_bytes):
+    """Bytes that one K1 call must move (codes in, weights, residual,
+    outputs, each once) and its int8 operations, C = O = c."""
+    vox = n * s ** 3
+    nbytes = vox * c + 27 * c * c + 8 * c
+    nbytes += vox * c * (1 if kw.get("quant_qlvl") else out_bytes)
+    if kw.get("residual") is not None:
+        nbytes += vox * c * res_bytes
+    if kw.get("pool"):
+        nbytes += n * (s // 2) ** 3 * c * out_bytes
+    return nbytes, 2 * vox * 27 * c * c
+
+
+def _check_stem(label, y, q, yr, qr, alpha, qlvl):
+    """K2 against its plain version at the module's tolerances; returns
+    (max |difference| of y, int8 codes that differ at excused places)."""
+    yf, rf = y.float(), yr.float()
+    diff = (yf - rf).abs()
+    err = float(diff.max())
+    tol = 1e-4 * float(rf.abs().max())
+    if y.dtype == torch.float32:
+        check(err <= tol, f"K2 {label}: max |diff| {err} > {tol}")
+        apart = torch.zeros_like(q, dtype=torch.bool)
+    else:  # bfloat16: adjacent bit patterns (the values are >= 0), or
+        # both within the float32 tolerance of a value that small (the
+        # relu boundary, where one ulp is tiny)
+        ulps = (y.view(torch.int16).int() - yr.view(torch.int16).int()).abs()
+        far = (ulps > 1) & (diff > tol)
+        check(not bool(far.any()), f"K2 {label}: {int(far.sum())} outputs "
+              f"more than one bf16 ulp and {tol} apart")
+        apart = ulps > 0
+    pre = torch.clamp(rf / alpha, 0.0, 1.0) * (qlvl - 1)
+    tie = ((pre - pre.floor()) - 0.5).abs() <= 1e-4
+    qdiff = q != qr
+    bad = int((qdiff & ~tie & ~apart).sum())
+    check(bad == 0, f"K2 {label}: {bad} int8 codes differ away from ties")
+    return err, int(qdiff.sum())
+
+
+def phase3(seed: int):
+    """K2 and K1-bf16 against their plain versions; times and bounds."""
+    import torch.nn.functional as F
+
+    from efficientq_tpu_torch.eval.sliding import patch_grid
+    from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.kernels import stem
+    from efficientq_tpu_torch.quant import act_codes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    bf16 = torch.bfloat16
+    out = {}
+
+    # K2 at the flagship geometry and an odd small one
+    def stem_inputs(vol_shape, c, o, patch, overlap):
+        rng = np.random.RandomState(seed + o)
+        vol = torch.randn(1, *vol_shape, c, device=dev, generator=gen)
+        starts = patch_grid(vol_shape, patch, overlap)
+        x, par = stem.extract_s2d_patches(vol, starts, patch)
+        w3 = rng.randn(3, 3, 3, c, o).astype(np.float32) * 0.2
+        we, wo = (torch.from_numpy(w).to(dev, bf16)
+                  for w in stem.s2d_stem_weights(w3))
+        bias = torch.from_numpy(rng.randn(o).astype(np.float32) * 0.1)
+        return x, par, we, wo, bias.to(dev)
+
+    k2_err, geos = 0.0, [
+        ("flagship", VOL_SHAPE, 4, 32, PATCH, OVERLAP, 1.0),
+        ("odd small", (23, 32, 32), 4, 8, (16, 16, 16), (4, 4, 4), 0.7)]
+    for label, vol_shape, c, o, patch, overlap, alpha in geos:
+        x, par, we, wo, bias = stem_inputs(vol_shape, c, o, patch, overlap)
+        check(0 < int(par.sum()) < par.numel(),
+              f"K2 {label}: parities {par.tolist()} are not mixed")
+        for dt in (torch.float32, bf16):
+            args = (x, par, we, wo, bias, alpha, 4)
+            y, q = stem.stem_s2d_conv(*args, out_dtype=dt)
+            yr, qr = stem.stem_s2d_conv_reference(*args, out_dtype=dt)
+            torch.cuda.synchronize()
+            err, excused = _check_stem(f"{label} {dt}", y, q, yr, qr, alpha,
+                                       4)
+            k2_err = max(k2_err, err)
+            print(f"[phase3] K2 {label} B={x.shape[0]} {tuple(x.shape[1:])}"
+                  f" -> {o}, parities {par.tolist()}, out {dt}: max |diff| "
+                  f"{err:.3e} (max |y| {float(yr.float().abs().max()):.4f}),"
+                  f" int8 codes differing at ties or rounding: {excused} "
+                  f"of {q.numel()}", flush=True)
+            del y, q, yr, qr
+        if label == "flagship":
+            args = (x, par, we, wo, bias, alpha, 4)
+            tk = _median_ms(lambda: stem.stem_s2d_conv(*args, out_dtype=bf16))
+            tp = _median_ms(lambda: stem.stem_s2d_conv_reference(
+                *args, out_dtype=bf16))
+            # the nearest library call: cuDNN's bf16 stride-2 conv with
+            # bias on the 8 raw (not s2d) 128^3 x 4 patches
+            xl = torch.randn(x.shape[0], *PATCH, c, device=dev,
+                             generator=gen).to(bf16).permute(0, 4, 1, 2, 3)
+            wl = torch.randn(o, c, 3, 3, 3, device=dev, generator=gen,
+                             dtype=bf16)
+            bl = torch.randn(o, device=dev, generator=gen, dtype=bf16)
+            tl = _median_ms(lambda: F.conv3d(xl, wl, bl, stride=2,
+                                             padding=1))
+            b, d1, h, w, c8 = x.shape
+            vox = b * (d1 - 1) * h * w
+            nbytes = x.numel() * 2 + 2 * we.numel() * 2 + o * 4 + vox * o * 3
+            bound, by = _bound(nbytes, 2 * vox * o * 8 * c8, BF16_OPS)
+            print(f"[phase3] K2 flagship, bf16 out: K2 {tk:.4f} ms  plain "
+                  f"{tp:.4f} ms  cuDNN bf16 stride-2 conv + bias on "
+                  f"{tuple(xl.shape)} {tl:.4f} ms  bound {bound:.4f} ms "
+                  f"({by}: {nbytes / 1e6:.1f} MB, "
+                  f"{vox * o * 8 * c8 / 1e9:.2f} G multiply-adds)",
+                  flush=True)
+            out["k2"] = dict(max_abs_err=k2_err, ms=tk, plain_ms=tp,
+                             bound_ms=bound, bound_by=by, library_ms=tl)
+        del x, par, we, wo, bias
+    out["k2"]["max_abs_err"] = k2_err
+    torch.cuda.empty_cache()
+
+    # K1 with bf16 output and residual at the s2d path's batch (the whole
+    # grid): equal to the plain version at every flagship shape and
+    # epilogue; times, library calls and bounds of one forward's 14 convs
+    # at bfloat16 (the s2d path) and float32 (the same convs, f32 out)
+    n = len(patch_grid(VOL_SHAPE, PATCH, OVERLAP))
+    one = torch.tensor(1.0, device=dev)
+    k1_err, checked = 0.0, 0
+    tot = dict(bf16=0.0, f32=0.0, plain=0.0, library=0.0, bound=0.0,
+               bound_f32=0.0, t_bytes=0.0, t_ops=0.0)
+    for i, (s, c) in enumerate(STAGES):
+        encoder = i < len(STAGES) // 2
+        x = torch.randn(n, s, s, s, c, device=dev, generator=gen)
+        w = (2 * torch.randint(0, 4, (3, 3, 3, c, c), device=dev,
+                               generator=gen) - 3).to(torch.int8)
+        b = torch.randn(c, device=dev, generator=gen)
+        scale = torch.tensor(0.05, device=dev)
+        res = torch.randn(n, s, s, s, c, device=dev, generator=gen).to(bf16)
+        qa = act_codes(x, one, 4)
+        variants = {
+            "none": (x.to(bf16), {}),
+            "block1 (quant)": (x.to(bf16), dict(quant_alpha=one,
+                                                quant_qlvl=4)),
+            "block2 (codes+residual+relu" + ("+pool)" if encoder else ")"):
+                (qa, dict(x_quantized=True, residual=res, residual_relu=True,
+                          pool=encoder)),
+        }
+        for name, (xin, kw) in variants.items():
+            for dil in ((1, 2) if i < 4 else (1,)):
+                a = (xin, w, b, one, scale, 4)
+                got = K.qconv3x3_int8_ndhwc(*a, dilation=dil, out_dtype=bf16,
+                                            **kw)
+                ref = K.qconv3x3_int8_ndhwc_reference(
+                    *a, dilation=dil, out_dtype=bf16, **kw)
+                torch.cuda.synchronize()
+                for g, r in zip(got if isinstance(got, tuple) else (got,),
+                                ref if isinstance(ref, tuple) else (ref,)):
+                    k1_err = max(k1_err, float((g.float() - r.float()).abs()
+                                               .max()))
+                    check(g.dtype == r.dtype and torch.equal(g, r),
+                          f"K1 bf16 != plain at stage{i + 1} {s}^3x{c} "
+                          f"{name} dil={dil}")
+                checked += 1
+                del got, ref
+        for name, (xin, kw) in list(variants.items())[1:]:
+            kwq = dict(kw, x_quantized=True)  # time the conv, not the prologue
+            kw32 = dict(kwq, residual=kwq["residual"].float()
+                        if "residual" in kwq else None)
+            a = (qa, w, b, one, scale, 4)
+            tk = _median_ms(lambda: K.qconv3x3_int8_ndhwc(
+                *a, out_dtype=bf16, **kwq))
+            t32 = _median_ms(lambda: K.qconv3x3_int8_ndhwc(*a, **kw32))
+            tp = _median_ms(lambda: K.qconv3x3_int8_ndhwc_reference(
+                *a, out_dtype=bf16, **kwq))
+            xl = qa.to(bf16).permute(0, 4, 1, 2, 3)
+            wl = w.to(bf16).permute(4, 3, 0, 1, 2)
+            tl = _median_ms(lambda: F.conv3d(xl, wl, padding=1))
+            cost16 = _k1_cost(n, s, c, kw, 2, 2)
+            bound = _bound(*cost16, INT8_OPS)[0]
+            tot["bf16"] += tk
+            tot["f32"] += t32
+            tot["plain"] += tp
+            tot["library"] += tl
+            tot["bound"] += bound
+            tot["bound_f32"] += _bound(*_k1_cost(n, s, c, kw, 4, 4),
+                                       INT8_OPS)[0]
+            tot["t_bytes"] += cost16[0] / HBM_BPS
+            tot["t_ops"] += cost16[1] / INT8_OPS
+            print(f"[phase3] stage{i + 1} N={n} {s}^3 C=O={c} {name}: K1 "
+                  f"bf16 out {tk:.4f} ms  f32 out {t32:.4f} ms  plain (bf16) "
+                  f"{tp:.4f} ms  cuDNN bf16 conv of the codes {tl:.4f} ms  "
+                  f"bound (bf16) {bound:.4f} ms", flush=True)
+            del xl, wl
+        del x, w, res, qa, variants
+        torch.cuda.empty_cache()
+    print(f"[phase3] {checked} comparisons at N={n}: K1 bf16 out/residual == "
+          f"plain (torch.equal) everywhere; one forward's 14 convs: K1 bf16 "
+          f"{tot['bf16']:.4f} ms, K1 f32 {tot['f32']:.4f} ms, plain "
+          f"{tot['plain']:.4f} ms, cuDNN bf16 conv of the codes (no "
+          f"epilogue) {tot['library']:.4f} ms, bound {tot['bound']:.4f} ms "
+          f"(f32 out: {tot['bound_f32']:.4f} ms)", flush=True)
+    out["k1"] = dict(max_abs_err=k1_err, ms=tot["bf16"],
+                     plain_ms=tot["plain"], library_ms=tot["library"],
+                     bound_ms=tot["bound"],
+                     bound_by=("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                               else "operations"),
+                     f32_ms=tot["f32"], f32_bound_ms=tot["bound_f32"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase4(seed: int, served):
+    """The s2d bf16 serving slice, checked against the direct bf16 path
+    and the plain kernels; returns (K1 launches, K2 launches, inferencer)."""
+    from efficientq_tpu_torch.data.labels import split_label_brats
+    from efficientq_tpu_torch.eval.metrics import dice
+    from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
+                                                   patch_grid)
+    from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.kernels import stem
+    from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
+
+    dev = torch.device("cuda")
+    dgraph, variables = served["dgraph"], served["net"].variables
+    vols = [v.numpy() for v in served["vols"]]
+    starts = patch_grid(VOL_SHAPE, PATCH, OVERLAP)
+    forwards = 1  # patch batch "auto": the whole grid in one forward
+    kw = dict(multilabel=True, heads=slice(-1, None), device=dev)
+    infer = make_s2d_volume_inferencer(dgraph, variables, **kw)
+    check(infer is not None, "no eligible s2d stem in the deployed graph")
+
+    # the s2d transform: on the host before the upload, or on the card
+    # after it (the inferencer's choice); bits must be equal
+    need = stem.s2d_need_planes(starts, PATCH)
+    img = served["vols"][0]
+
+    def on_host():
+        return stem.s2d_volume(img, need).to(dev)
+
+    def on_card():
+        return stem.s2d_volume(img.to(dev), need)
+
+    check(torch.equal(on_host().view(torch.int16),
+                      on_card().view(torch.int16)),
+          "s2d on the host and on the card differ")
+    times = {"host": [], "card": []}
+    for fn, key in [(on_host, "host"), (on_card, "card")] * 3 + [
+            (on_card, "card"), (on_host, "host")] * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+    print(f"[phase4] s2d transform of one volume incl. its upload (median "
+          f"of 5, ms): on the host then upload bf16 "
+          f"{statistics.median(times['host']):.4f}, upload f32 then on the "
+          f"card {statistics.median(times['card']):.4f} (the inferencer's)",
+          flush=True)
+
+    preds, secs = [], []
+    torch.cuda.synchronize()
+    K.qconv3x3_int8_ndhwc.launches = 0
+    stem.stem_s2d_conv.launches = 0
+    for vol in vols:
+        t0 = time.perf_counter()
+        pred = infer(None, vol, PATCH, OVERLAP)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        preds.append(pred)
+    k1, k2 = K.qconv3x3_int8_ndhwc.launches, stem.stem_s2d_conv.launches
+    print(f"[phase4] K2 launches {k2}, K1 launches {k1} over {3 * forwards} "
+          f"patch-batch forwards ({len(starts)} patches per volume, batch "
+          f"{len(starts)})", flush=True)
+    check(k2 == 3 * forwards, f"K2 launched {k2} times, expected "
+          f"{3 * forwards}")
+    check(k1 == 14 * 3 * forwards, f"K1 launched {k1} times, expected "
+          f"{14 * 3 * forwards}")
+    vps = 2 / (secs[1] + secs[2])
+    print(f"[phase4] seconds per volume {[round(x, 4) for x in secs]}; "
+          f"volumes/s over volumes 2-3: {vps:.4f}", flush=True)
+
+    for i, (pred, (_, label)) in enumerate(zip(preds, served["subjects"])):
+        check(tuple(pred.shape) == (1, 1, *VOL_SHAPE, 3)
+              and pred.dtype == torch.uint8 and int(pred.max()) <= 1,
+              f"volume {i + 1}: prediction {tuple(pred.shape)} {pred.dtype}")
+        p = pred[0, 0].cpu().numpy()
+        target = split_label_brats(label)
+        d = [dice(p[..., c], target[c]) for c in range(3)]
+        check(all(np.isfinite(d)), f"volume {i + 1}: Dice {d}")
+        print(f"[phase4] volume {i + 1} Dice WT/TC/ET vs synthetic labels: "
+              f"{[round(x, 6) for x in d]}", flush=True)
+
+    direct = make_volume_inferencer(
+        dgraph, patch_batch=len(starts), mode="quantized",
+        heads=slice(-1, None), hard_pred=True, multilabel=True,
+        compute_dtype=torch.bfloat16)(variables, served["vols"][0].to(dev),
+                                      PATCH, OVERLAP)
+    plain_k1 = make_s2d_volume_inferencer(
+        dgraph, variables, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        **kw)(None, vols[0], PATCH, OVERLAP)
+    plain = make_s2d_volume_inferencer(
+        dgraph, variables, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        stem_conv=stem.stem_s2d_conv_reference, **kw)(
+        None, vols[0], PATCH, OVERLAP)
+    f32 = served["infer"](variables, served["vols"][0].to(dev), PATCH,
+                          OVERLAP)
+    agree = {}
+    for what, ref in (("the direct bf16 path (cuDNN stem)", direct),
+                      ("the s2d path on the plain K1", plain_k1),
+                      ("the s2d path on the plain K2 and K1", plain),
+                      ("phase 2's int8 float32 path", f32)):
+        agree[what] = float((ref == preds[0]).float().mean())
+        print(f"[phase4] volume 1 agrees with {what} on "
+              f"{agree[what]:.8f} of {ref.numel()} voxel-classes",
+              flush=True)
+    check(agree["the direct bf16 path (cuDNN stem)"] >= AGREE_S2D,
+          "s2d path vs the direct bf16 path")
+    check(torch.equal(plain_k1, preds[0]), "s2d path: K1 vs plain K1")
+
+    # The plain K2 sums in float64, K2 on the tensor cores in float32: a
+    # few bf16 stem outputs round apart, and a code can sit on a .5 tie.
+    # Which of the two moves the hard predictions: the K2 path with the
+    # plain stem's codes, and with the plain stem's activation.
+    def mixed(plain_codes):
+        def stem_conv(*a, **k):
+            y, q = stem.stem_s2d_conv(*a, **k)
+            yp, qp = stem.stem_s2d_conv_reference(*a, **k)
+            n_apart = (int((y != yp).sum()), int((q != qp).sum()))
+            print(f"[phase4]   K2 and its plain version round apart on "
+                  f"{n_apart[0]} bf16 stem outputs and {n_apart[1]} int8 "
+                  f"codes of this batch", flush=True)
+            return (y, qp) if plain_codes else (yp, q)
+        return stem_conv
+
+    for plain_codes in (True, False):
+        got = make_s2d_volume_inferencer(
+            dgraph, variables, stem_conv=mixed(plain_codes), **kw)(
+            None, vols[0], PATCH, OVERLAP)
+        print(f"[phase4] K2 path with the plain stem's "
+              f"{'int8 codes' if plain_codes else 'bf16 activation'}: "
+              f"agrees with the K2 path on "
+              f"{float((got == preds[0]).float().mean()):.8f}, with the "
+              f"plain path on {float((got == plain).float().mean()):.8f}",
+              flush=True)
+        if plain_codes:  # the rest of the path is exact
+            check(torch.equal(got, plain), "K2 path with the plain stem's "
+                  "codes != the plain path")
+    check(agree["the s2d path on the plain K2 and K1"] >= AGREE_PLAIN_S2D,
+          "s2d path vs the plain K2 and K1")
+    return k1, k2, infer
+
+
+def profile_paths(served, s2d_infer):
+    """torch.profiler over one volume of each serving path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    vol = served["vols"][1]
+    runs = [("int8 f32 path (phase 2)", lambda: served["infer"](
+                served["net"].variables, vol.to(dev), PATCH, OVERLAP)),
+            ("s2d bf16 path (phase 4)", lambda: s2d_infer(
+                None, vol.numpy(), PATCH, OVERLAP))]
+    for name, run in runs:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        from torch.autograd import DeviceType
+
+        # device-side events only (kernels and copies): the host-side aten
+        # ops carry the same device time again
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key != "Activity Buffer Request"]
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+
+        busy = sum(dev_us(e) for e in events) / 1e3
+        print(f"[profile] {name}: wall {wall:.3f} ms under the profiler, "
+              f"device busy {busy:.3f} ms (idle share "
+              f"{max(0.0, 1 - busy / wall):.4f})", flush=True)
+        for e in sorted(events, key=dev_us, reverse=True)[:15]:
+            print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key[:90]}", flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one volume of each serving path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
     smi = setup()
     max_err, ms, plain_ms = phase1(args.seed)
-    launches = phase2(args.seed)
-    print(json.dumps({"kernels": [{
-        "name": "qconv3x3_int8_ndhwc", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]}))
+    k1_f32, served = phase2(args.seed)
+    p3 = phase3(args.seed)
+    k1_s2d, k2, s2d_infer = phase4(args.seed, served)
+    if args.profile:
+        profile_paths(served, s2d_infer)
+    # K1's numbers: one forward's 14 convs at the s2d path's batch and
+    # bfloat16 (phase 3); phase 1's float32 N = 2 forward beside them
+    k1 = dict(p3["k1"], max_abs_err=max(max_err, p3["k1"]["max_abs_err"]))
+    print(json.dumps({"kernels": [
+        {"name": "qconv3x3_int8_ndhwc", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": k1_f32 + k1_s2d,
+         "launches_by_path": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
+         **k1, "n2_f32_ms": ms, "n2_f32_plain_ms": plain_ms},
+        {"name": "stem_s2d_conv", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": k2, **p3["k2"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,15 @@
 //   accumulation in int32 with __dp4a, so the sum is exact.
 //
 // Epilogues, applied to the float32 y in this order (the Pallas kernel's):
-//   residual      y += residual            (relu'd first with res_relu)
+//   residual      y += residual            (float32 or bfloat16, converted
+//                                           to float32; relu'd first with
+//                                           res_relu)
 //   quant         out = int8(rint(clip(y / qalpha, 0, 1) * (qlvl - 1)))
-//   pool          pool = maxpool_2x2x2(y), VALID (odd trailing planes drop)
+//                 from the float32 y
+//   out dtype     y is stored as float32, or rounded to bfloat16 (nearest
+//                 even) with out_bf16
+//   pool          pool = maxpool_2x2x2 of the stored (rounded) y, VALID
+//                 (odd trailing planes drop)
 // Float steps use the _rn intrinsics so nothing is contracted into an FMA:
 // the reference rounds after the multiply and after the add.  rintf rounds
 // half to even, as jnp.round and torch.round do.
@@ -37,6 +43,7 @@
 // instruction) at the flagship widths C = O = 32..256, plus the
 // shared-memory round trips of a simple single-buffered tile.  Tensor
 // cores (mma/wgmma s8), TMA and a deeper pipeline are later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,13 +101,14 @@ qconv3d_int8_kernel(const int8_t* __restrict__ qa,
                     const int* __restrict__ w,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
-                    const float* __restrict__ residual,
+                    const void* __restrict__ residual,
                     const float* __restrict__ qalpha,
-                    float* __restrict__ out_f32,
+                    void* __restrict__ out_y,
                     int8_t* __restrict__ out_i8,
-                    float* __restrict__ out_pool,
+                    void* __restrict__ out_pool,
                     int N, int D, int H, int W, int C, int O, int dil,
-                    int res_relu, int quant_qlvl) {
+                    int res_relu, int quant_qlvl, int res_bf16,
+                    int out_bf16) {
   __shared__ int As[BK4][BM + 4];   // +4: conflict-free stores
   __shared__ int Bs[BK4][BN];
   __shared__ float Ys[BM][BN + 1];  // the tile's y, for the pool epilogue
@@ -187,7 +195,10 @@ qconv3d_int8_kernel(const int8_t* __restrict__ qa,
       if (v.inside && o < O) {
         y = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), scale[o]), bias[o]);
         if (residual) {
-          float r = residual[vox * O + o];
+          float r = res_bf16
+                        ? __bfloat162float(static_cast<const __nv_bfloat16*>(
+                              residual)[vox * O + o])
+                        : static_cast<const float*>(residual)[vox * O + o];
           if (res_relu) r = fmaxf(r, 0.0f);
           y = __fadd_rn(y, r);
         }
@@ -195,8 +206,12 @@ qconv3d_int8_kernel(const int8_t* __restrict__ qa,
           float q = fminf(fmaxf(__fdiv_rn(y, qa_alpha), 0.0f), 1.0f);
           q = __fmul_rn(q, static_cast<float>(quant_qlvl - 1));
           out_i8[vox * O + o] = static_cast<int8_t>(static_cast<int>(rintf(q)));
+        } else if (out_bf16) {
+          const __nv_bfloat16 yb = __float2bfloat16_rn(y);
+          static_cast<__nv_bfloat16*>(out_y)[vox * O + o] = yb;
+          y = __bfloat162float(yb);  // the pool takes the rounded value
         } else {
-          out_f32[vox * O + o] = y;
+          static_cast<float*>(out_y)[vox * O + o] = y;
         }
       }
       if (out_pool) Ys[tm + 16 * i][tn + 16 * j] = y;
@@ -223,7 +238,12 @@ qconv3d_int8_kernel(const int8_t* __restrict__ qa,
       float mx = Ys[cl * 8][ol];
 #pragma unroll
       for (int s = 1; s < 8; ++s) mx = fmaxf(mx, Ys[cl * 8 + s][ol]);
-      out_pool[(((n * Dp + zc) * Hp + yc) * Wp + xc) * O + o] = mx;
+      const long long p = (((n * Dp + zc) * Hp + yc) * Wp + xc) * O + o;
+      if (out_bf16) {  // exact: mx is one of the rounded values
+        static_cast<__nv_bfloat16*>(out_pool)[p] = __float2bfloat16_rn(mx);
+      } else {
+        static_cast<float*>(out_pool)[p] = mx;
+      }
     }
   }
 }
@@ -232,15 +252,17 @@ qconv3d_int8_kernel(const int8_t* __restrict__ qa,
 
 // Plain C entry point for ctypes.  Pointers that do not apply are null:
 // residual (no residual epilogue), qalpha and out_i8 (quant_qlvl == 0),
-// out_f32 (quant_qlvl > 0), out_pool (no pool epilogue).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success); it does not
-// synchronise.
+// out_y (quant_qlvl > 0), out_pool (no pool epilogue).  residual is
+// bfloat16 with res_bf16, else float32; out_y and out_pool are bfloat16
+// with out_bf16, else float32.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success); it does not synchronise.
 extern "C" int qconv3d_int8_launch(const void* qa, const void* w,
                                    const void* scale, const void* bias,
                                    const void* residual, const void* qalpha,
-                                   void* out_f32, void* out_i8, void* out_pool,
+                                   void* out_y, void* out_i8, void* out_pool,
                                    int N, int D, int H, int W, int C, int O,
                                    int dil, int res_relu, int quant_qlvl,
+                                   int res_bf16, int out_bf16,
                                    void* stream) {
   const long long cells = static_cast<long long>(N) * ((D + 1) / 2) *
                           ((H + 1) / 2) * ((W + 1) / 2);
@@ -250,9 +272,8 @@ extern "C" int qconv3d_int8_launch(const void* qa, const void* w,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qa), static_cast<const int*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<const float*>(residual), static_cast<const float*>(qalpha),
-      static_cast<float*>(out_f32), static_cast<int8_t*>(out_i8),
-      static_cast<float*>(out_pool), N, D, H, W, C, O, dil, res_relu,
-      quant_qlvl);
+      residual, static_cast<const float*>(qalpha), out_y,
+      static_cast<int8_t*>(out_i8), out_pool, N, D, H, W, C, O, dil, res_relu,
+      quant_qlvl, res_bf16, out_bf16);
   return static_cast<int>(cudaGetLastError());
 }

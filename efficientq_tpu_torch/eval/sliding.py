@@ -54,51 +54,80 @@ def visit_counter(starts, patch_size, vol_shape) -> np.ndarray:
 
 
 def stitch_patches(preds: torch.Tensor, starts, vol_shape,
+                   channels_first: bool = False,
                    normalize: bool = True) -> torch.Tensor:
     """(P, M, N, pd, ph, pw, C) -> (M, N, D, H, W, C), overlap-averaged.
 
-    Patches are added in grid order into a zero canvas, in place: each voxel
-    receives the same addends in the same order as the JAX package's
-    padded-patch sum.  ``normalize=False`` returns the raw overlap sum (the
-    visit count is positive and shared by all classes, so hard predictions
-    do not need the division)."""
-    d, h, w = vol_shape
-    P, M, N, pd, ph, pw, C = preds.shape
-    canvas = preds.new_zeros((M, N, d, h, w, C))
+    With ``channels_first`` the patches are (P, M, N, C, pd, ph, pw) and the
+    canvas (M, N, C, D, H, W) (the channels-first serving tail,
+    ``ptq.deploy.channels_first_tail``).
+
+    Patches are added in grid order into a zero canvas, in place, in the
+    patches' dtype: each voxel receives the same addends in the same order
+    as the JAX package's padded-patch sum.  ``normalize=False`` returns the
+    raw overlap sum (the visit count is positive and shared by all classes,
+    so hard predictions do not need the division)."""
+    lead = 3 if channels_first else 2  # canvas axes before D, H, W
+    pd, ph, pw = preds.shape[1 + lead:4 + lead]
+    canvas = preds.new_zeros((*preds.shape[1:1 + lead], *vol_shape,
+                              *preds.shape[4 + lead:]))
     for idx, (i, j, k) in enumerate(starts):
-        canvas[:, :, i:i + pd, j:j + ph, k:k + pw] += preds[idx]
+        canvas[(slice(None),) * lead + (slice(i, i + pd), slice(j, j + ph),
+                                        slice(k, k + pw))] += preds[idx]
     if not normalize:
         return canvas
     counter = torch.from_numpy(visit_counter(starts, (pd, ph, pw), vol_shape))
-    return canvas / counter.to(canvas.device)[None, None, :, :, :, None]
+    trailing = (1,) * (canvas.dim() - lead - 3)
+    return canvas / counter.to(canvas.device).reshape(*vol_shape, *trailing)
 
 
-def sliding_window_inference(model_fn: Callable[[torch.Tensor], torch.Tensor],
-                             image: torch.Tensor, patch_size, overlap,
-                             patch_batch: int = 1,
-                             normalize: bool = True) -> torch.Tensor:
+def sliding_window_inference(model_fn: Callable, image: torch.Tensor,
+                             patch_size, overlap, patch_batch: int = 1,
+                             normalize: bool = True,
+                             channels_first: bool = False,
+                             extract_fn: Callable = None,
+                             vol_shape=None) -> torch.Tensor:
     """Run ``model_fn`` ((B, pd, ph, pw, C) -> (M, B, pd, ph, pw, C_out))
     over the overlapped patch grid of ``image`` (N, D, H, W, C), in chunks
     of ``patch_batch`` patches, and stitch: (M, N, D, H, W, C_out).  Heads
     are selected by the model (``nnir.apply(heads=...)``), so unused heads
-    are never computed."""
+    are never computed.
+
+    ``channels_first``: the model emits (M, B, C_out, pd, ph, pw) and the
+    result is (M, N, C_out, D, H, W).  ``extract_fn(image, starts,
+    patch_size)`` replaces the patch extraction with another model-input
+    space: a tuple of tensors batched on a leading P*N axis (e.g.
+    ``kernels.stem.extract_pre_s2d_patches`` on an s2d volume).  The grid
+    and the stitch then run in the coordinates of ``vol_shape``, the
+    original volume's (D, H, W)."""
     patch_size = ops.triple(patch_size)
-    vol_shape = tuple(image.shape[1:4])
+    if vol_shape is None:
+        vol_shape = tuple(image.shape[1:4])
     starts = patch_grid(vol_shape, patch_size, overlap)
-    P, N = len(starts), image.shape[0]
-    patches = extract_patches(image, starts, patch_size)
-    flat = patches.reshape(P * N, *patches.shape[2:])
-    outs = [model_fn(flat[s:s + patch_batch])
-            for s in range(0, P * N, patch_batch)]
-    out = torch.cat(outs, dim=1)  # (M, P*N, pd, ph, pw, C)
+    P = len(starts)
+    if extract_fn is not None:
+        flat = extract_fn(image, starts, patch_size)
+        N = flat[0].shape[0] // P
+        chunks = [tuple(a[s:s + patch_batch] for a in flat)
+                  for s in range(0, P * N, patch_batch)]
+    else:
+        N = image.shape[0]
+        patches = extract_patches(image, starts, patch_size)
+        flat = patches.reshape(P * N, *patches.shape[2:])
+        chunks = [flat[s:s + patch_batch]
+                  for s in range(0, P * N, patch_batch)]
+    outs = [model_fn(c) for c in chunks]
+    out = torch.cat(outs, dim=1)  # (M, P*N, ...)
     out = out.reshape(out.shape[0], P, N, *out.shape[2:]).movedim(1, 0)
-    return stitch_patches(out, starts, vol_shape, normalize=normalize)
+    return stitch_patches(out, starts, vol_shape,
+                          channels_first=channels_first, normalize=normalize)
 
 
 def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
                            mode: str = "fp", heads=None,
                            hard_pred: bool = False, multilabel: bool = False,
-                           conv3x3_int8: Callable = None):
+                           conv3x3_int8: Callable = None,
+                           compute_dtype=None):
     """Returns infer(variables, image, patch_size, overlap).
 
     ``heads``: the output heads to compute (e.g. ``slice(-1, None)`` for
@@ -106,12 +135,18 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
     ``hard_pred``: return uint8 hard predictions: (M, N, D, H, W, C)
     per-class binaries when ``multilabel`` (sigmoid(x) >= 0.5 <=> x >= 0),
     else (M, N, D, H, W) argmax class ids.  ``conv3x3_int8`` replaces the
-    K1 wrapper (see ``nnir.eval_node``)."""
+    K1 wrapper (see ``nnir.eval_node``).  ``compute_dtype``: see
+    ``nnir.apply``; with hard predictions the heads stay in it through the
+    stitch and the decision (the canvas traffic halves), else the logits
+    come back as float32."""
+    keep_hd = bool(hard_pred and compute_dtype is not None)
 
     def infer(variables, image, patch_size, overlap):
         def model_fn(xb):
             return nnir.apply(graph, variables, xb, mode=mode, heads=heads,
-                              conv3x3_int8=conv3x3_int8)
+                              conv3x3_int8=conv3x3_int8,
+                              compute_dtype=compute_dtype,
+                              keep_head_dtype=keep_hd)
 
         with torch.inference_mode():
             out = sliding_window_inference(model_fn, image, patch_size,

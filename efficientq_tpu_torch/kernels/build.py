@@ -3,8 +3,8 @@
 Each source compiles on first use into its own shared library with a
 plain C interface, under ``efficientq_tpu_torch/_build/`` (listed in
 .gitignore), named by a hash of the source and the flags so an edited
-source rebuilds.  There is no fallback: a missing nvcc or a failed build
-raises.
+source rebuilds.  ``load_all`` starts one nvcc per source at once.  There
+is no fallback: a missing nvcc or a failed build raises.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -41,24 +41,48 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
+def _paths(source: str):
+    """(source path, library path): the library is named by a hash of the
+    source and the flags."""
+    path = os.path.join(CSRC, source)
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return path, os.path.join(BUILD_DIR,
+                              f"{stem}-{digest.hexdigest()[:16]}.so")
+
+
+def load_all(sources: Sequence[str]) -> List[ctypes.CDLL]:
+    """Compile each ``csrc/<source>`` not built yet (once per process and
+    per source hash), one nvcc process per source, all started together,
+    and return the loaded libraries in order."""
+    with _lock:
+        todo = [s for s in dict.fromkeys(sources) if s not in _loaded]
+        builds = []
+        for source in todo:
+            path, lib = _paths(source)
+            if not os.path.exists(lib):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                builds.append((source, lib, tmp, subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp, path],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+        errors = []
+        for source, lib, tmp, proc in builds:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {source}:\n{err}")
+            else:
+                os.replace(tmp, lib)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for source in todo:
+            _loaded[source] = ctypes.CDLL(_paths(source)[1])
+        return [_loaded[s] for s in sources]
+
+
 def load(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per process and per source hash)
     and return the loaded library."""
-    with _lock:
-        if source in _loaded:
-            return _loaded[source]
-        path = os.path.join(CSRC, source)
-        with open(path, "rb") as f:
-            digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
-        stem = os.path.splitext(source)[0]
-        lib = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
-        if not os.path.exists(lib):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, path],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-            os.replace(tmp, lib)
-        _loaded[source] = ctypes.CDLL(lib)
-        return _loaded[source]
+    return load_all([source])[0]

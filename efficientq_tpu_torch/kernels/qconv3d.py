@@ -46,13 +46,17 @@ def qconv3x3_int8_ndhwc_reference(x, w_codes, bias, alpha_act, scale,
                                   quant_alpha=None, quant_qlvl: int = 0,
                                   x_quantized: bool = False,
                                   residual_relu: bool = False,
-                                  pool: bool = False, w_packed=None):
+                                  pool: bool = False, w_packed=None,
+                                  out_dtype=torch.float32):
     """Plain PyTorch K1, on any device, with the wrapper's signature
     (``w_packed`` is ignored).  Op for op the JAX package's act-quant
     prologue and ``_xla_qconv3x3``: the integer conv accumulates exactly in
     float64 (float32 is not exact once 27*C*(na-1)*(nw-1) > 2**24, e.g.
     C >= 39 at 8 bits) and is rounded to float32 as an int32 -> float32
-    conversion rounds; scale, bias and the epilogues follow in order."""
+    conversion rounds; scale, bias and the epilogues follow in order, in
+    float32: the residual is converted to float32 and added, the quant
+    epilogue quantizes that float32 y, otherwise y is rounded to
+    ``out_dtype`` and the pool takes the max of the rounded values."""
     qa = x if x_quantized else act_codes(x, alpha_act, qlvl_act)
     dil = int(dilation)
     f32 = dict(dtype=torch.float32, device=qa.device)
@@ -70,6 +74,7 @@ def qconv3x3_int8_ndhwc_reference(x, w_codes, bias, alpha_act, scale,
         q = (torch.clamp(y / torch.as_tensor(quant_alpha, **f32), 0.0, 1.0)
              * (quant_qlvl - 1))
         return torch.round(q).to(torch.int8)
+    y = y.to(out_dtype)
     if pool:
         return y, ops.max_pool3d(y, 2, 2)
     return y
@@ -81,26 +86,32 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
                         quant_alpha=None, quant_qlvl: int = 0,
                         x_quantized: bool = False,
                         residual_relu: bool = False, pool: bool = False,
-                        w_packed: Optional[torch.Tensor] = None):
+                        w_packed: Optional[torch.Tensor] = None,
+                        out_dtype=torch.float32):
     """y = conv3d(int8_codes(x), w_codes) * scale + bias, stride 1,
-    padding = dilation, float32 out.
+    padding = dilation, computed in float32 and stored as ``out_dtype``
+    (float32 or bfloat16, rounded to nearest even).
 
-    x: (N, D, H, W, C) float32, or int8 codes when ``x_quantized``;
+    x: (N, D, H, W, C) float (float32 or bfloat16; the codes are taken in
+    float32), or int8 codes when ``x_quantized``;
     w_codes: (3, 3, 3, C, O) int8; scale: () or (O,) = alpha_act * alpha_w
     / ((na-1)(nw-1)); w_packed: ``pack_weights(w_codes)``, made at deploy
     time (packed here when None).
 
-    Epilogues: ``residual`` (N, D, H, W, O) added to y (relu'd first with
-    ``residual_relu``); ``quant_alpha``/``quant_qlvl`` emit the next conv's
-    int8 codes of relu(y) instead of y; ``pool`` also returns
-    maxpool_2x2x2(y), as (y, pool).  pool and quant are never combined.
+    Epilogues: ``residual`` (N, D, H, W, O), float32 or bfloat16, added to
+    y in float32 (relu'd first with ``residual_relu``);
+    ``quant_alpha``/``quant_qlvl`` emit the next conv's int8 codes of
+    relu(y), from the float32 y, instead of y; ``pool`` also returns
+    maxpool_2x2x2 of the stored y, as (y, pool).  pool and quant are never
+    combined.
     """
     assert not (pool and quant_qlvl), \
         "pool and quant epilogues have different consumers"
     if x.device.type == "cpu":
         return qconv3x3_int8_ndhwc_reference(
             x, w_codes, bias, alpha_act, scale, qlvl_act, dilation, residual,
-            quant_alpha, quant_qlvl, x_quantized, residual_relu, pool)
+            quant_alpha, quant_qlvl, x_quantized, residual_relu, pool,
+            out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got "
                          f"{x.device}")
@@ -108,7 +119,8 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
     if w_packed is None:
         w_packed = pack_weights(w_codes)
     return _launch(qa, w_packed, w_codes.shape[-1], bias, scale, dilation,
-                   residual, residual_relu, quant_alpha, quant_qlvl, pool)
+                   residual, residual_relu, quant_alpha, quant_qlvl, pool,
+                   out_dtype)
 
 
 qconv3x3_int8_ndhwc.launches = 0
@@ -123,13 +135,16 @@ def _lib():
     lib = build.load("qconv3d_int8.cu")
     fn = lib.qconv3d_int8_launch
     if fn.argtypes is None:  # ctypes would pass ints as 32-bit
-        fn.argtypes = [_P] * 9 + [_I] * 9 + [_P]
+        fn.argtypes = [_P] * 9 + [_I] * 11 + [_P]
         fn.restype = _I
     return fn
 
 
+_FLOAT_OUT = (torch.float32, torch.bfloat16)
+
+
 def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
-            quant_alpha, quant_qlvl, pool):
+            quant_alpha, quant_qlvl, pool, out_dtype):
     dev = qa.device
     qa = qa.contiguous()
     n, d, h, w, c = qa.shape
@@ -145,22 +160,26 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
     dil = int(dilation)
     if dil < 1:
         raise ValueError(f"dilation {dil}")
+    if out_dtype not in _FLOAT_OUT:
+        raise ValueError(f"K1 stores float32 or bfloat16, not {out_dtype}")
     f32 = dict(dtype=torch.float32, device=dev)
     scale_v = torch.as_tensor(scale, **f32).expand(o).contiguous()
     bias_v = (torch.zeros(o, **f32) if bias is None
               else bias.to(**f32).contiguous())
     res = None
     if residual is not None:
-        res = residual.to(**f32).contiguous()
+        res = residual.to(device=dev, dtype=(
+            residual.dtype if residual.dtype in _FLOAT_OUT
+            else torch.float32)).contiguous()
         if tuple(res.shape) != (n, d, h, w, o):
             raise ValueError(f"residual {tuple(res.shape)} != output "
                              f"{(n, d, h, w, o)}")
     qalpha = (torch.as_tensor(quant_alpha, **f32).reshape(1).contiguous()
               if quant_qlvl else None)
     out = torch.empty((n, d, h, w, o), device=dev,
-                      dtype=torch.int8 if quant_qlvl else torch.float32)
-    pooled = (torch.empty((n, d // 2, h // 2, w // 2, o), **f32)
-              if pool else None)
+                      dtype=torch.int8 if quant_qlvl else out_dtype)
+    pooled = (torch.empty((n, d // 2, h // 2, w // 2, o), device=dev,
+                          dtype=out_dtype) if pool else None)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -171,7 +190,10 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
                     None if quant_qlvl else ptr(out),
                     ptr(out) if quant_qlvl else None, ptr(pooled),
                     n, d, h, w, c, o, dil, int(bool(residual_relu)),
-                    int(quant_qlvl), torch.cuda.current_stream(dev).cuda_stream)
+                    int(quant_qlvl),
+                    int(res is not None and res.dtype == torch.bfloat16),
+                    int(out_dtype == torch.bfloat16),
+                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
     qconv3x3_int8_ndhwc.launches += 1

@@ -29,11 +29,22 @@ def _to_np(v):
     return np.asarray(v)
 
 
-def from_jax_variables(variables_np, device="cpu") -> Dict:
+def _from_np(v, device) -> torch.Tensor:
+    """A NumPy array as a torch tensor on ``device``; a bfloat16 array (the
+    ml_dtypes type that ``np.asarray`` gives for a JAX bf16 array, which
+    torch cannot take) travels as its uint16 bits."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        bits = torch.tensor(a.view(np.uint16).view(np.int16), device=device)
+        return bits.view(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def from_jax_variables(variables_np, device="cuda") -> Dict:
     """{'params': {node: {k: array}}, 'state': ...} of NumPy arrays (e.g.
     ``jax.tree_util.tree_map(np.asarray, variables)``) -> the same dict of
     torch tensors on ``device``."""
-    return {group: {node: {k: torch.tensor(np.asarray(v), device=device)
+    return {group: {node: {k: _from_np(v, device)
                            for k, v in entries.items()}
                     for node, entries in variables_np.get(group, {}).items()}
             for group in ("params", "state")}

@@ -14,6 +14,12 @@ dead-code elimination and buffer reuse did for the JAX interpreter under
   ``kernels.epilogue`` rewires away, are never computed);
 - it frees each value after its last consumer.
 
+``apply(compute_dtype=torch.bfloat16)`` is low-precision serving, as in
+the JAX package: K1 nodes emit bfloat16 and take their residual in
+bfloat16, plain convs run on bfloat16 operands and emit bfloat16, the
+int8 1x1 convs off the kernel path still emit float32, and the head
+outputs come back as float32 unless ``keep_head_dtype``.
+
 ``GraphModule`` holds a graph and its variables as an ``nn.Module``, so
 ``.to(device)`` moves every tensor of the network at once.
 """
@@ -29,6 +35,7 @@ from torch import nn
 
 from . import ops
 from .kernels.qconv3d import qconv3x3_int8_ndhwc
+from .kernels.stem import stem_s2d_conv
 from .quant import act_codes, fake_quant_act
 
 
@@ -132,7 +139,7 @@ class GraphBuilder:
         return Graph(self.nodes, list(outputs), input_name)
 
 
-def init(graph: Graph, seed: int = 0, device="cpu"):
+def init(graph: Graph, seed: int = 0, device="cuda"):
     """{'params': ..., 'state': ...} on ``device``, with kaiming-normal conv
     kernels drawn from ``np.random.default_rng(seed)``, zero biases, unit
     alphas, and identity batch norms.  The numbers differ from the JAX
@@ -198,7 +205,8 @@ def _int8_conv(qa: torch.Tensor, codes: torch.Tensor, a, qcfg: QCfg):
     return y.to(torch.float32)
 
 
-def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable):
+def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
+               compute_dtype=None):
     a = node.attrs
     p = params[node.name]
     x = ins[0]
@@ -207,22 +215,27 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable):
             and qcfg.q_act):
         # the deployed hot path: the int8 3^3 conv with its fused
         # epilogues (kernels/qconv3d.py; flags from kernels/qmatmul.py and
-        # kernels/epilogue.py)
+        # kernels/epilogue.py), emitting compute_dtype; at a compute dtype
+        # the residual streams in that dtype too
         quant_for = a.get("epilogue_quant_for")
+        res = ins[1] if a.get("residual") else None
+        if res is not None and compute_dtype is not None:
+            res = res.to(compute_dtype)
         return conv3x3_int8(
             x, p["kernel_int8"], p.get("bias"), p["alpha_act"], p["scale"],
-            qcfg.qlvl_act, dilation=a["dilation"][0],
-            residual=ins[1] if a.get("residual") else None,
+            qcfg.qlvl_act, dilation=a["dilation"][0], residual=res,
             quant_alpha=(params[quant_for]["alpha_act"] if quant_for
                          else None),
             quant_qlvl=a.get("epilogue_qlvl", 0) if quant_for else 0,
             x_quantized=bool(a.get("input_quantized")),
             residual_relu=bool(a.get("residual_relu")),
             pool=bool(a.get("epilogue_pool")),
-            w_packed=p.get("kernel_packed"))
+            w_packed=p.get("kernel_packed"),
+            out_dtype=compute_dtype or torch.float32)
     if a.get("int8") and mode == "quantized":
         # integer path of ptq/deploy.py: int8 codes in, exact integer conv,
-        # float32 scale epilogue
+        # float32 scale epilogue (float32 at any compute dtype, as in the
+        # JAX package)
         qa = (x if a.get("input_quantized")
               else act_codes(x, p["alpha_act"], qcfg.qlvl_act))
         y = _int8_conv(qa, p["kernel_int8"], a, qcfg) * p["scale"]
@@ -230,19 +243,59 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable):
             y = y + p["bias"]
         return y
     kernel = p["kernel"]
+    bias = p.get("bias")
     if qcfg is not None and mode == "quantized" and qcfg.q_act:
         x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
-    return ops.conv3d(x, kernel, p.get("bias"), a["stride"], a["padding"],
+    if compute_dtype is not None:
+        # low precision: operands cast, the conv emits compute_dtype (one
+        # rounding of a float32 accumulation), the bias is added in it
+        y = ops.conv3d(x.to(compute_dtype), kernel.to(compute_dtype), None,
+                       a["stride"], a["padding"], a["dilation"], a["groups"])
+        return y if bias is None else y + bias.to(compute_dtype)
+    return ops.conv3d(x, kernel, bias, a["stride"], a["padding"],
                       a["dilation"], a["groups"])
 
 
+def _eval_conv_cf(node: Node, params, x, mode: str, compute_dtype=None):
+    """The channels-first head (``ptq.deploy.channels_first_tail``): the
+    1x1 classifier emits contiguous NCDHW, so the upsample and the stitch
+    after it run along W instead of over a 3-channel minor axis."""
+    p = params[node.name]
+    qcfg: Optional[QCfg] = node.attrs.get("qcfg")
+    if qcfg is not None and mode == "quantized" and qcfg.q_act:
+        x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
+    kernel = p["kernel"]
+    if compute_dtype is not None:
+        x, kernel = x.to(compute_dtype), kernel.to(compute_dtype)
+    y = ops.conv3d_ncdhw_out(x, kernel)
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype).reshape(1, -1, 1, 1, 1)
+    return y
+
+
 def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
-              ins, *, mode: str = "fp", conv3x3_int8: Callable = None):
+              ins, *, mode: str = "fp", conv3x3_int8: Callable = None,
+              stem_conv: Callable = None, compute_dtype=None):
     """Evaluate one inference-mode node.  ``conv3x3_int8`` replaces the
-    int8 3^3 conv of flagged nodes (default: the K1 wrapper)."""
+    int8 3^3 conv of flagged nodes (default: the K1 wrapper) and
+    ``stem_conv`` the s2d stem (default: the K2 wrapper)."""
     if node.op == "conv":
         return _eval_conv(node, params, ins, mode,
-                          conv3x3_int8 or qconv3x3_int8_ndhwc)
+                          conv3x3_int8 or qconv3x3_int8_ndhwc, compute_dtype)
+    if node.op == "conv_cf":
+        return _eval_conv_cf(node, params, ins[0], mode, compute_dtype)
+    if node.op == "upsample_cf":
+        return ops.upsample3d_cf(ins[0], node.attrs["scale_factor"])
+    if node.op == "stem_s2d":
+        # the fused space-to-depth stem (kernels/stem.py, rewritten by
+        # ptq/deploy.py::s2d_stem_serving): the input is the (s2d patches,
+        # parities) pair; returns (relu'd activation at compute_dtype, the
+        # consumer's int8 codes)
+        xs, par = ins[0]
+        p = params[node.name]
+        return (stem_conv or stem_s2d_conv)(
+            xs, par, p["w_even"], p["w_odd"], p["bias"], p["alpha_next"],
+            node.attrs["qlvl_next"], out_dtype=compute_dtype or torch.float32)
     if node.op == "bn":
         p = params[node.name]
         s = state[node.name]
@@ -275,17 +328,23 @@ def live_nodes(graph: Graph, outputs: Sequence[str]) -> set:
     return live
 
 
-def apply(graph: Graph, variables: Dict[str, Any], x: torch.Tensor, *,
+def apply(graph: Graph, variables: Dict[str, Any], x, *,
           mode: str = "fp", heads: Optional[slice] = None,
-          conv3x3_int8: Callable = None) -> torch.Tensor:
-    """Interpret the graph on ``x`` (NDHWC).
+          conv3x3_int8: Callable = None, stem_conv: Callable = None,
+          compute_dtype=None, keep_head_dtype: bool = False) -> torch.Tensor:
+    """Interpret the graph on ``x`` (NDHWC; for an s2d-stem graph the
+    (patches, parities) pair of ``kernels.stem.extract_s2d_patches``).
 
     mode: 'fp' (plain convs) or 'quantized' (fake-quant activations and
     stored quantized weights; int8-deployed nodes run on integer codes).
     ``heads`` selects output heads (e.g. ``slice(-1, None)`` for the final
     head only); only the nodes those heads reach are evaluated.
+    ``compute_dtype`` (e.g. ``torch.bfloat16``): low-precision serving (see
+    the module docstring); the head outputs are cast back to float32
+    unless ``keep_head_dtype`` (hard-prediction serving keeps them).
 
-    Returns the selected head outputs stacked: (num_heads, N, D, H, W, C).
+    Returns the selected head outputs stacked: (num_heads, N, D, H, W, C)
+    (a channels-first head: (num_heads, N, C, D, H, W)).
     """
     assert mode in ("fp", "quantized")
     outputs = graph.outputs if heads is None else graph.outputs[heads]
@@ -302,12 +361,16 @@ def apply(graph: Graph, variables: Dict[str, Any], x: torch.Tensor, *,
                 continue
             values[node.name] = eval_node(
                 node, params, st, [values[n] for n in node.inputs],
-                mode=mode, conv3x3_int8=conv3x3_int8)
+                mode=mode, conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
+                compute_dtype=compute_dtype)
             for n in node.inputs:
                 uses[n] -= 1
                 if uses[n] == 0:
                     del values[n]
-    return torch.stack([values[o] for o in outputs])
+    outs = [values[o] for o in outputs]
+    if compute_dtype is not None and not keep_head_dtype:
+        outs = [o.to(torch.float32) for o in outs]
+    return torch.stack(outs)
 
 
 class GraphModule(nn.Module):

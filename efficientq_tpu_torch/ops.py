@@ -75,13 +75,23 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor,
            padding: IntOr3 = 0, dilation: IntOr3 = 1,
            groups: int = 1) -> torch.Tensor:
     """3D convolution, NDHWC activations x DHWIO kernel -> NDHWC, in the
-    dtype of the operands (callers wrap it in ``exact_f32`` for float32)."""
+    dtype of the operands (callers wrap it in ``exact_f32`` for float32).
+    At a compute dtype (bfloat16 operands) this is cuDNN's bf16 conv on a
+    card: float32 accumulation, one rounding to bfloat16, as the JAX
+    package's conv at ``compute_dtype``; the caller adds the bias in that
+    dtype."""
     y = F.conv3d(ndhwc_to_ncdhw(x), dhwio_to_oidhw(kernel), None,
                  triple(stride), triple(padding), triple(dilation), groups)
     y = _ndhwc_out(y)
     if bias is not None:
         y = y + bias
     return y
+
+
+def conv3d_ncdhw_out(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """1x1x1 conv of NDHWC activations with a DHWIO kernel, emitted as a
+    contiguous NCDHW tensor (the channels-first serving head)."""
+    return F.conv3d(ndhwc_to_ncdhw(x), dhwio_to_oidhw(kernel)).contiguous()
 
 
 def max_pool3d(x: torch.Tensor, kernel: IntOr3,
@@ -100,6 +110,16 @@ def upsample3d(x: torch.Tensor, scale_factor: IntOr3) -> torch.Tensor:
     y = F.interpolate(ndhwc_to_ncdhw(x), size=(d * f[0], h * f[1], w * f[2]),
                       mode="trilinear", align_corners=False)
     return _ndhwc_out(y)
+
+
+def upsample3d_cf(x: torch.Tensor, scale_factor: IntOr3) -> torch.Tensor:
+    """Trilinear upsampling of an NCDHW tensor (the channels-first serving
+    tail, see nnir ``upsample_cf``); same half-pixel convention as
+    ``upsample3d``."""
+    f = triple(scale_factor)
+    n, c, d, h, w = x.shape
+    return F.interpolate(x, size=(d * f[0], h * f[1], w * f[2]),
+                         mode="trilinear", align_corners=False)
 
 
 def batch_norm(x, scale, bias, mean, var, eps: float = 1e-5):

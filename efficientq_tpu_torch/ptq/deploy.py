@@ -14,17 +14,27 @@ epilogue:
 The JAX package builds the fused-kernel graph only on a TPU; the port
 builds it on every device, so the CPU tests run the same graph the card
 runs (on the CPU the K1 wrapper takes its plain version).
+
+Serving rewrites: ``channels_first_tail`` (the final head emitted NCDHW)
+and ``s2d_stem_serving`` (the init conv as the fused space-to-depth stem,
+K2), which ``make_s2d_volume_inferencer`` applies for ``--serve_stem s2d``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
+from .. import nnir, ops
+from ..eval.sliding import (make_volume_inferencer, patch_grid,
+                            sliding_window_inference)
 from ..kernels.epilogue import fuse_int8_epilogues
 from ..kernels.qconv3d import pack_weights
 from ..kernels.qmatmul import to_pallas_inference
+from ..kernels.stem import (extract_pre_s2d_patches, s2d_need_planes,
+                            s2d_stem_weights, s2d_supported, s2d_volume)
 from ..nnir import Graph
 
 
@@ -62,3 +72,255 @@ def to_int8_inference(graph: Graph, variables) -> Tuple[Graph, Dict]:
             p = params[node.name]
             p["kernel_packed"] = pack_weights(p["kernel_int8"])
     return out, {"params": params, "state": variables.get("state", {})}
+
+
+def channels_first_tail(graph: Graph) -> Graph:
+    """Serving-only rewrite: keep only the FINAL head and emit it NCDHW.
+
+    The classifier head has C = 3 channels; with channels minor, its
+    upsample and the full-volume stitch walk 3-element rows.  The rewrite
+    makes the 1x1 head conv emit (N, C, D, H, W) (``conv_cf``) and upsamples
+    that (``upsample_cf``), so both run along W.  Numerics are unchanged
+    (same contraction, same trilinear weights).  Consumers take the class
+    axis at dim 1 of each head.  A tail of another shape is left as is."""
+    out = graph.outputs[-1]
+    tail_up = None
+    cur = graph.node(out)
+    if cur.op == "upsample":
+        tail_up = cur.name
+        cur = graph.node(cur.inputs[0])
+    a = cur.attrs
+    if not (cur.op == "conv" and a["kernel_size"] == (1, 1, 1)
+            and a["stride"] == (1, 1, 1) and a["padding"] == (0, 0, 0)
+            and a["groups"] == 1 and not a.get("int8")):
+        return graph
+    new_nodes = []
+    for n in graph.nodes:
+        if n.name == cur.name:
+            new_nodes.append(dataclasses.replace(n, op="conv_cf",
+                                                 attrs=dict(n.attrs)))
+        elif n.name == tail_up:
+            new_nodes.append(dataclasses.replace(n, op="upsample_cf",
+                                                 attrs=dict(n.attrs)))
+        else:
+            new_nodes.append(n)
+    # the aux-head nodes stay in the list, unreachable from the single
+    # channels-first output, so nnir.apply never evaluates them
+    return Graph(new_nodes, [out], graph.input_name)
+
+
+def s2d_stem_serving(graph: Graph, variables):
+    """Serving-only rewrite: run the init conv as the fused space-to-depth
+    stem (kernels/stem.py, K2).
+
+    Rewrites
+        input -> conv0 (3^3 s2) -> [identity...] -> relu -> {int8 conv,
+                                                             residual uses}
+    into
+        (s2d patches, parities) -> stem_s2d -> (relu'd activation, codes)
+    with the relu node becoming a tuple-get of the activation (residual
+    consumers are untouched) and the int8 consumer reading the codes
+    (``input_quantized``).  The model input becomes the (patches,
+    parities) pair of ``kernels.stem.extract_s2d_patches``; use it with
+    ``sliding_window_inference(extract_fn=...)``.
+
+    Returns (graph', variables', stem_node); stem_node is None, with the
+    graph and variables returned unchanged, when the graph does not match.
+    The s2d weights are bfloat16 (serving runs the stem at bfloat16
+    operands with float32 accumulation), on the stem kernel's device.
+    K2 takes any channel count, so the JAX package's TPU-only width guard
+    does not apply."""
+    skip = (graph, variables, None)
+    stem = next((n for n in graph.nodes
+                 if n.op == "conv" and n.inputs == (graph.input_name,)), None)
+    if stem is None or stem.attrs.get("int8"):
+        return skip
+    a = stem.attrs
+    if not (a["kernel_size"] == (3, 3, 3) and a["stride"] == (2, 2, 2)
+            and a["padding"] == (1, 1, 1) and a["dilation"] == (1, 1, 1)
+            and a["groups"] == 1):
+        return skip
+    # follow the identity chain to the stem's relu; after epilogue fusion
+    # (kernels/epilogue.py::_elide_relus) the chain end fans out (the relu
+    # is dead and its former consumers read the chain), so accept a
+    # fan-out as long as exactly one relu hangs off it
+    cur = stem.name
+    relu = None
+    for _ in range(4):
+        users = [n for n in graph.nodes if cur in n.inputs]
+        relus = [u for u in users if u.op == "relu"]
+        if len(relus) == 1:
+            relu = relus[0]
+            break
+        if len(users) != 1 or users[0].op != "identity":
+            return skip
+        cur = users[0].name
+    if relu is None:
+        return skip
+    # the codes consumer: a K1 conv reading the (possibly elided) relu as
+    # its data input; every other consumer edge must be a residual stream,
+    # which takes the activation
+    taps = {relu.name, cur}
+    edges = [(n, i) for n in graph.nodes if n.name != relu.name
+             for i, inp in enumerate(n.inputs) if inp in taps]
+    codes_edges = [(n, i) for (n, i) in edges
+                   if i == 0 and n.op == "conv" and n.attrs.get("int8")
+                   and n.attrs.get("pallas")
+                   # offset-grid consumers quantize with signed codes the
+                   # stem's unsigned quant epilogue cannot emit
+                   and not n.attrs.get("act_k")
+                   and not n.attrs.get("input_quantized")]
+    if len(codes_edges) != 1:
+        return skip
+    consumer = codes_edges[0][0]
+    res_edges = [(n, i) for (n, i) in edges if n is not consumer]
+    if any(i == 0 or not n.attrs.get("residual") for (n, i) in res_edges):
+        return skip  # a non-residual consumer would need the float value
+
+    params = {k: dict(v) for k, v in variables["params"].items()}
+    sp = params[stem.name]
+    kernel = sp["kernel"]
+    w_even, w_odd = s2d_stem_weights(
+        kernel.detach().cpu().numpy().astype(np.float32))
+    bias = sp.get("bias")
+    if bias is None:
+        bias = torch.zeros(w_even.shape[-1], device=kernel.device)
+    params[stem.name] = {
+        "w_even": torch.from_numpy(w_even).to(kernel.device, torch.bfloat16),
+        "w_odd": torch.from_numpy(w_odd).to(kernel.device, torch.bfloat16),
+        "bias": bias.to(torch.float32),
+        "alpha_next": params[consumer.name]["alpha_act"],
+    }
+    codes_name = stem.name + ".s2d_codes"
+    new_nodes = []
+    for n in graph.nodes:
+        if n.name == stem.name:
+            attrs = dict(n.attrs)
+            attrs["qlvl_next"] = consumer.attrs["qcfg"].qlvl_act
+            new_nodes.append(dataclasses.replace(n, op="stem_s2d",
+                                                 attrs=attrs))
+        elif n.name == relu.name:
+            new_nodes.append(dataclasses.replace(n, op="tuple_get",
+                                                 attrs={"idx": 0}))
+            new_nodes.append(
+                type(n)(codes_name, "tuple_get", n.inputs, {"idx": 1}))
+        elif n.name == consumer.name:
+            attrs = dict(n.attrs)
+            attrs["input_quantized"] = True
+            ins = (codes_name,) + tuple(
+                relu.name if inp in taps else inp for inp in n.inputs[1:])
+            new_nodes.append(dataclasses.replace(n, inputs=ins, attrs=attrs))
+        elif any(m is n for (m, _) in res_edges):
+            # residual streams read the activation (the tuple-get that
+            # replaced the relu); a residual_relu flag stays harmless
+            ins = tuple(relu.name if inp in taps else inp for inp in n.inputs)
+            new_nodes.append(dataclasses.replace(n, inputs=ins,
+                                                 attrs=dict(n.attrs)))
+        else:
+            new_nodes.append(n)
+    g2 = Graph(new_nodes, list(graph.outputs), graph.input_name)
+    return g2, {"params": params,
+                "state": variables.get("state", {})}, g2.node(stem.name)
+
+
+def _on(variables, device):
+    return {group: {node: {k: v.to(device) for k, v in entries.items()}
+                    for node, entries in variables.get(group, {}).items()}
+            for group in ("params", "state")}
+
+
+def make_s2d_volume_inferencer(graph: Graph, variables, *,
+                               patch_batch="auto", hard_pred: bool = True,
+                               multilabel: bool = False,
+                               compute_dtype=torch.bfloat16, heads=None,
+                               device="cuda",
+                               conv3x3_int8: Callable = None,
+                               stem_conv: Callable = None):
+    """s2d serving (``--serve_stem s2d``): the init conv runs as the fused
+    space-to-depth stem K2 (``s2d_stem_serving``), the interior int8 convs
+    on K1 at ``compute_dtype``.
+
+    ``graph`` / ``variables``: the int8 deployment (``to_int8_inference``),
+    without the channels-first tail: it is applied here, when the caller
+    serves the final head only (``heads=slice(-1, None)``) or the graph has
+    one head.  The weights go to ``device`` once.
+
+    Returns ``infer(variables_ignored, image, patch_size, overlap)`` that
+    takes a host (N, D, H, W, C) volume (NumPy or a CPU tensor) and
+    returns what ``eval.sliding.make_volume_inferencer`` returns, or None
+    when the graph has no eligible stem.  The volume goes to the card as
+    float32 and is transformed to s2d space there (see ``PERF.md`` for the
+    placement's times).  A volume whose grid the s2d path cannot serve
+    (odd H/W starts or extents) is served by the direct inferencer at the
+    same compute dtype.  ``patch_batch="auto"`` runs the whole grid as one
+    batch; a device out-of-memory halves it and retries, and later volumes
+    keep the smaller batch.  ``conv3x3_int8`` / ``stem_conv`` replace the
+    kernel wrappers (see ``nnir.eval_node``)."""
+    stem0 = next((n for n in graph.nodes
+                  if n.op == "conv" and n.inputs == (graph.input_name,)),
+                 None)
+    cf = False
+    g_in = graph
+    if heads == slice(-1, None) or len(graph.outputs) == 1:
+        g_cf = channels_first_tail(graph)
+        if g_cf is not graph:
+            g_in, cf = g_cf, True
+    g2, v2, stem = s2d_stem_serving(g_in, variables)
+    if stem is None:
+        return None
+    dev = torch.device(device)
+    v2, v_direct = _on(v2, dev), _on(variables, dev)
+    auto = patch_batch in ("auto", 0, None)
+    keep_hd = bool(hard_pred and compute_dtype is not None)
+    fallback = make_volume_inferencer(
+        graph, patch_batch=8 if auto else int(patch_batch), mode="quantized",
+        heads=heads, hard_pred=hard_pred, multilabel=multilabel,
+        conv3x3_int8=conv3x3_int8, compute_dtype=compute_dtype)
+
+    def model_fn(xb):
+        return nnir.apply(g2, v2, xb, mode="quantized",
+                          heads=None if cf else heads,
+                          conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
+                          compute_dtype=compute_dtype,
+                          keep_head_dtype=keep_hd)
+
+    def run(svol, patch_size, overlap, vol_shape, pb):
+        out = sliding_window_inference(
+            model_fn, svol, patch_size, overlap, pb, normalize=not hard_pred,
+            channels_first=cf, extract_fn=extract_pre_s2d_patches,
+            vol_shape=vol_shape)
+        if hard_pred and not multilabel:
+            return torch.argmax(out, dim=2 if cf else -1).to(torch.uint8)
+        if hard_pred:
+            out = (out >= 0).to(torch.uint8)
+        return out.movedim(2, -1) if cf else out
+
+    pb_cap = [None]
+
+    def infer(variables_ignored, image, patch_size, overlap):
+        del variables_ignored  # the weights are in the rewritten graph
+        image = torch.as_tensor(image)
+        patch_size = ops.triple(patch_size)
+        overlap = ops.triple(overlap)
+        vol_shape = tuple(image.shape[1:4])
+        starts = patch_grid(vol_shape, patch_size, overlap)
+        if not s2d_supported(starts, patch_size, vol_shape, stem0.attrs):
+            return fallback(v_direct, image.to(dev), patch_size, overlap)
+        pb = (len(starts) * image.shape[0] if auto else int(patch_batch))
+        if pb_cap[0] is not None:
+            pb = min(pb, pb_cap[0])
+        with torch.inference_mode():
+            svol = s2d_volume(image.to(dev, torch.float32),
+                              s2d_need_planes(starts, patch_size))
+            while True:
+                try:
+                    return run(svol, patch_size, overlap, vol_shape, pb)
+                except torch.cuda.OutOfMemoryError:
+                    if pb <= 1:
+                        raise
+                    pb = max(1, pb // 2)
+                    pb_cap[0] = pb
+                    print(f"serve_stem=s2d: device out of memory, retrying "
+                          f"at patch_batch={pb}")
+
+    return infer

@@ -8,6 +8,11 @@ belong to the PTQ calibration slice and are not here yet.
 Every divisor is made a tensor on the operand's device before dividing: on
 a CUDA tensor PyTorch turns ``x / python_float`` into ``x * (1 / float)``,
 which rounds differently from the true division the JAX reference does.
+
+A bfloat16 activation is quantized in float32: JAX promotes
+``bf16_array / f32_alpha`` to float32, where PyTorch would keep bfloat16
+(a 0-d alpha does not raise the dtype of a dimensioned tensor) and so
+round the quotient, changing codes.
 """
 from __future__ import annotations
 
@@ -29,6 +34,12 @@ class _SteRound(torch.autograd.Function):
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     return _SteRound.apply(x)
+
+
+def _promoted(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 if it is a half-width float (JAX's promotion
+    against a float32 alpha), else unchanged."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
@@ -56,14 +67,14 @@ def fake_quant_weight(w, alpha_w, num_lvl):
 def fake_quant_act(x, alpha_act, num_lvl):
     """Unsigned activation fake-quant: clip(x/a, 0, 1) on the grid, times a."""
     a = _scalar(alpha_act, x)
-    return discretize(x / a, num_lvl, 0.0, 1.0) * a
+    return discretize(_promoted(x) / a, num_lvl, 0.0, 1.0) * a
 
 
 def act_codes(x, alpha_act, num_lvl):
     """The int8 activation codes ``round(clip(x/a, 0, 1) * (n-1))`` that an
     int8 conv consumes (the JAX ``qconv3x3_int8_ndhwc`` prologue)."""
     a = _scalar(alpha_act, x)
-    return torch.round(torch.clamp(x / a, 0.0, 1.0)
+    return torch.round(torch.clamp(_promoted(x) / a, 0.0, 1.0)
                        * (num_lvl - 1)).to(torch.int8)
 
 

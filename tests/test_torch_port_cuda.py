@@ -1,8 +1,16 @@
-"""The port on a CUDA card: K1 (csrc/qconv3d_int8.cu) against its plain
-PyTorch version, and the int8 serving slice of a small net with K1 against
-the same slice with the plain K1.  Both must agree exactly: the kernel
-accumulates in integers and rounds its float epilogue as the plain version
-does.
+"""The port on a CUDA card: K1 (csrc/qconv3d_int8.cu) and K2
+(csrc/stem_s2d.cu) against their plain PyTorch versions, and the serving
+slices of a small net (int8 float32, s2d bf16) with the kernels against the
+same slices with the plain versions.  K1 must agree exactly, at float32
+and at bfloat16 output and residual: the kernel accumulates in integers and
+rounds its float epilogue as the plain version does.  K2 sums bf16
+products in float32 on the tensor cores, the plain version in float64:
+its float32 output must lie within 1e-4 of max|y|, its bfloat16 output
+within one bf16 ulp (or within 1e-4 of max|y| where the value is that
+small: at the relu boundary one ulp is tiny), and its int8 codes must be
+equal except where the
+plain value clip(y/alpha, 0, 1)(n-1) lies within 1e-4 of a .5 tie (or, at
+bfloat16, where the two rounded outputs differ).
 
 These tests are marked ``cuda`` and skip without a card.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -21,8 +29,9 @@ from efficientq_tpu_torch import nnir
 from efficientq_tpu_torch.data import synthetic
 from efficientq_tpu_torch.eval import sliding
 from efficientq_tpu_torch.kernels import qconv3d as K
+from efficientq_tpu_torch.kernels import stem as K2
 from efficientq_tpu_torch.models import UResQConfig, build_uresq
-from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+from efficientq_tpu_torch.ptq import deploy, fold_bn, to_int8_inference
 from efficientq_tpu_torch.quant import fake_quant_weight
 
 NA = 4  # activation levels (W4A4 preset)
@@ -68,18 +77,25 @@ def make_case(seed, c, dil=1, quant=False, res=False, relu=False, pool=False,
         kw=kw)
 
 
-def run_port(case, fn=K.qconv3x3_int8_ndhwc, device="cpu"):
-    """One K1 call of the port on ``device``; outputs as NumPy arrays."""
+def run_port(case, fn=K.qconv3x3_int8_ndhwc, device="cpu", bf16=False):
+    """One K1 call of the port on ``device``; outputs as NumPy arrays
+    (bfloat16 ones as their uint16 bits).  ``bf16``: bfloat16 output and
+    residual."""
     def t(a):
         return None if a is None else torch.as_tensor(a, device=device)
 
     kw = dict(case["kw"])
     if "quant_alpha" in kw:
         kw["quant_alpha"] = t(kw["quant_alpha"])
+    res = t(case["residual"])
+    if bf16:
+        kw["out_dtype"] = torch.bfloat16
+        res = None if res is None else res.to(torch.bfloat16)
     out = fn(t(case["x"]), t(case["codes"]), t(case["bias"]), t(case["alpha"]),
-             t(case["scale"]), NA, residual=t(case["residual"]), **kw)
-    return tuple(o.cpu().numpy() for o in (out if isinstance(out, tuple)
-                                          else (out,)))
+             t(case["scale"]), NA, residual=res, **kw)
+    return tuple(
+        (o.view(torch.int16) if o.dtype == torch.bfloat16 else o).cpu().numpy()
+        for o in (out if isinstance(out, tuple) else (out,)))
 
 
 @pytest.fixture
@@ -90,12 +106,14 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_cuda_k1_matches_plain(name, cuda):
+def test_cuda_k1_matches_plain(name, bf16, cuda):
     case = make_case(sorted(CASES).index(name), **CASES[name])
     before = K.qconv3x3_int8_ndhwc.launches
-    got = run_port(case, device=cuda)
-    ref = run_port(case, K.qconv3x3_int8_ndhwc_reference, device=cuda)
+    got = run_port(case, device=cuda, bf16=bf16)
+    ref = run_port(case, K.qconv3x3_int8_ndhwc_reference, device=cuda,
+                   bf16=bf16)
     assert K.qconv3x3_int8_ndhwc.launches == before + 1
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
@@ -120,7 +138,7 @@ def test_cuda_serving_slice_matches_plain_k1(cuda):
                       quantize=True, qlvl_w=4, qlvl_act=4, q_first=(256, -1),
                       q_last=(256, -1))
     graph = build_uresq(cfg)
-    fg, fv = fold_bn(graph, nnir.init(graph, 0))
+    fg, fv = fold_bn(graph, nnir.init(graph, 0, device="cpu"))
     for node in fg.qconv_nodes():
         q = node.attrs["qcfg"]
         p = fv["params"][node.name]
@@ -147,3 +165,110 @@ def test_cuda_serving_slice_matches_plain_k1(cuda):
         net.variables, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 36, 40, 44, 3) and got.dtype == torch.uint8
     assert torch.equal(got, ref)
+
+
+def stem_inputs(depth, c, o, device, seed=0, hw=32, patch=16):
+    """s2d patches of a (depth, hw, hw) volume on the standard grid (both
+    z parities when the depth allows), the s2d weights of a random 3^3
+    stem kernel, and a bias."""
+    rng = np.random.RandomState(seed)
+    vol = torch.from_numpy(rng.randn(1, depth, hw, hw, c).astype(np.float32))
+    starts = sliding.patch_grid((depth, hw, hw), patch, patch // 4)
+    x, par = K2.extract_s2d_patches(vol, starts, (patch,) * 3)
+    w3 = rng.randn(3, 3, 3, c, o).astype(np.float32) * 0.2
+    we, wo = (torch.from_numpy(w).to(device, torch.bfloat16)
+              for w in K2.s2d_stem_weights(w3))
+    bias = torch.from_numpy(rng.randn(o).astype(np.float32) * 0.1)
+    return x.to(device), par.to(device), we, wo, bias.to(device)
+
+
+def check_stem(y, q, yr, qr, alpha, qlvl):
+    """K2's outputs against the plain version's, at the module's
+    tolerances; returns the number of codes excused as ties."""
+    assert y.dtype == yr.dtype and y.shape == yr.shape and q.shape == qr.shape
+    yf, rf = y.float(), yr.float()
+    diff = (yf - rf).abs()
+    tol = 1e-4 * float(rf.abs().max())
+    if y.dtype == torch.float32:
+        assert float(diff.max()) <= tol
+        rounded_apart = torch.zeros_like(q, dtype=torch.bool)
+    else:  # one bf16 ulp: adjacent bit patterns of non-negative values,
+        # or within the float32 tolerance near 0 (the relu boundary)
+        ulps = (y.view(torch.int16).int() - yr.view(torch.int16).int()).abs()
+        assert not bool(((ulps > 1) & (diff > tol)).any())
+        rounded_apart = ulps > 0
+    pre = torch.clamp(rf / alpha, 0.0, 1.0) * (qlvl - 1)
+    tie = ((pre - pre.floor()) - 0.5).abs() <= 1e-4
+    bad = (q != qr) & ~tie & ~rounded_apart
+    assert not bool(bad.any()), int(bad.sum())
+    return int(((q != qr) & (tie | rounded_apart)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("depth,c,o", [(22, 4, 8), (23, 4, 8), (23, 4, 32),
+                                       (21, 1, 40)])
+def test_cuda_k2_matches_plain(depth, c, o, out, cuda):
+    x, par, we, wo, bias = stem_inputs(depth, c, o, cuda, seed=depth + o)
+    if depth % 2:
+        assert 0 < int(par.sum()) < par.numel()  # both parities
+    alpha, qlvl = 0.7, 4
+    before = K2.stem_s2d_conv.launches
+    y, q = K2.stem_s2d_conv(x, par, we, wo, bias, alpha, qlvl, out_dtype=out)
+    yr, qr = K2.stem_s2d_conv_reference(x, par, we, wo, bias, alpha, qlvl,
+                                        out_dtype=out)
+    torch.cuda.synchronize()
+    assert K2.stem_s2d_conv.launches == before + 1
+    check_stem(y, q, yr, qr, alpha, qlvl)
+    assert int(q.max()) == qlvl - 1 and int(q.min()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_k2_rejects_mismatched_shapes(cuda):
+    x, par, we, wo, bias = stem_inputs(22, 4, 8, cuda)
+    with pytest.raises(ValueError, match="w_odd"):
+        K2.stem_s2d_conv(x, par, we, wo[:, :-8], bias, 1.0, 4)
+    with pytest.raises(ValueError, match="parities"):
+        K2.stem_s2d_conv(x, par[:-1], we, wo, bias, 1.0, 4)
+    with pytest.raises(ValueError, match="bfloat16 patches"):
+        K2.stem_s2d_conv(x.float(), par, we, wo, bias, 1.0, 4)
+
+
+@pytest.mark.cuda
+def test_cuda_s2d_slice_matches_plain_kernels(cuda):
+    """The s2d bf16 serving slice of a small net with K2 and K1 against the
+    same slice with their plain versions; one K2 and 6 K1 launches per
+    patch-batch forward."""
+    cfg = UResQConfig(num_mod=4, num_classes=3, depth_config=[1, 1, 1],
+                      width_config=[8, 16, 8], dilation_config=[1, 1, 1],
+                      init_stride=(2, 2, 2), drop_rate=0.0, blk_type="mid",
+                      ds="simple", quantize=True, qlvl_w=4, qlvl_act=4,
+                      q_first=(256, -1), q_last=(256, -1))
+    graph = build_uresq(cfg)
+    fg, fv = fold_bn(graph, nnir.init(graph, 1, device="cpu"))
+    for node in fg.qconv_nodes():
+        q = node.attrs["qcfg"]
+        p = fv["params"][node.name]
+        if q.q_weight:
+            a = torch.clamp_min(p["kernel"].abs().max(), 1e-8)
+            p["kernel"] = fake_quant_weight(p["kernel"], a, q.qlvl_w)
+            p["alpha_w"] = a
+        if q.q_act:
+            p["alpha_act"] = torch.tensor(1.0)
+    dg, dv = to_int8_inference(fg, fv)
+    images, _ = synthetic.make_subject(np.random.default_rng(1), "brats",
+                                       (39, 48, 48))
+    vol = np.stack(list(images.values()), -1)[None]
+    kw = dict(multilabel=True, heads=slice(-1, None), device=cuda)
+    infer = deploy.make_s2d_volume_inferencer(dg, dv, **kw)
+    k1, k2 = K.qconv3x3_int8_ndhwc.launches, K2.stem_s2d_conv.launches
+    got = infer(None, vol, (32, 32, 32), (8, 8, 8))
+    assert K2.stem_s2d_conv.launches - k2 == 1  # the whole grid: 1 forward
+    assert K.qconv3x3_int8_ndhwc.launches - k1 == 6
+    plain = deploy.make_s2d_volume_inferencer(
+        dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        stem_conv=K2.stem_s2d_conv_reference, **kw)
+    ref = plain(None, vol, (32, 32, 32), (8, 8, 8))
+    assert got.shape == (1, 1, 39, 48, 48, 3) and got.dtype == torch.uint8
+    assert float((got == ref).float().mean()) >= 0.999

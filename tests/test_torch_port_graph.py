@@ -63,6 +63,10 @@ def _np_vars(v):
     return jax.tree_util.tree_map(np.asarray, v)
 
 
+def _port_vars(v):
+    return torch_io.from_jax_variables(_np_vars(v), device="cpu")
+
+
 def _assert_vars_equal(tv, jv):
     jv = _np_vars(jv)
     for group in ("params", "state"):
@@ -120,13 +124,13 @@ def test_presets_match_jax(task):
 
 def test_init_is_seeded_kaiming():
     g = build_uresq(UResQConfig(**TINY))
-    a, b = nnir.init(g, 3), nnir.init(g, 3)
+    a, b = nnir.init(g, 3, device="cpu"), nnir.init(g, 3, device="cpu")
     k = a["params"]["u_blocks.UResBlock2.Layer1.block1.conv"]["kernel"]
     assert torch.equal(k, b["params"]["u_blocks.UResBlock2.Layer1.block1.conv"]
                        ["kernel"])
     assert k.shape == (3, 3, 3, 8, 8) and k.dtype == torch.float32
     assert abs(float(k.std()) - np.sqrt(2.0 / (27 * 8))) < 0.03
-    assert not torch.equal(k, nnir.init(g, 4)["params"][
+    assert not torch.equal(k, nnir.init(g, 4, device="cpu")["params"][
         "u_blocks.UResBlock2.Layer1.block1.conv"]["kernel"])
 
 
@@ -134,7 +138,7 @@ def test_init_is_seeded_kaiming():
 def test_fold_bn_matches_jax(name):
     jg, tg, jv = _both(name)
     jfg, jfv = jfold(jg, jv)
-    tfg, tfv = fold_bn(tg, torch_io.from_jax_variables(_np_vars(jv)))
+    tfg, tfv = fold_bn(tg, _port_vars(jv))
     assert _graph_key(tfg) == _graph_key(jfg)
     _assert_vars_equal(tfv, jfv)
 
@@ -144,8 +148,8 @@ def test_fold_bn_matches_jax(name):
 def test_int8_deploy_graph_matches_jax(name):
     jg, tg, jv = _both(name)
     jfg, jfv = _post_ptq(*jfold(jg, jv))
-    tfg, _ = fold_bn(tg, torch_io.from_jax_variables(_np_vars(jv)))
-    tfv = torch_io.from_jax_variables(_np_vars(jfv))
+    tfg, _ = fold_bn(tg, _port_vars(jv))
+    tfv = _port_vars(jfv)
     jdg, jdv = jdeploy(jfg, jfv, pallas=True)
     tdg, tdv = to_int8_inference(tfg, tfv)
     assert _graph_key(tdg) == _graph_key(jdg)
@@ -170,14 +174,15 @@ def test_eligible_matches_jax():
 
 def test_from_jax_variables_and_state_dict_round_trip():
     jg, tg, jv = _both("tiny-mid")
-    tv = torch_io.from_jax_variables(_np_vars(jv))
+    tv = _port_vars(jv)
     _assert_vars_equal(tv, jv)
     sd_t = torch_io.to_torch_state_dict(tg, tv)
     sd_j = jtio.to_torch_state_dict(jg, jv)
     assert sorted(sd_t) == sorted(sd_j)
     for k in sd_j:
         np.testing.assert_array_equal(sd_t[k], sd_j[k], err_msg=k)
-    back = torch_io.load_torch_state_dict(tg, nnir.init(tg, 1), sd_j,
+    back = torch_io.load_torch_state_dict(tg, nnir.init(tg, 1, device="cpu"),
+                                          sd_j,
                                           strict=True)
     _assert_vars_equal(back, jv)
 
@@ -201,7 +206,7 @@ def test_int8_checkpoint_round_trip(tmp_path):
     np.savez_compressed(path, state_dict=sd)
     jfg2, jfv2 = jfold(jg, jnnir.init(jg, jax.random.PRNGKey(5)))
     want = jtio.load_int8_checkpoint(jfg2, jfv2, path)
-    tfg, tfv = fold_bn(tg, nnir.init(tg, 5))
+    tfg, tfv = fold_bn(tg, nnir.init(tg, 5, device="cpu"))
     got = torch_io.load_int8_checkpoint(tfg, tfv, path)
     for node, entries in _np_vars(want)["params"].items():
         for k, v in entries.items():
@@ -212,7 +217,7 @@ def test_int8_checkpoint_round_trip(tmp_path):
         jtio.read_export_qlvl_overrides(path)
     # a graph on another grid refuses the export
     bad = build_uresq(UResQConfig(**dict(TINY, qlvl_w=2, qlvl_act=2)))
-    bfg, bfv = fold_bn(bad, nnir.init(bad, 0))
+    bfg, bfv = fold_bn(bad, nnir.init(bad, 0, device="cpu"))
     with pytest.raises(ValueError, match="qlvl_w"):
         torch_io.load_int8_checkpoint(bfg, bfv, path)
 
@@ -228,7 +233,7 @@ def _forward_pair(tg, tv, jg, jv, mode, shape=(2, 16, 16, 16, 2), seed=0):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_fp_forward_matches_jax(name):
     jg, tg, jv = _both(name)
-    got, want = _forward_pair(tg, torch_io.from_jax_variables(_np_vars(jv)),
+    got, want = _forward_pair(tg, _port_vars(jv),
                               jg, jv, "fp")
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -241,8 +246,8 @@ def test_quantized_forward_matches_jax(name):
     the unfused XLA int8 graph)."""
     jg, tg, jv = _both(name)
     jfg, jfv = _post_ptq(*jfold(jg, jv))
-    tfg, _ = fold_bn(tg, torch_io.from_jax_variables(_np_vars(jv)))
-    tfv = torch_io.from_jax_variables(_np_vars(jfv))
+    tfg, _ = fold_bn(tg, _port_vars(jv))
+    tfv = _port_vars(jfv)
     got, want = _forward_pair(tfg, tfv, jfg, jfv, "quantized")
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     jdg, jdv = jdeploy(jfg, jfv, pallas=False)
@@ -253,7 +258,7 @@ def test_quantized_forward_matches_jax(name):
 
 def test_graph_module_holds_variables():
     jg, tg, jv = _both("tiny-mid")
-    tv = torch_io.from_jax_variables(_np_vars(jv))
+    tv = _port_vars(jv)
     net = nnir.GraphModule(tg, tv, mode="fp")
     assert len(list(net.buffers())) == sum(
         len(e) for grp in tv.values() for e in grp.values())

@@ -152,13 +152,17 @@ def test_exact_f32_restores_flags():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with ``jax`` made unimportable."""
+    """Every module of the port, and chip_smoke.py, imports with ``jax``
+    and the JAX package made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['efficientq_tpu'] = None\n"
         "import efficientq_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'efficientq_tpu_torch.')]\n"
+        "assert 'efficientq_tpu_torch.kernels.stem' in names, names\n"
+        "names.append('chip_smoke')\n"
         "[importlib.import_module(n) for n in names]\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'efficientq_tpu.'))"
         " or m == 'efficientq_tpu' for m in sys.modules if sys.modules[m]), "

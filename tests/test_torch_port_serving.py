@@ -61,10 +61,10 @@ def _deployed(seed=0):
             p["alpha_act"] = jnp.float32(0.8)
     jdg, jdv = jdeploy(jfg, jfv, pallas=True)
     tg = build_uresq(UResQConfig(**CFG))
-    tfg, _ = fold_bn(tg, nnir.init(tg, seed))
+    tfg, _ = fold_bn(tg, nnir.init(tg, seed, device="cpu"))
     tdg, tdv = to_int8_inference(
-        tfg, torch_io.from_jax_variables(jax.tree_util.tree_map(np.asarray,
-                                                                 jfv)))
+        tfg, torch_io.from_jax_variables(
+            jax.tree_util.tree_map(np.asarray, jfv), device="cpu"))
     return (jdg, jdv), (tdg, tdv)
 
 
