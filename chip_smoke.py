@@ -6,9 +6,10 @@
 Phases, each printed on its own lines:
 
 0. setup: the card (as nvidia-smi names it), torch / CUDA / nvcc versions,
-   and the builds of K1 (efficientq_tpu_torch/csrc/qconv3d_int8.cu) and K2
-   (csrc/stem_s2d.cu), one nvcc for sm_90a per source, started together,
-   with the build seconds;
+   and the builds of K1 (efficientq_tpu_torch/csrc/qconv3d_int8.cu), K2
+   (csrc/stem_s2d.cu), K3 (csrc/qmatmul_int8.cu) and K4
+   (csrc/qmatmul_f32.cu), one nvcc for sm_90a per source, started
+   together, with the build seconds;
 1. K1 against its plain PyTorch version on the card, at every conv shape
    and epilogue of the flagship BraTS net (N = 2, 128^3 patches) and at
    dilation 1 and 2: outputs must be identical (torch.equal); then the
@@ -46,12 +47,37 @@ Phases, each printed on its own lines:
    few bf16 outputs and codes apart and the random-weight net amplifies
    them; with the plain stem's codes swapped in, the K2 path must equal
    the plain path (a run with its activation swapped in is printed);
-   Dice must be finite.  Also the s2d transform's two placements (on the host before
-   the upload, on the card after it), timed and checked bit-equal.
+   Dice must be finite.  Also the s2d transform's two placements (on the
+   host before the upload, on the card after it), timed and checked
+   bit-equal.
+5. K3 and K4 against their plain versions on the card at the six
+   flagship 1x1 shapes (the transition convs), at B = 2 patches with
+   float32 input and B = 8 with bfloat16 input: K3 equal (torch.equal),
+   with per-tensor and per-channel scale; K4 within 1e-5 max|y|.  Times
+   (median of 20 launches after 3 warm-ups) of the kernels, their plain
+   versions and one library call each (``torch._int_mm`` on the codes for
+   K3, float32 ``torch.addmm`` with TF32 off on the fake-quantized x for
+   K4), and the bounds (bytes over 3.35 TB/s against operations over the
+   int8 tensor-core or the float32 non-tensor peak).
+6. the ``include_1x1`` serving paths on the same net and volumes:
+   (a) the int8 deployment with the 1x1 convs flagged, on the int8
+   float32 path: 14 K1 and 6 K3 launches per forward, predictions equal
+   to phase 2's; (b) the same graph on the s2d bf16 path: 1 K2, 14 K1, 6
+   K3 per forward, predictions equal to phase 4's; (c) the headline mode,
+   the mixed deployment (``only_kernel_sizes={(3, 3, 3)}``, ``--deploy
+   mixed``) with ``--serve_stem s2d`` and ``include_1x1``: 1 K2, 14 K1, 6
+   K4 per forward, >= 0.99 agreement with the same path on the plain K4
+   (the 1x1 outputs that differ and the downstream codes that flip are
+   counted), and the agreement with the mixed path on cuDNN's bf16 1x1
+   convs printed; (d) fq mode: the quantized graph with BN folded and its
+   weights unprojected, flagged, on one 128^3 patch through
+   ``nnir.apply(mode="fq")``: 6 K4 launches, finite logits, >= 0.99
+   argmax agreement with the plain-K4 forward, the max |logit difference|
+   printed.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
-path (phases 2 and 4): wall time, device time and the kernels by device
-time.
+path (phases 2 and 4, and path (c) of phase 6): wall time, device time
+and the kernels by device time.
 
 Then one JSON line describing each kernel of the paths, the card's
 nvidia-smi line, and the result line.  With no CUDA device, or when any
@@ -74,9 +100,14 @@ K1_SOURCE = "efficientq_tpu_torch/csrc/qconv3d_int8.cu"
 K1_REPLACES = "efficientq_tpu/pallas/qconv3d.py:439"
 K2_SOURCE = "efficientq_tpu_torch/csrc/stem_s2d.cu"
 K2_REPLACES = "efficientq_tpu/pallas/stem.py:328"
+K3_SOURCE = "efficientq_tpu_torch/csrc/qmatmul_int8.cu"
+K3_REPLACES = "efficientq_tpu/pallas/qmatmul.py:116"
+K4_SOURCE = "efficientq_tpu_torch/csrc/qmatmul_f32.cu"
+K4_REPLACES = "efficientq_tpu/pallas/qmatmul.py:54"
 # NVIDIA H100 SXM published peaks (dense): device memory bytes/s, bf16 and
-# int8 tensor-core operations/s
+# int8 tensor-core operations/s, float32 operations/s off the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
+FP32_OPS = 67e12
 # flagship BraTS stages at a 128^3 patch (init stride 2): (extent, width)
 STAGES = [(64, 32), (32, 64), (16, 128), (8, 256), (16, 128), (32, 64),
           (64, 32)]
@@ -89,6 +120,15 @@ AGREE_S2D = 0.999  # bf16 reduction order (the JAX test's own level)
 # random-weight net amplifies the stem's rounding-level differences
 # (phase 4 prints which of them moves the predictions)
 AGREE_PLAIN_S2D = 0.99
+# K4 against its plain version (float32 sums in another order) on the
+# paths of phase 6 (c) and (d): the same amplification of code flips
+AGREE_PLAIN_K4 = 0.99
+# the flagship's six transition 1x1 convs: (name, voxels per 128^3 patch,
+# K, N)
+ONE_BY_ONE = [("TransDown1", 32768, 32, 64), ("TransDown2", 4096, 64, 128),
+              ("TransDown3", 512, 128, 256), ("TransUp4", 512, 256, 128),
+              ("TransUp5", 4096, 128, 64), ("TransUp6", 32768, 64, 32)]
+S2D_BATCH = 8  # the s2d path's patch batch: the whole grid of a volume
 
 
 class SmokeFailure(RuntimeError):
@@ -108,7 +148,7 @@ def gpu_line() -> str:
 
 
 def setup():
-    from efficientq_tpu_torch.kernels import build, qconv3d, stem
+    from efficientq_tpu_torch.kernels import build, qconv3d, qmatmul, stem
 
     smi = gpu_line()
     print(smi)
@@ -120,11 +160,15 @@ def setup():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    build.load_all(["qconv3d_int8.cu", "stem_s2d.cu"])
+    build.load_all(["qconv3d_int8.cu", "stem_s2d.cu", "qmatmul_int8.cu",
+                    "qmatmul_f32.cu"])
     qconv3d._lib()
     stem._lib()
-    print(f"[setup] built K1 ({K1_SOURCE}) and K2 ({K2_SOURCE}) for sm_90a "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    qmatmul._int8_lib()
+    qmatmul._f32_lib()
+    print(f"[setup] built K1 ({K1_SOURCE}), K2 ({K2_SOURCE}), K3 "
+          f"({K3_SOURCE}) and K4 ({K4_SOURCE}) for sm_90a in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     return smi
 
 
@@ -243,7 +287,9 @@ def phase1(seed: int):
 
 def build_net(seed: int):
     """BraTS W4A4 preset, BN folded, post-PTQ weights emulated, exported
-    as an int8 checkpoint, reloaded and deployed."""
+    as an int8 checkpoint, reloaded and deployed.  Returns the deployed
+    graph, its ``GraphModule`` and the reloaded (folded, undeployed) graph
+    and variables on the CPU."""
     from efficientq_tpu_torch import nnir
     from efficientq_tpu_torch.kernels.build import BUILD_DIR
     from efficientq_tpu_torch.models import build_uresq, preset_config
@@ -284,7 +330,8 @@ def build_net(seed: int):
     print(f"[phase2] BraTS W4A4 preset: {n_int8} convs on the int8 path, "
           f"{n_k1} on K1", flush=True)
     check(n_k1 == 14, f"expected 14 K1 convs, got {n_k1}")
-    return dgraph, nnir.GraphModule(dgraph, dvars, mode="quantized")
+    return (dgraph, nnir.GraphModule(dgraph, dvars, mode="quantized"),
+            (fgraph, lvars))
 
 
 def phase2(seed: int):
@@ -296,7 +343,7 @@ def phase2(seed: int):
     from efficientq_tpu_torch.kernels import qconv3d as K
 
     dev = torch.device("cuda")
-    dgraph, net = build_net(seed)
+    dgraph, net, folded = build_net(seed)
     net = net.to(dev)
     variables = net.variables
 
@@ -361,7 +408,8 @@ def phase2(seed: int):
           and bool(torch.isfinite(logits).all()),
           f"logits {tuple(logits.shape)} not finite")
     return launches, dict(dgraph=dgraph, net=net, vols=vols,
-                          subjects=subjects, infer=infer)
+                          subjects=subjects, infer=infer, preds=preds,
+                          folded=folded)
 
 
 def _bound(nbytes: float, ops: float, peak: float):
@@ -715,10 +763,307 @@ def phase4(seed: int, served):
                   "codes != the plain path")
     check(agree["the s2d path on the plain K2 and K1"] >= AGREE_PLAIN_S2D,
           "s2d path vs the plain K2 and K1")
-    return k1, k2, infer
+    return k1, k2, infer, preds
 
 
-def profile_paths(served, s2d_infer):
+def _int_mm_ms(qa, codes):
+    """``torch._int_mm`` (cuBLASLt int8 GEMM, int32 out) on the codes, or
+    None where this build refuses the shape or layout."""
+    for b in (codes, codes.t().contiguous().t()):
+        try:
+            torch._int_mm(qa, b)
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+            continue
+        return _median_ms(lambda: torch._int_mm(qa, b))
+    print(f"[phase5]   torch._int_mm refused {tuple(qa.shape)} x "
+          f"{tuple(codes.shape)}: {err}", flush=True)
+    return None
+
+
+def phase5(seed: int):
+    """K3 and K4 against their plain versions at the six flagship 1x1
+    shapes; times, library calls and bounds.  Returns, per kernel, the
+    numbers of one B = 8 bfloat16 forward's six convs (the s2d path's)
+    with the B = 2 float32 forward's beside them."""
+    from efficientq_tpu_torch.kernels import qmatmul as KM
+    from efficientq_tpu_torch.quant import act_codes, fake_quant_act
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    alpha = torch.tensor(1.0, device=dev)
+    out = {}
+    for batch, dt in ((N_BATCH, torch.float32), (S2D_BATCH, torch.bfloat16)):
+        tot = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                         t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+               for key in ("k3", "k4")}
+        for name, per_patch, k, n in ONE_BY_ONE:
+            m = per_patch * batch
+            x = (torch.randn(m, k, device=dev, generator=gen) * 0.7).to(dt)
+            codes = (2 * torch.randint(0, 4, (k, n), device=dev,
+                                       generator=gen) - 3).to(torch.int8)
+            w = torch.randn(k, n, device=dev, generator=gen) * 0.1
+            b = torch.randn(n, device=dev, generator=gen)
+            scales = {"per-tensor": torch.tensor(0.05, device=dev),
+                      "per-channel": torch.rand(n, device=dev,
+                                                generator=gen) * 0.05}
+            for kind, sc in scales.items():
+                args = (x, codes, b, alpha, sc, 4)
+                got = KM.fused_int8_matmul(*args)
+                ref = KM.fused_int8_matmul_reference(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"K3 != plain at {name} B={batch}"
+                      f" {dt} {kind}: max |diff| "
+                      f"{float((got - ref).abs().max())}")
+            args4 = (x, w, b, alpha, 4)
+            got = KM.fused_qact_matmul(*args4)
+            ref = KM.fused_qact_matmul_reference(*args4)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max())
+            check(err <= tol, f"K4 at {name} B={batch} {dt}: max |diff| {err}"
+                  f" > {tol}")
+            tot["k4"]["max_abs_err"] = max(tot["k4"]["max_abs_err"], err)
+            del got, ref
+            args = (x, codes, b, alpha, scales["per-tensor"], 4)
+            qa = act_codes(x, alpha, 4)
+            xq = fake_quant_act(x, alpha, 4)
+            xbytes = x.element_size() * m * k
+            times = {
+                "k3": (_median_ms(lambda: KM.fused_int8_matmul(*args)),
+                       _median_ms(lambda: KM.fused_int8_matmul_reference(
+                           *args)),
+                       _int_mm_ms(qa, codes),
+                       _bound(xbytes + k * n + 8 * n + 4 * m * n, 2 * m * k * n,
+                              INT8_OPS)),
+                "k4": (_median_ms(lambda: KM.fused_qact_matmul(*args4)),
+                       _median_ms(lambda: KM.fused_qact_matmul_reference(
+                           *args4)),
+                       _median_ms(lambda: torch.addmm(b, xq, w)),
+                       _bound(xbytes + 4 * k * n + 4 * n + 4 * m * n,
+                              2 * m * k * n, FP32_OPS))}
+            for key, (tk, tp, tl, (bound, by)) in times.items():
+                t = tot[key]
+                t["ms"] += tk
+                t["plain_ms"] += tp
+                t["library_ms"] = (None if tl is None or t["library_ms"] is None
+                                   else t["library_ms"] + tl)
+                t["bound_ms"] += bound
+                peak = INT8_OPS if key == "k3" else FP32_OPS
+                t["t_bytes"] += (bound if by == "bytes" else 0.0)
+                t["t_ops"] += (bound if by == "operations" else 0.0)
+                lib = "n/a" if tl is None else f"{tl:.4f} ms"
+                print(f"[phase5] {key.upper()} {name} B={batch} {dt} M={m} "
+                      f"K={k} N={n}: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
+                      f"library {lib}  bound {bound:.4f} ms ({by}; peak "
+                      f"{peak / 1e12:.0f} T/s)", flush=True)
+            del x, qa, xq
+        for key in ("k3", "k4"):
+            t = tot[key]
+            t["bound_by"] = ("bytes" if t.pop("t_bytes") >= t.pop("t_ops")
+                             else "operations")
+            lib = ("n/a" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f} ms")
+            print(f"[phase5] {key.upper()} one forward's six 1x1 convs at "
+                  f"B={batch} {dt}: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+        out[batch] = tot
+        torch.cuda.empty_cache()
+    print(f"[phase5] K3 == plain (torch.equal) at every shape, both scales; "
+          f"K4 max |diff| {out[S2D_BATCH]['k4']['max_abs_err']:.3e} (B=8), "
+          f"{out[N_BATCH]['k4']['max_abs_err']:.3e} (B=2), within 1e-5 "
+          f"max|y|", flush=True)
+    result = {}
+    for key in ("k3", "k4"):
+        b8, b2 = out[S2D_BATCH][key], out[N_BATCH][key]
+        result[key] = dict(b8, max_abs_err=max(b8["max_abs_err"],
+                                               b2["max_abs_err"]),
+                           n2_f32_ms=b2["ms"], n2_f32_plain_ms=b2["plain_ms"],
+                           n2_f32_bound_ms=b2["bound_ms"])
+    return result
+
+
+class _Launches:
+    """Sets the kernels' launch counts to 0 on entry and reads them on
+    exit, as {name: launches}."""
+
+    def __init__(self):
+        from efficientq_tpu_torch.kernels import qconv3d, qmatmul, stem
+
+        self.fns = {"K1": qconv3d.qconv3x3_int8_ndhwc,
+                    "K2": stem.stem_s2d_conv,
+                    "K3": qmatmul.fused_int8_matmul,
+                    "K4": qmatmul.fused_qact_matmul}
+        self.counts = {}
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        for fn in self.fns.values():
+            fn.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {k: fn.launches for k, fn in self.fns.items()}
+
+
+def _serve(label, infer, vols, want):
+    """Serves the volumes, checks the launches per forward against
+    ``want`` ({kernel: launches per volume}), prints volumes/s; returns
+    (predictions, launches)."""
+    preds, secs = [], []
+    with _Launches() as counted:
+        for vol in vols:
+            t0 = time.perf_counter()
+            preds.append(infer(vol))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    got = counted.counts
+    print(f"[phase6] {label}: launches {got} over {len(vols)} volumes; "
+          f"seconds per volume {[round(x, 4) for x in secs]}; volumes/s over "
+          f"volumes 2-3: {2 / (secs[1] + secs[2]):.4f}", flush=True)
+    for name in got:
+        n = want.get(name, 0) * len(vols)
+        check(got[name] == n, f"{label}: {name} launched {got[name]} times, "
+              f"expected {n}")
+    return preds, got
+
+
+def phase6(seed: int, served, s2d_preds):
+    """The include_1x1 serving paths (a)-(d); returns the launches of each
+    path and path (c)'s inferencer."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
+                                                   patch_grid)
+    from efficientq_tpu_torch.kernels import qmatmul as KM
+    from efficientq_tpu_torch.models import build_uresq, preset_config
+    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+    from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
+    from efficientq_tpu_torch.quant import act_codes
+
+    dev = torch.device("cuda")
+    variables = served["net"].variables
+    host = [v.numpy() for v in served["vols"]]
+    fw = -(-len(patch_grid(VOL_SHAPE, PATCH, OVERLAP)) // N_BATCH)
+    launches = {}
+
+    def flagged_1x1(g, int8):
+        return sum(1 for n in g.nodes if n.attrs.get("pallas")
+                   and n.attrs["kernel_size"] == (1, 1, 1)
+                   and bool(n.attrs.get("int8")) == int8)
+
+    # (a) int8 deployment + include_1x1, int8 float32 path
+    pg = KM.to_pallas_inference(served["dgraph"], include_1x1=True)
+    check(flagged_1x1(pg, True) == 6, "expected 6 int8 1x1 convs on K3")
+    infer_a = make_volume_inferencer(
+        pg, patch_batch=N_BATCH, mode="quantized", heads=slice(-1, None),
+        hard_pred=True, multilabel=True)
+    preds, launches["a"] = _serve(
+        "(a) int8 + include_1x1, int8 float32 path",
+        lambda v: infer_a(variables, v.to(dev), PATCH, OVERLAP),
+        served["vols"], {"K1": 14 * fw, "K3": 6 * fw})
+    check(all(torch.equal(p, q) for p, q in zip(preds, served["preds"])),
+          "(a): predictions differ from phase 2's")
+    print("[phase6] (a) predictions equal phase 2's on all 3 volumes",
+          flush=True)
+
+    # (b) the same graph on the s2d bf16 path
+    kw = dict(multilabel=True, heads=slice(-1, None), device=dev)
+    infer_b = make_s2d_volume_inferencer(pg, variables, **kw)
+    preds, launches["b"] = _serve(
+        "(b) int8 + include_1x1, s2d bf16 path",
+        lambda v: infer_b(None, v, PATCH, OVERLAP), host,
+        {"K1": 14, "K2": 1, "K3": 6})
+    check(all(torch.equal(p, q) for p, q in zip(preds, s2d_preds)),
+          "(b): predictions differ from phase 4's")
+    print("[phase6] (b) predictions equal phase 4's on all 3 volumes",
+          flush=True)
+    del infer_a, infer_b
+    torch.cuda.empty_cache()
+
+    # (c) --deploy mixed + --serve_stem s2d + include_1x1
+    fgraph, lvars = served["folded"]
+    mg, mv = to_int8_inference(fgraph, lvars, only_kernel_sizes={(3, 3, 3)})
+    mpg = KM.to_pallas_inference(mg, include_1x1=True)
+    n_k1 = sum(1 for n in mpg.nodes if n.attrs.get("pallas")
+               and n.attrs["kernel_size"] == (3, 3, 3))
+    check(n_k1 == 14 and flagged_1x1(mpg, False) == 6
+          and flagged_1x1(mpg, True) == 0,
+          "mixed graph: expected 14 K1 and 6 float 1x1 convs on K4")
+    infer_c = make_s2d_volume_inferencer(mpg, mv, **kw)
+    preds, launches["c"] = _serve(
+        "(c) mixed + s2d + include_1x1", lambda v: infer_c(None, v, PATCH,
+                                                           OVERLAP),
+        host, {"K1": 14, "K2": 1, "K4": 6})
+    plain = make_s2d_volume_inferencer(
+        mpg, mv, qact_matmul=KM.fused_qact_matmul_reference, **kw)(
+        None, host[0], PATCH, OVERLAP)
+    agree = float((plain == preds[0]).float().mean())
+    print(f"[phase6] (c) volume 1 agrees with the same path on the plain K4 "
+          f"on {agree:.8f} of {plain.numel()} voxel-classes", flush=True)
+
+    def compare(x, w, b, alpha, qlvl):
+        y = KM.fused_qact_matmul(x, w, b, alpha, qlvl)
+        yp = KM.fused_qact_matmul_reference(x, w, b, alpha, qlvl)
+        # every act-quantized conv of this net has alpha_act = 1, 4 levels
+        flips = int((act_codes(y, 1.0, 4) != act_codes(yp, 1.0, 4)).sum())
+        print(f"[phase6]   K4 {tuple(x.shape)} x {tuple(w.shape)}: "
+              f"{int((y != yp).sum())} of {y.numel()} outputs differ from "
+              f"the plain K4 (max |diff| {float((y - yp).abs().max()):.3e}), "
+              f"{flips} downstream codes flip", flush=True)
+        return y
+
+    swapped = make_s2d_volume_inferencer(mpg, mv, qact_matmul=compare, **kw)(
+        None, host[0], PATCH, OVERLAP)
+    check(torch.equal(swapped, preds[0]), "(c): the comparing run differs")
+    no_1x1 = make_s2d_volume_inferencer(mg, mv, **kw)(None, host[0], PATCH,
+                                                      OVERLAP)
+    print(f"[phase6] (c) volume 1 agrees with the mixed s2d path without "
+          f"include_1x1 (cuDNN bf16 1x1 convs) on "
+          f"{float((no_1x1 == preds[0]).float().mean()):.8f} (printed, not "
+          f"held: other numerics)", flush=True)
+    check(agree >= AGREE_PLAIN_K4, f"(c): agreement {agree} with the plain K4"
+          f" < {AGREE_PLAIN_K4}")
+    del plain, swapped, no_1x1
+    torch.cuda.empty_cache()
+
+    # (d) fq mode: weights unprojected, quantized on the fly
+    graph = build_uresq(preset_config("brats", quantize=True))
+    qg, qv = fold_bn(graph, nnir.init(graph, seed, device="cpu"))
+    for node in qg.qconv_nodes():
+        p = qv["params"][node.name]
+        if node.attrs["qcfg"].q_weight:
+            p["alpha_w"] = torch.clamp_min(p["kernel"].abs().max(), 1e-8)
+        if node.attrs["qcfg"].q_act:
+            p["alpha_act"] = torch.tensor(1.0)
+    fq_graph = KM.to_pallas_inference(qg, include_1x1=True)
+    check(flagged_1x1(fq_graph, False) == 6, "fq graph: expected 6 K4 convs")
+    fq_net = nnir.GraphModule(fq_graph, qv, mode="fq").to(dev)
+    x = served["vols"][0][:, :PATCH[0], :PATCH[1], :PATCH[2]].to(dev)
+    with torch.inference_mode():
+        with _Launches() as counted:
+            logits = fq_net(x, heads=slice(-1, None))
+        ref = fq_net(x, heads=slice(-1, None),
+                     qact_matmul=KM.fused_qact_matmul_reference)
+    launches["d"] = counted.counts
+    check(counted.counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 6},
+          f"(d): launches {counted.counts}, expected 6 K4 only")
+    check(tuple(logits.shape) == (1, 1, *PATCH, 3)
+          and bool(torch.isfinite(logits).all()),
+          f"(d): logits {tuple(logits.shape)} not finite")
+    agree_d = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"[phase6] (d) fq mode, one 128^3 patch: launches "
+          f"{counted.counts}; logits finite, max |logit - plain-K4 logit| "
+          f"{float((logits - ref).abs().max()):.3e}, argmax agreement "
+          f"{agree_d:.8f}", flush=True)
+    check(agree_d >= AGREE_PLAIN_K4, f"(d): argmax agreement {agree_d} < "
+          f"{AGREE_PLAIN_K4}")
+    del fq_net, logits, ref
+    torch.cuda.empty_cache()
+    return launches, infer_c
+
+
+def profile_paths(served, s2d_infer, mixed_infer):
     """torch.profiler over one volume of each serving path."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -727,7 +1072,9 @@ def profile_paths(served, s2d_infer):
     runs = [("int8 f32 path (phase 2)", lambda: served["infer"](
                 served["net"].variables, vol.to(dev), PATCH, OVERLAP)),
             ("s2d bf16 path (phase 4)", lambda: s2d_infer(
-                None, vol.numpy(), PATCH, OVERLAP))]
+                None, vol.numpy(), PATCH, OVERLAP)),
+            ("mixed + s2d + include_1x1 path (phase 6 c)", lambda:
+                mixed_infer(None, vol.numpy(), PATCH, OVERLAP))]
     for name, run in runs:
         run()
         torch.cuda.synchronize()
@@ -770,19 +1117,40 @@ def main():
     max_err, ms, plain_ms = phase1(args.seed)
     k1_f32, served = phase2(args.seed)
     p3 = phase3(args.seed)
-    k1_s2d, k2, s2d_infer = phase4(args.seed, served)
+    k1_s2d, k2, s2d_infer, s2d_preds = phase4(args.seed, served)
+    p5 = phase5(args.seed)
+    paths, mixed_infer = phase6(args.seed, served, s2d_preds)
     if args.profile:
-        profile_paths(served, s2d_infer)
+        profile_paths(served, s2d_infer, mixed_infer)
+    # launches of each kernel on each serving path, counted from 0 around
+    # the path's run
+    by_path = {"K1": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
+               "K2": {"s2d_bf16": k2}, "K3": {}, "K4": {}}
+    names = {"a": "int8_f32_include_1x1", "b": "s2d_bf16_include_1x1",
+             "c": "mixed_s2d_include_1x1", "d": "fq_patch"}
+    for path, counts in paths.items():
+        for kernel, n in counts.items():
+            if n:
+                by_path[kernel][names[path]] = n
+
+    def entry(kernel, name, source, replaces, numbers):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(by_path[kernel].values()),
+                "launches_by_path": by_path[kernel], **numbers}
+
     # K1's numbers: one forward's 14 convs at the s2d path's batch and
-    # bfloat16 (phase 3); phase 1's float32 N = 2 forward beside them
-    k1 = dict(p3["k1"], max_abs_err=max(max_err, p3["k1"]["max_abs_err"]))
+    # bfloat16 (phase 3); phase 1's float32 N = 2 forward beside them.
+    # K3's and K4's: one forward's six 1x1 convs at B = 8 and bfloat16
+    # input (phase 5), the B = 2 float32 forward beside them.
+    k1 = dict(p3["k1"], max_abs_err=max(max_err, p3["k1"]["max_abs_err"]),
+              n2_f32_ms=ms, n2_f32_plain_ms=plain_ms)
     print(json.dumps({"kernels": [
-        {"name": "qconv3x3_int8_ndhwc", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": k1_f32 + k1_s2d,
-         "launches_by_path": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
-         **k1, "n2_f32_ms": ms, "n2_f32_plain_ms": plain_ms},
-        {"name": "stem_s2d_conv", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": k2, **p3["k2"]}]}))
+        entry("K1", "qconv3x3_int8_ndhwc", K1_SOURCE, K1_REPLACES, k1),
+        entry("K2", "stem_s2d_conv", K2_SOURCE, K2_REPLACES, p3["k2"]),
+        entry("K3", "fused_int8_matmul", K3_SOURCE, K3_REPLACES, p5["k3"]),
+        entry("K4", "fused_qact_matmul", K4_SOURCE, K4_REPLACES,
+              p5["k4"])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,15 +127,18 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
                            mode: str = "fp", heads=None,
                            hard_pred: bool = False, multilabel: bool = False,
                            conv3x3_int8: Callable = None,
-                           compute_dtype=None):
+                           compute_dtype=None, int8_matmul: Callable = None,
+                           qact_matmul: Callable = None):
     """Returns infer(variables, image, patch_size, overlap).
 
     ``heads``: the output heads to compute (e.g. ``slice(-1, None)`` for
     final-head-only serving; the aux heads are then never evaluated).
     ``hard_pred``: return uint8 hard predictions: (M, N, D, H, W, C)
     per-class binaries when ``multilabel`` (sigmoid(x) >= 0.5 <=> x >= 0),
-    else (M, N, D, H, W) argmax class ids.  ``conv3x3_int8`` replaces the
-    K1 wrapper (see ``nnir.eval_node``).  ``compute_dtype``: see
+    else (M, N, D, H, W) argmax class ids.  ``mode``: see ``nnir.apply``
+    ('fp', 'quantized' or 'fq').  ``conv3x3_int8``, ``int8_matmul`` and
+    ``qact_matmul`` replace the K1, K3 and K4 wrappers (see
+    ``nnir.eval_node``).  ``compute_dtype``: see
     ``nnir.apply``; with hard predictions the heads stay in it through the
     stitch and the decision (the canvas traffic halves), else the logits
     come back as float32."""
@@ -145,6 +148,8 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
         def model_fn(xb):
             return nnir.apply(graph, variables, xb, mode=mode, heads=heads,
                               conv3x3_int8=conv3x3_int8,
+                              int8_matmul=int8_matmul,
+                              qact_matmul=qact_matmul,
                               compute_dtype=compute_dtype,
                               keep_head_dtype=keep_hd)
 

@@ -17,8 +17,13 @@ dead-code elimination and buffer reuse did for the JAX interpreter under
 ``apply(compute_dtype=torch.bfloat16)`` is low-precision serving, as in
 the JAX package: K1 nodes emit bfloat16 and take their residual in
 bfloat16, plain convs run on bfloat16 operands and emit bfloat16, the
-int8 1x1 convs off the kernel path still emit float32, and the head
-outputs come back as float32 unless ``keep_head_dtype``.
+int8 1x1 convs (on K3 or off the kernel path) and the K4 convs still emit
+float32, and the head outputs come back as float32 unless
+``keep_head_dtype``.
+
+Modes: 'fp' (plain convs), 'quantized' (fake-quant activations, stored
+post-PTQ weights) and 'fq' (weights fake-quantized on the fly as well);
+int8-deployed nodes run on integer codes in both quantized modes.
 
 ``GraphModule`` holds a graph and its variables as an ``nn.Module``, so
 ``.to(device)`` moves every tensor of the network at once.
@@ -35,8 +40,11 @@ from torch import nn
 
 from . import ops
 from .kernels.qconv3d import qconv3x3_int8_ndhwc
+from .kernels.qmatmul import fused_int8_matmul, qconv1x1_ndhwc
 from .kernels.stem import stem_s2d_conv
-from .quant import act_codes, fake_quant_act
+from .quant import act_codes, fake_quant_act, fake_quant_weight
+
+QUANT_MODES = ("quantized", "fq")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +179,13 @@ def init(graph: Graph, seed: int = 0, device="cuda"):
     return {"params": params, "state": state}
 
 
+def _pallas_1x1_eligible(a) -> bool:
+    """1x1x1 convs that are a matmul over channels: stride 1, no padding,
+    one group."""
+    return (a["kernel_size"] == (1, 1, 1) and a["stride"] == (1, 1, 1)
+            and a["padding"] == (0, 0, 0) and a["groups"] == 1)
+
+
 def _pallas_3x3_int8_eligible(a) -> bool:
     """Interior 3^3 qconvs: stride 1, isotropic 'same' padding = dilation."""
     return (a["kernel_size"] == (3, 3, 3) and a["stride"] == (1, 1, 1)
@@ -195,8 +210,7 @@ def _int8_conv(qa: torch.Tensor, codes: torch.Tensor, a, qcfg: QCfg):
     k = a["kernel_size"]
     c = qa.shape[-1]
     dt = int_conv_dtype(k[0] * k[1] * k[2], c, qcfg.qlvl_act, qcfg.qlvl_w)
-    if (k == (1, 1, 1) and a["stride"] == (1, 1, 1)
-            and a["padding"] == (0, 0, 0) and a["groups"] == 1):
+    if _pallas_1x1_eligible(a):
         y = torch.matmul(qa.reshape(-1, c).to(dt), codes.reshape(c, -1).to(dt))
         y = y.reshape(*qa.shape[:-1], -1)
     else:
@@ -206,13 +220,17 @@ def _int8_conv(qa: torch.Tensor, codes: torch.Tensor, a, qcfg: QCfg):
 
 
 def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
+               int8_matmul: Callable, qact_matmul: Callable,
                compute_dtype=None):
     a = node.attrs
     p = params[node.name]
     x = ins[0]
     qcfg: Optional[QCfg] = a.get("qcfg")
-    if (a.get("pallas") and mode == "quantized" and qcfg is not None
+    if (a.get("pallas") and mode in QUANT_MODES and qcfg is not None
             and qcfg.q_act):
+        if not (a.get("int8") and a["kernel_size"] == (3, 3, 3)):
+            return _eval_fused_1x1(node, p, x, mode, int8_matmul,
+                                   qact_matmul)
         # the deployed hot path: the int8 3^3 conv with its fused
         # epilogues (kernels/qconv3d.py; flags from kernels/qmatmul.py and
         # kernels/epilogue.py), emitting compute_dtype; at a compute dtype
@@ -232,7 +250,7 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
             pool=bool(a.get("epilogue_pool")),
             w_packed=p.get("kernel_packed"),
             out_dtype=compute_dtype or torch.float32)
-    if a.get("int8") and mode == "quantized":
+    if a.get("int8") and mode in QUANT_MODES:
         # integer path of ptq/deploy.py: int8 codes in, exact integer conv,
         # float32 scale epilogue (float32 at any compute dtype, as in the
         # JAX package)
@@ -242,10 +260,8 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
         if "bias" in p:
             y = y + p["bias"]
         return y
-    kernel = p["kernel"]
+    x, kernel = _quantize_operands(x, p, qcfg, mode)
     bias = p.get("bias")
-    if qcfg is not None and mode == "quantized" and qcfg.q_act:
-        x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
     if compute_dtype is not None:
         # low precision: operands cast, the conv emits compute_dtype (one
         # rounding of a float32 accumulation), the bias is added in it
@@ -256,15 +272,49 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
                       a["dilation"], a["groups"])
 
 
+def _quantize_operands(x, p, qcfg: Optional[QCfg], mode: str):
+    """(x, kernel) of a float conv: the activations fake-quantized with
+    ``q_act`` in both quantized modes, the weights fake-quantized on the fly
+    in 'fq' (after PTQ the stored kernel already holds quantized values)."""
+    kernel = p["kernel"]
+    if qcfg is not None and mode in QUANT_MODES:
+        if qcfg.q_act:
+            x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
+        if mode == "fq" and qcfg.q_weight:
+            kernel = fake_quant_weight(kernel, p["alpha_w"], qcfg.qlvl_w)
+    return x, kernel
+
+
+def _eval_fused_1x1(node: Node, p, x, mode: str, int8_matmul: Callable,
+                    qact_matmul: Callable):
+    """A flagged 1x1x1 conv (``to_pallas_inference(include_1x1=True)``):
+    int8 nodes on K3, the others on K4 through ``qconv1x1_ndhwc`` (weights
+    fake-quantized first in 'fq').  Both take the float activation, whatever
+    its dtype, and emit float32, as the JAX kernels do."""
+    a = node.attrs
+    qcfg: QCfg = a["qcfg"]
+    if a.get("input_quantized"):
+        raise ValueError(f"{node.name}: a flagged 1x1 conv quantizes its "
+                         f"float input itself and cannot take int8 codes")
+    if a.get("int8"):
+        n, d, h, w, c = x.shape
+        y = int8_matmul(x.reshape(-1, c), p["kernel_int8"].reshape(c, -1),
+                        p.get("bias"), p["alpha_act"], p["scale"],
+                        qcfg.qlvl_act)
+        return y.reshape(n, d, h, w, -1)
+    kernel = p["kernel"]
+    if mode == "fq" and qcfg.q_weight:
+        kernel = fake_quant_weight(kernel, p["alpha_w"], qcfg.qlvl_w)
+    return qconv1x1_ndhwc(x, kernel, p.get("bias"), p["alpha_act"],
+                          qcfg.qlvl_act, matmul=qact_matmul)
+
+
 def _eval_conv_cf(node: Node, params, x, mode: str, compute_dtype=None):
     """The channels-first head (``ptq.deploy.channels_first_tail``): the
     1x1 classifier emits contiguous NCDHW, so the upsample and the stitch
     after it run along W instead of over a 3-channel minor axis."""
     p = params[node.name]
-    qcfg: Optional[QCfg] = node.attrs.get("qcfg")
-    if qcfg is not None and mode == "quantized" and qcfg.q_act:
-        x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
-    kernel = p["kernel"]
+    x, kernel = _quantize_operands(x, p, node.attrs.get("qcfg"), mode)
     if compute_dtype is not None:
         x, kernel = x.to(compute_dtype), kernel.to(compute_dtype)
     y = ops.conv3d_ncdhw_out(x, kernel)
@@ -275,13 +325,18 @@ def _eval_conv_cf(node: Node, params, x, mode: str, compute_dtype=None):
 
 def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
               ins, *, mode: str = "fp", conv3x3_int8: Callable = None,
-              stem_conv: Callable = None, compute_dtype=None):
-    """Evaluate one inference-mode node.  ``conv3x3_int8`` replaces the
-    int8 3^3 conv of flagged nodes (default: the K1 wrapper) and
-    ``stem_conv`` the s2d stem (default: the K2 wrapper)."""
+              stem_conv: Callable = None, int8_matmul: Callable = None,
+              qact_matmul: Callable = None, compute_dtype=None):
+    """Evaluate one inference-mode node.  The kernel hooks replace, for the
+    flagged nodes, the int8 3^3 conv (``conv3x3_int8``, default: the K1
+    wrapper), the s2d stem (``stem_conv``, K2), the int8 1x1 matmul
+    (``int8_matmul``, K3) and the fake-quant 1x1 matmul (``qact_matmul``,
+    K4); each takes its wrapper's signature (e.g. its plain version)."""
     if node.op == "conv":
         return _eval_conv(node, params, ins, mode,
-                          conv3x3_int8 or qconv3x3_int8_ndhwc, compute_dtype)
+                          conv3x3_int8 or qconv3x3_int8_ndhwc,
+                          int8_matmul or fused_int8_matmul, qact_matmul,
+                          compute_dtype)
     if node.op == "conv_cf":
         return _eval_conv_cf(node, params, ins[0], mode, compute_dtype)
     if node.op == "upsample_cf":
@@ -331,12 +386,15 @@ def live_nodes(graph: Graph, outputs: Sequence[str]) -> set:
 def apply(graph: Graph, variables: Dict[str, Any], x, *,
           mode: str = "fp", heads: Optional[slice] = None,
           conv3x3_int8: Callable = None, stem_conv: Callable = None,
+          int8_matmul: Callable = None, qact_matmul: Callable = None,
           compute_dtype=None, keep_head_dtype: bool = False) -> torch.Tensor:
     """Interpret the graph on ``x`` (NDHWC; for an s2d-stem graph the
     (patches, parities) pair of ``kernels.stem.extract_s2d_patches``).
 
-    mode: 'fp' (plain convs) or 'quantized' (fake-quant activations and
-    stored quantized weights; int8-deployed nodes run on integer codes).
+    mode: 'fp' (plain convs), 'quantized' (fake-quant activations and
+    stored quantized weights) or 'fq' (fake-quant activations and weights
+    quantized on the fly); int8-deployed nodes run on integer codes in
+    both quantized modes.  The kernel hooks: see ``eval_node``.
     ``heads`` selects output heads (e.g. ``slice(-1, None)`` for the final
     head only); only the nodes those heads reach are evaluated.
     ``compute_dtype`` (e.g. ``torch.bfloat16``): low-precision serving (see
@@ -346,7 +404,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     Returns the selected head outputs stacked: (num_heads, N, D, H, W, C)
     (a channels-first head: (num_heads, N, C, D, H, W)).
     """
-    assert mode in ("fp", "quantized")
+    assert mode in ("fp",) + QUANT_MODES
     outputs = graph.outputs if heads is None else graph.outputs[heads]
     params = variables["params"]
     st = variables.get("state", {})
@@ -362,6 +420,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
             values[node.name] = eval_node(
                 node, params, st, [values[n] for n in node.inputs],
                 mode=mode, conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
+                int8_matmul=int8_matmul, qact_matmul=qact_matmul,
                 compute_dtype=compute_dtype)
             for n in node.inputs:
                 uses[n] -= 1
@@ -400,6 +459,8 @@ class GraphModule(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor, heads: Optional[slice] = None,
-                conv3x3_int8: Callable = None) -> torch.Tensor:
+                conv3x3_int8: Callable = None, int8_matmul: Callable = None,
+                qact_matmul: Callable = None) -> torch.Tensor:
         return apply(self.graph, self.variables, x, mode=self.mode,
-                     heads=heads, conv3x3_int8=conv3x3_int8)
+                     heads=heads, conv3x3_int8=conv3x3_int8,
+                     int8_matmul=int8_matmul, qact_matmul=qact_matmul)

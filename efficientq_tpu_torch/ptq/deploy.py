@@ -22,7 +22,7 @@ K2), which ``make_s2d_volume_inferencer`` applies for ``--serve_stem s2d``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Collection, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,17 +43,26 @@ def eligible(qcfg) -> bool:
             and qcfg.qlvl_act <= 128 and qcfg.qlvl_w <= 128)
 
 
-def to_int8_inference(graph: Graph, variables) -> Tuple[Graph, Dict]:
+def to_int8_inference(graph: Graph, variables,
+                      only_kernel_sizes: Optional[Collection] = None
+                      ) -> Tuple[Graph, Dict]:
     """Returns (graph', variables') with eligible qconvs converted to int8
     codes + a scale epilogue, the int8 3^3 convs flagged for K1 and their
     epilogues fused.  Input variables must hold post-PTQ quantized kernels
     (values = alpha_w * grid).  K1's weight layout (``kernel_packed``) is
-    made here, once."""
+    made here, once.
+
+    ``only_kernel_sizes``: kernel-size triples to deploy; qconvs of other
+    sizes keep the float fake-quant path.  ``{(3, 3, 3)}`` is the mixed
+    deployment (``--deploy mixed``): the 3^3 convs on int8, the 1x1
+    transitions in float."""
     params = {k: dict(v) for k, v in variables["params"].items()}
     new_nodes = []
     for node in graph.nodes:
         attrs = dict(node.attrs)
-        if node.op == "conv" and eligible(attrs.get("qcfg")):
+        if (node.op == "conv" and eligible(attrs.get("qcfg"))
+                and (only_kernel_sizes is None
+                     or tuple(attrs["kernel_size"]) in only_kernel_sizes)):
             qcfg = attrs["qcfg"]
             p = params[node.name]
             alpha_w = torch.as_tensor(p["alpha_w"], dtype=torch.float32)
@@ -235,7 +244,9 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
                                compute_dtype=torch.bfloat16, heads=None,
                                device="cuda",
                                conv3x3_int8: Callable = None,
-                               stem_conv: Callable = None):
+                               stem_conv: Callable = None,
+                               int8_matmul: Callable = None,
+                               qact_matmul: Callable = None):
     """s2d serving (``--serve_stem s2d``): the init conv runs as the fused
     space-to-depth stem K2 (``s2d_stem_serving``), the interior int8 convs
     on K1 at ``compute_dtype``.
@@ -254,8 +265,11 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     (odd H/W starts or extents) is served by the direct inferencer at the
     same compute dtype.  ``patch_batch="auto"`` runs the whole grid as one
     batch; a device out-of-memory halves it and retries, and later volumes
-    keep the smaller batch.  ``conv3x3_int8`` / ``stem_conv`` replace the
-    kernel wrappers (see ``nnir.eval_node``)."""
+    keep the smaller batch.  ``conv3x3_int8``, ``stem_conv``,
+    ``int8_matmul`` and ``qact_matmul`` replace the kernel wrappers (see
+    ``nnir.eval_node``).  The graph may be the mixed deployment
+    (``only_kernel_sizes={(3, 3, 3)}``) and carry the 1x1 flags of
+    ``to_pallas_inference(include_1x1=True)``."""
     stem0 = next((n for n in graph.nodes
                   if n.op == "conv" and n.inputs == (graph.input_name,)),
                  None)
@@ -275,12 +289,14 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     fallback = make_volume_inferencer(
         graph, patch_batch=8 if auto else int(patch_batch), mode="quantized",
         heads=heads, hard_pred=hard_pred, multilabel=multilabel,
-        conv3x3_int8=conv3x3_int8, compute_dtype=compute_dtype)
+        conv3x3_int8=conv3x3_int8, int8_matmul=int8_matmul,
+        qact_matmul=qact_matmul, compute_dtype=compute_dtype)
 
     def model_fn(xb):
         return nnir.apply(g2, v2, xb, mode="quantized",
                           heads=None if cf else heads,
                           conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
+                          int8_matmul=int8_matmul, qact_matmul=qact_matmul,
                           compute_dtype=compute_dtype,
                           keep_head_dtype=keep_hd)
 

@@ -1,16 +1,20 @@
-"""The port on a CUDA card: K1 (csrc/qconv3d_int8.cu) and K2
-(csrc/stem_s2d.cu) against their plain PyTorch versions, and the serving
-slices of a small net (int8 float32, s2d bf16) with the kernels against the
-same slices with the plain versions.  K1 must agree exactly, at float32
-and at bfloat16 output and residual: the kernel accumulates in integers and
-rounds its float epilogue as the plain version does.  K2 sums bf16
+"""The port on a CUDA card: K1 (csrc/qconv3d_int8.cu), K2
+(csrc/stem_s2d.cu), K3 (csrc/qmatmul_int8.cu) and K4 (csrc/qmatmul_f32.cu)
+against their plain PyTorch versions, and the serving slices of a small net
+(int8 float32, s2d bf16, and with the 1x1 convs on K3 or K4) with the
+kernels against the same slices with the plain versions.  K1 and K3 must
+agree exactly, at float32 and at bfloat16 output and residual: the kernels
+accumulate in integers and round their float epilogues as the plain
+versions do.  K2 sums bf16
 products in float32 on the tensor cores, the plain version in float64:
 its float32 output must lie within 1e-4 of max|y|, its bfloat16 output
 within one bf16 ulp (or within 1e-4 of max|y| where the value is that
 small: at the relu boundary one ulp is tiny), and its int8 codes must be
 equal except where the
 plain value clip(y/alpha, 0, 1)(n-1) lies within 1e-4 of a .5 tie (or, at
-bfloat16, where the two rounded outputs differ).
+bfloat16, where the two rounded outputs differ).  K4 sums float32 products
+with one FMA per term in k order, the plain version in cuBLAS's order (TF32
+off): within 1e-5 of max|y|.
 
 These tests are marked ``cuda`` and skip without a card.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -18,8 +22,9 @@ installed:
 
     python -m pytest tests/test_torch_port_cuda.py -q --noconftest -m cuda
 
-The K1 cases are shared with test_torch_port_qconv3d.py, which holds the
-plain version against the JAX package on the CPU.
+The K1 cases are shared with test_torch_port_qconv3d.py and the K3/K4
+cases with test_torch_port_qmatmul.py, which hold the plain versions
+against the JAX package on the CPU.
 """
 import numpy as np
 import pytest
@@ -29,6 +34,7 @@ from efficientq_tpu_torch import nnir
 from efficientq_tpu_torch.data import synthetic
 from efficientq_tpu_torch.eval import sliding
 from efficientq_tpu_torch.kernels import qconv3d as K
+from efficientq_tpu_torch.kernels import qmatmul as KM
 from efficientq_tpu_torch.kernels import stem as K2
 from efficientq_tpu_torch.models import UResQConfig, build_uresq
 from efficientq_tpu_torch.ptq import deploy, fold_bn, to_int8_inference
@@ -53,6 +59,34 @@ CASES = {
     "per-channel-res-pool-c3": dict(c=3, per_channel=True, res=True,
                                     pool=True),
 }
+
+
+# K3/K4 cases (M, K, N, x dtype, per-channel scale, bias): sizes the
+# kernels' tiles do not divide, both input types, both scale kinds, with
+# and without bias
+MATMUL_CASES = [
+    (70, 12, 20, "f32", False, True),
+    (700, 32, 64, "f32", True, True),
+    (70, 32, 20, "bf16", True, False),
+    (700, 12, 64, "bf16", False, True),
+    (70, 12, 64, "f32", True, False),
+    (700, 32, 20, "bf16", False, False),
+]
+
+
+def matmul_case(m, k, n, dtype, per_channel, with_bias, seed=0):
+    """NumPy inputs of one K3/K4 call: x as float32 (holding bfloat16
+    values when ``dtype == "bf16"``), int8 codes, float32 weights."""
+    rng = np.random.RandomState(seed + m + k + n)
+    x = (np.abs(rng.randn(m, k)) * 0.9).astype(np.float32)
+    if dtype == "bf16":
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    codes = (2 * rng.randint(0, 4, size=(k, n)) - 3).astype(np.int8)
+    scale = (rng.rand(n).astype(np.float32) * 0.05 if per_channel
+             else np.float32(1.1 * 0.3 / 9))
+    return dict(x=x, dtype=dtype, codes=codes, alpha=np.float32(1.1),
+                scale=scale, w=(rng.randn(k, n) * 0.2).astype(np.float32),
+                bias=rng.randn(n).astype(np.float32) if with_bias else None)
 
 
 def make_case(seed, c, dil=1, quant=False, res=False, relu=False, pool=False,
@@ -129,16 +163,18 @@ def test_cuda_k1_rejects_mismatched_weights(cuda):
                               w_packed=K.pack_weights(codes[..., :2]))
 
 
-@pytest.mark.cuda
-def test_cuda_serving_slice_matches_plain_k1(cuda):
-    cfg = UResQConfig(num_mod=4, num_classes=3, depth_config=[1, 1, 1],
-                      width_config=[8, 16, 8], dilation_config=[1, 2, 1],
-                      init_stride=(2, 2, 2), drop_rate=0.0, blk_type="mid",
-                      ds="simple", ds_depth_limit=3, fuse_bn=True,
-                      quantize=True, qlvl_w=4, qlvl_act=4, q_first=(256, -1),
-                      q_last=(256, -1))
+def small_net(seed, alpha_act, **cfg):
+    """The folded post-PTQ graph of a small W4A4 net (widths 8-16-8, 4
+    modalities) and its variables on the CPU: weights projected onto the
+    alpha_w = max|w| grid, every alpha_act set."""
+    cfg = UResQConfig(**dict(
+        dict(num_mod=4, num_classes=3, depth_config=[1, 1, 1],
+             width_config=[8, 16, 8], dilation_config=[1, 1, 1],
+             init_stride=(2, 2, 2), drop_rate=0.0, blk_type="mid",
+             ds="simple", quantize=True, qlvl_w=4, qlvl_act=4,
+             q_first=(256, -1), q_last=(256, -1)), **cfg))
     graph = build_uresq(cfg)
-    fg, fv = fold_bn(graph, nnir.init(graph, 0, device="cpu"))
+    fg, fv = fold_bn(graph, nnir.init(graph, seed, device="cpu"))
     for node in fg.qconv_nodes():
         q = node.attrs["qcfg"]
         p = fv["params"][node.name]
@@ -147,7 +183,15 @@ def test_cuda_serving_slice_matches_plain_k1(cuda):
             p["kernel"] = fake_quant_weight(p["kernel"], a, q.qlvl_w)
             p["alpha_w"] = a
         if q.q_act:
-            p["alpha_act"] = torch.tensor(0.8)
+            p["alpha_act"] = torch.tensor(alpha_act)
+    return fg, fv
+
+
+def _serve_int8(cuda):
+    """The int8 deployment of the dilated small net on the card, a
+    volume, and the float32 serving options of test_cuda_serving_slice_*."""
+    fg, fv = small_net(0, 0.8, dilation_config=[1, 2, 1], ds_depth_limit=3,
+                       fuse_bn=True)
     dg, dv = to_int8_inference(fg, fv)
     net = nnir.GraphModule(dg, dv, mode="quantized").to(cuda)
     images, _ = synthetic.make_subject(np.random.default_rng(0), "brats",
@@ -155,6 +199,12 @@ def test_cuda_serving_slice_matches_plain_k1(cuda):
     vol = torch.from_numpy(np.stack(list(images.values()), -1)[None]).to(cuda)
     kw = dict(patch_batch=2, mode="quantized", heads=slice(-1, None),
               hard_pred=True, multilabel=True)
+    return dg, net, vol, kw
+
+
+@pytest.mark.cuda
+def test_cuda_serving_slice_matches_plain_k1(cuda):
+    dg, net, vol, kw = _serve_int8(cuda)
     before = K.qconv3x3_int8_ndhwc.launches
     got = sliding.make_volume_inferencer(dg, **kw)(
         net.variables, vol, (32, 32, 32), (8, 8, 8))
@@ -164,6 +214,30 @@ def test_cuda_serving_slice_matches_plain_k1(cuda):
         dg, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, **kw)(
         net.variables, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 36, 40, 44, 3) and got.dtype == torch.uint8
+    assert torch.equal(got, ref)
+
+
+def _live_1x1_flags(graph, heads=slice(-1, None)):
+    live = nnir.live_nodes(graph, graph.outputs[heads])
+    return sum(1 for n in graph.nodes if n.name in live
+               and n.attrs.get("pallas") and n.attrs["kernel_size"] == (1, 1, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_serving_slice_include_1x1_equals_unflagged(cuda):
+    """K3 equals the unfused int8 1x1 route bit for bit, so the int8 slice
+    with ``include_1x1`` serves the predictions of the slice without it."""
+    dg, net, vol, kw = _serve_int8(cuda)
+    pg = KM.to_pallas_inference(dg, include_1x1=True)
+    n_k3 = _live_1x1_flags(pg)
+    assert n_k3 > 0
+    before = KM.fused_int8_matmul.launches
+    got = sliding.make_volume_inferencer(pg, **kw)(
+        net.variables, vol, (32, 32, 32), (8, 8, 8))
+    n_forwards = -(-len(sliding.patch_grid((36, 40, 44), 32, 8)) // 2)
+    assert KM.fused_int8_matmul.launches - before == n_k3 * n_forwards
+    ref = sliding.make_volume_inferencer(dg, **kw)(
+        net.variables, vol, (32, 32, 32), (8, 8, 8))
     assert torch.equal(got, ref)
 
 
@@ -240,22 +314,7 @@ def test_cuda_s2d_slice_matches_plain_kernels(cuda):
     """The s2d bf16 serving slice of a small net with K2 and K1 against the
     same slice with their plain versions; one K2 and 6 K1 launches per
     patch-batch forward."""
-    cfg = UResQConfig(num_mod=4, num_classes=3, depth_config=[1, 1, 1],
-                      width_config=[8, 16, 8], dilation_config=[1, 1, 1],
-                      init_stride=(2, 2, 2), drop_rate=0.0, blk_type="mid",
-                      ds="simple", quantize=True, qlvl_w=4, qlvl_act=4,
-                      q_first=(256, -1), q_last=(256, -1))
-    graph = build_uresq(cfg)
-    fg, fv = fold_bn(graph, nnir.init(graph, 1, device="cpu"))
-    for node in fg.qconv_nodes():
-        q = node.attrs["qcfg"]
-        p = fv["params"][node.name]
-        if q.q_weight:
-            a = torch.clamp_min(p["kernel"].abs().max(), 1e-8)
-            p["kernel"] = fake_quant_weight(p["kernel"], a, q.qlvl_w)
-            p["alpha_w"] = a
-        if q.q_act:
-            p["alpha_act"] = torch.tensor(1.0)
+    fg, fv = small_net(1, 1.0)
     dg, dv = to_int8_inference(fg, fv)
     images, _ = synthetic.make_subject(np.random.default_rng(1), "brats",
                                        (39, 48, 48))
@@ -270,5 +329,87 @@ def test_cuda_s2d_slice_matches_plain_kernels(cuda):
         dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
         stem_conv=K2.stem_s2d_conv_reference, **kw)
     ref = plain(None, vol, (32, 32, 32), (8, 8, 8))
+    assert got.shape == (1, 1, 39, 48, 48, 3) and got.dtype == torch.uint8
+    assert float((got == ref).float().mean()) >= 0.999
+
+
+def _matmul_args(case, device):
+    x = torch.as_tensor(case["x"], device=device)
+    if case["dtype"] == "bf16":
+        x = x.to(torch.bfloat16)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    return x, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MATMUL_CASES,
+                         ids=["-".join(map(str, c)) for c in MATMUL_CASES])
+def test_cuda_k3_matches_plain(case, cuda):
+    c = matmul_case(*case)
+    x, t = _matmul_args(c, cuda)
+    args = (x, t(c["codes"]), t(c["bias"]), t(c["alpha"]), t(c["scale"]), NA)
+    before = KM.fused_int8_matmul.launches
+    got = KM.fused_int8_matmul(*args)
+    ref = KM.fused_int8_matmul_reference(*args)
+    torch.cuda.synchronize()
+    assert KM.fused_int8_matmul.launches == before + 1
+    assert got.dtype == ref.dtype == torch.float32
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MATMUL_CASES,
+                         ids=["-".join(map(str, c)) for c in MATMUL_CASES])
+def test_cuda_k4_matches_plain(case, cuda):
+    c = matmul_case(*case)
+    x, t = _matmul_args(c, cuda)
+    args = (x, t(c["w"]), t(c["bias"]), t(c["alpha"]), NA)
+    before = KM.fused_qact_matmul.launches
+    got = KM.fused_qact_matmul(*args)
+    ref = KM.fused_qact_matmul_reference(*args)
+    torch.cuda.synchronize()
+    assert KM.fused_qact_matmul.launches == before + 1
+    assert got.dtype == ref.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_qmatmul_rejects_mismatched_shapes(cuda):
+    x = torch.zeros(8, 12, device=cuda)
+    codes = torch.zeros(12, 4, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="weight codes"):
+        KM.fused_int8_matmul(x, codes[:8], None, 1.0, 1.0, NA)
+    with pytest.raises(ValueError, match="scale"):
+        KM.fused_int8_matmul(x, codes, None, 1.0,
+                             torch.ones(3, device=cuda), NA)
+    with pytest.raises(ValueError, match="weights"):
+        KM.fused_qact_matmul(x, codes.float()[:8], None, 1.0, NA)
+    with pytest.raises(ValueError, match="float32 or bfloat16 x"):
+        KM.fused_qact_matmul(x.half(), codes.float(), None, 1.0, NA)
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_k4_slice_matches_plain_k4(cuda):
+    """The mixed deployment with ``include_1x1`` on the s2d bf16 path: K2,
+    K1 and K4 against the same slice with the plain K4."""
+    fg, fv = small_net(1, 1.0)
+    mg, mv = to_int8_inference(fg, fv, only_kernel_sizes={(3, 3, 3)})
+    pg = KM.to_pallas_inference(mg, include_1x1=True)
+    n_k4 = _live_1x1_flags(pg)
+    assert n_k4 > 0
+    images, _ = synthetic.make_subject(np.random.default_rng(1), "brats",
+                                       (39, 48, 48))
+    vol = np.stack(list(images.values()), -1)[None]
+    kw = dict(multilabel=True, heads=slice(-1, None), device=cuda)
+    before = KM.fused_qact_matmul.launches
+    got = deploy.make_s2d_volume_inferencer(pg, mv, **kw)(
+        None, vol, (32, 32, 32), (8, 8, 8))
+    assert KM.fused_qact_matmul.launches - before == n_k4  # 1 forward
+    ref = deploy.make_s2d_volume_inferencer(
+        pg, mv, qact_matmul=KM.fused_qact_matmul_reference, **kw)(
+        None, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 39, 48, 48, 3) and got.dtype == torch.uint8
     assert float((got == ref).float().mean()) >= 0.999
