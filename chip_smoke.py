@@ -9,12 +9,15 @@ Phases, each printed on its own lines:
    and the builds of K1 (efficientq_tpu_torch/csrc/qconv3d_int8.cu), K2
    (csrc/stem_s2d.cu), K3 (csrc/qmatmul_int8.cu) and K4
    (csrc/qmatmul_f32.cu), one nvcc for sm_90a per source, started
-   together, with the build seconds;
+   together, with the build seconds, and ptxas's registers, barriers and
+   spills of each K1 kernel;
 1. K1 against its plain PyTorch version on the card, at every conv shape
    and epilogue of the flagship BraTS net (N = 2, 128^3 patches) and at
-   dilation 1 and 2: outputs must be identical (torch.equal); then the
-   kernel's and the plain version's times (median of 20 launches after 3
-   warm-up launches);
+   dilation 1 and 2, and at wide and remainder geometries (C and O of 40,
+   72, 256, extents below one brick and odd, N = 1 and 3, every brick of
+   the tile plan, dilation up to 9, float32 and bfloat16 output): outputs
+   must be identical (torch.equal); then the kernel's and the plain
+   version's times (median of 20 launches after 3 warm-up launches);
 2. the serving slice at full width: the BraTS W4A4 preset with weights
    from ``--seed``, BN folded, post-PTQ weights emulated (projected onto
    the alpha grid, alpha_act = 1), exported and reloaded as an int8
@@ -35,7 +38,8 @@ Phases, each printed on its own lines:
    bfloat16 output and residual at every flagship conv shape and epilogue
    (torch.equal).  Times: median of 20 launches after 3 warm-ups, with
    the plain version's, one PyTorch library call's (cuDNN) and the bound
-   (bytes over 3.35 TB/s, operations over the tensor-core peak).
+   (bytes over 3.35 TB/s, operations over the tensor-core peak); for K1
+   per stage also its int8 TOP/s, its share of the bound and its tiles.
 4. the s2d bf16 serving slice (``--serve_stem s2d``): the same net and
    volumes through ``ptq.deploy.make_s2d_volume_inferencer`` (host
    volume, channels-first tail, K2 stem, K1 at bfloat16, final head,
@@ -129,6 +133,11 @@ ONE_BY_ONE = [("TransDown1", 32768, 32, 64), ("TransDown2", 4096, 64, 128),
               ("TransDown3", 512, 128, 256), ("TransUp4", 512, 256, 128),
               ("TransUp5", 4096, 128, 64), ("TransUp6", 32768, 64, 32)]
 S2D_BATCH = 8  # the s2d path's patch batch: the whole grid of a volume
+# K1 at the kernel's tile edges (phase 1): (N, extents, C, O, dilation)
+WIDE_CASES = [(3, (32, 32, 32), 40, 72, 2), (1, (6, 16, 16), 64, 264, 1),
+              (1, (8, 16, 16), 256, 256, 1), (1, (5, 6, 7), 72, 40, 1),
+              (3, (8, 8, 8), 256, 256, 2), (1, (3, 2, 5), 48, 40, 1),
+              (3, (9, 10, 11), 96, 72, 3), (2, (12, 12, 12), 16, 72, 9)]
 
 
 class SmokeFailure(RuntimeError):
@@ -169,7 +178,32 @@ def setup():
     print(f"[setup] built K1 ({K1_SOURCE}), K2 ({K2_SOURCE}), K3 "
           f"({K3_SOURCE}) and K4 ({K4_SOURCE}) for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in _ptxas_lines(build.build_log.get("qconv3d_int8.cu")):
+        print(f"[setup] K1 ptxas: {line}", flush=True)
     return smi
+
+
+def _ptxas_lines(log):
+    """One line per kernel of an nvcc -Xptxas=-v log: the template
+    arguments (brick z, brick y, 16-byte loads), registers, barriers,
+    stack and spills."""
+    import re
+
+    if log is None:
+        return ["no ptxas output (the library was built before this run)"]
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", m.group(1))
+            name = (f"brick {t.group(1)}x{t.group(2)}x8 "
+                    f"{'cp.async' if t.group(3) == '1' else 'byte loads'}"
+                    if t else m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out or ["ptxas printed no resource lines"]
 
 
 def _median_ms(fn, warmup=3, reps=20):
@@ -185,6 +219,32 @@ def _median_ms(fn, warmup=3, reps=20):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _graph_ms(fn, reps=20, rounds=5):
+    """Device time of one call of fn: fn captured once in a CUDA graph,
+    the graph replayed ``reps`` times between two events (no Python
+    between the launches), median over ``rounds``."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -206,16 +266,17 @@ def phase1(seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     one = torch.tensor(1.0, device=dev)
 
-    def conv_inputs(s, c, per_channel=False):
-        x = torch.randn(N_BATCH, s, s, s, c, device=dev, generator=gen)
-        w = (2 * torch.randint(0, 4, (3, 3, 3, c, c), device=dev,
+    def conv_inputs(s, c, o=None, nb=N_BATCH, per_channel=False):
+        o = o or c
+        shape = (nb, *(s if isinstance(s, tuple) else (s, s, s)))
+        x = torch.randn(*shape, c, device=dev, generator=gen)
+        w = (2 * torch.randint(0, 4, (3, 3, 3, c, o), device=dev,
                                generator=gen) - 3).to(torch.int8)
-        scale = (torch.rand(c, device=dev, generator=gen) * 0.05
+        scale = (torch.rand(o, device=dev, generator=gen) * 0.05
                  if per_channel else torch.tensor(0.05, device=dev))
-        return dict(x=x, w=w, b=torch.randn(c, device=dev, generator=gen),
+        return dict(x=x, w=w, b=torch.randn(o, device=dev, generator=gen),
                     scale=scale,
-                    res=torch.randn(N_BATCH, s, s, s, c, device=dev,
-                                    generator=gen))
+                    res=torch.randn(*shape, o, device=dev, generator=gen))
 
     def variants(inp, encoder):
         """The epilogue combinations of the fused graph, plus none."""
@@ -273,12 +334,23 @@ def phase1(seed: int):
                   flush=True)
         del inp
     # per-channel scale, odd extents (VALID pool, masked cells) and a
-    # channel count that is not a multiple of 4 (the kernel's scalar tail)
+    # channel count that is not a multiple of 16 (the byte-load halo)
     for s, c, dil in ((64, 32, 1), (9, 8, 2), (7, 3, 1)):
         inp = conv_inputs(s, c, per_channel=True)
         for name, (x, kw) in variants(inp, True).items():
             compare(f"per-channel {s}^3x{c} {name}", x, inp, kw, dil)
             checked += 1
+    # wide and remainder geometries: C and O of 40, 72 and 256 (partial
+    # 32-channel chunks and column tiles), extents below a brick and odd,
+    # N = 1 and 3, every brick of the tile plan, both output dtypes
+    for nb, shape, c, o, dil in WIDE_CASES:
+        inp = conv_inputs(shape, c, o, nb, per_channel=True)
+        for name, (x, kw) in variants(inp, True).items():
+            for dt in (torch.float32, torch.bfloat16):
+                compare(f"N={nb} {shape} C={c} O={o} {name} {dt}", x, inp,
+                        dict(kw, out_dtype=dt), dil)
+                checked += 1
+        del inp
     print(f"[phase1] {checked} comparisons: K1 == plain (torch.equal) "
           f"everywhere; one forward's 14 convs: K1 {total_k:.4f} ms, plain "
           f"{total_p:.4f} ms", flush=True)
@@ -543,7 +615,8 @@ def phase3(seed: int):
     one = torch.tensor(1.0, device=dev)
     k1_err, checked = 0.0, 0
     tot = dict(bf16=0.0, f32=0.0, plain=0.0, library=0.0, bound=0.0,
-               bound_f32=0.0, t_bytes=0.0, t_ops=0.0)
+               bound_f32=0.0, t_bytes=0.0, t_ops=0.0, graph_bf16=0.0,
+               graph_library=0.0)
     for i, (s, c) in enumerate(STAGES):
         encoder = i < len(STAGES) // 2
         x = torch.randn(n, s, s, s, c, device=dev, generator=gen)
@@ -591,8 +664,14 @@ def phase3(seed: int):
             xl = qa.to(bf16).permute(0, 4, 1, 2, 3)
             wl = w.to(bf16).permute(4, 3, 0, 1, 2)
             tl = _median_ms(lambda: F.conv3d(xl, wl, padding=1))
+            # device time alone, free of the host's time per call
+            gk = _graph_ms(lambda: K.qconv3x3_int8_ndhwc(
+                *a, out_dtype=bf16, **kwq))
+            gl = _graph_ms(lambda: F.conv3d(xl, wl, padding=1))
+            tot["graph_bf16"] += gk
+            tot["graph_library"] += gl
             cost16 = _k1_cost(n, s, c, kw, 2, 2)
-            bound = _bound(*cost16, INT8_OPS)[0]
+            bound, by16 = _bound(*cost16, INT8_OPS)
             tot["bf16"] += tk
             tot["f32"] += t32
             tot["plain"] += tp
@@ -602,10 +681,20 @@ def phase3(seed: int):
                                        INT8_OPS)[0]
             tot["t_bytes"] += cost16[0] / HBM_BPS
             tot["t_ops"] += cost16[1] / INT8_OPS
+            plan = K._tile_plan(n, s, s, s, c, c, 1)
             print(f"[phase3] stage{i + 1} N={n} {s}^3 C=O={c} {name}: K1 "
-                  f"bf16 out {tk:.4f} ms  f32 out {t32:.4f} ms  plain (bf16) "
-                  f"{tp:.4f} ms  cuDNN bf16 conv of the codes {tl:.4f} ms  "
-                  f"bound (bf16) {bound:.4f} ms", flush=True)
+                  f"bf16 out {tk:.4f} ms ({cost16[1] / tk / 1e9:.1f} TOP/s, "
+                  f"{bound / tk:.1%} of the bound)  f32 out {t32:.4f} ms  "
+                  f"plain (bf16) {tp:.4f} ms  cuDNN bf16 conv of the codes "
+                  f"{tl:.4f} ms (K1 / cuDNN {tk / tl:.2f})  bound (bf16) "
+                  f"{bound:.4f} ms ({by16}: {cost16[0] / 1e6:.1f} MB, "
+                  f"{cost16[1] / 1e9:.1f} G int8 operations)  tiles: brick "
+                  f"{plan.brick}, grid {plan.grid}, "
+                  f"{plan.smem} B shared", flush=True)
+            print(f"[phase3]   device time (CUDA graph replay): K1 bf16 out "
+                  f"{gk:.4f} ms ({cost16[1] / gk / 1e9:.1f} TOP/s, "
+                  f"{bound / gk:.1%} of the bound)  cuDNN {gl:.4f} ms (K1 / "
+                  f"cuDNN {gk / gl:.2f})", flush=True)
             del xl, wl
         del x, w, res, qa, variants
         torch.cuda.empty_cache()
@@ -613,14 +702,22 @@ def phase3(seed: int):
           f"plain (torch.equal) everywhere; one forward's 14 convs: K1 bf16 "
           f"{tot['bf16']:.4f} ms, K1 f32 {tot['f32']:.4f} ms, plain "
           f"{tot['plain']:.4f} ms, cuDNN bf16 conv of the codes (no "
-          f"epilogue) {tot['library']:.4f} ms, bound {tot['bound']:.4f} ms "
-          f"(f32 out: {tot['bound_f32']:.4f} ms)", flush=True)
+          f"epilogue) {tot['library']:.4f} ms (K1 / cuDNN "
+          f"{tot['bf16'] / tot['library']:.2f}), bound {tot['bound']:.4f} ms "
+          f"({tot['bound'] / tot['bf16']:.1%} reached; f32 out: "
+          f"{tot['bound_f32']:.4f} ms); device time alone (CUDA graph "
+          f"replay): K1 {tot['graph_bf16']:.4f} ms, cuDNN "
+          f"{tot['graph_library']:.4f} ms (K1 / cuDNN "
+          f"{tot['graph_bf16'] / tot['graph_library']:.2f}, "
+          f"{tot['bound'] / tot['graph_bf16']:.1%} of the bound)", flush=True)
     out["k1"] = dict(max_abs_err=k1_err, ms=tot["bf16"],
                      plain_ms=tot["plain"], library_ms=tot["library"],
                      bound_ms=tot["bound"],
                      bound_by=("bytes" if tot["t_bytes"] >= tot["t_ops"]
                                else "operations"),
-                     f32_ms=tot["f32"], f32_bound_ms=tot["bound_f32"])
+                     f32_ms=tot["f32"], f32_bound_ms=tot["bound_f32"],
+                     graph_ms=tot["graph_bf16"],
+                     graph_library_ms=tot["graph_library"])
     torch.cuda.empty_cache()
     return out
 

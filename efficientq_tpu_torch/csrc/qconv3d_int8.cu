@@ -6,10 +6,11 @@
 //
 //   y = conv3d(qa, w) * scale + bias        stride 1, padding = dilation
 //   qa: (N, D, H, W, C) int8 activation codes (NDHWC)
-//   w:  (27, C4, O) int32, four int8 input-channel codes packed per word
-//       (C4 = ceil(C / 4), zero-padded), made once at deploy time
+//   w:  (27, O, Cp) int8 weight codes, k contiguous: w[tap][o][c], input
+//       channels zero-padded to Cp = 32 * ceil(C / 32), made once at
+//       deploy time (kernels/qconv3d.py::pack_weights)
 //   scale, bias: (O,) float32
-//   accumulation in int32 with __dp4a, so the sum is exact.
+//   accumulation in int32 on the int8 tensor cores, so the sum is exact.
 //
 // Epilogues, applied to the float32 y in this order (the Pallas kernel's):
 //   residual      y += residual            (float32 or bfloat16, converted
@@ -25,237 +26,508 @@
 // the reference rounds after the multiply and after the add.  rintf rounds
 // half to even, as jnp.round and torch.round do.
 //
-// Design.  An implicit GEMM: M = output voxels, N = O, K = 27 taps x C.
-// A block of 256 threads owns a 64-voxel x 64-channel output tile; each
-// thread accumulates 4 voxels x 4 channels.  The K loop walks the 27 taps
-// and, within a tap, 32 input channels (8 packed words) at a time, staging
-// activation words and weight words in shared memory.  A tap that falls in
-// the zero padding loads zeros.
-// Voxels are numbered cell-major: 8 consecutive voxels form one 2x2x2 cell
-// (cells span ceil(D/2) x ceil(H/2) x ceil(W/2); sub-voxels past an odd
-// edge are masked).  A tile therefore holds 8 whole cells, and the pool
-// epilogue takes each cell's max from a shared-memory copy of the tile: no
-// block reads another block's output, so no grid order is needed (the TPU
-// kernel merged pooled rows across consecutive programs of its sequential
-// grid).
+// What bounds it on an H100 (published peaks: 1,979 int8 TOP/s, 3.35 TB/s):
+// at the flagship widths (C = O = 32..256) the bound is the int8
+// operations at stages 2-6 and at stage 1's quant conv, and the bytes at
+// the block2 convs of stages 1 and 7 (64^3 x 32: codes in, a bf16
+// residual in, bf16 y and pool out, about 0.10 ms per conv at B = 8
+// against 0.06 ms of operations).  So the multiply-adds run on the tensor
+// cores and each activation byte comes from device memory about once.
+// What holds this kernel back today (chip_smoke.py phase 3): the epilogue
+// runs as its own phase between barriers, so it does not overlap the tap
+// loop; at 64^3 x 32 it takes about as long as the 27 taps.
 //
-// What bounds it: the int8 dot-product throughput (__dp4a, 4 MACs per
-// instruction) at the flagship widths C = O = 32..256, plus the
-// shared-memory round trips of a simple single-buffered tile.  Tensor
-// cores (mma/wgmma s8), TMA and a deeper pipeline are later work.
+// Design.  An implicit GEMM, M = output voxels, N = O, K = 27 taps x C.
+//  - Tensor cores: mma.sync.m16n8k32 s8 x s8 -> s32, fragments loaded with
+//    ldmatrix from shared memory, the next tap's fragments loading while
+//    this tap's mma run.
+//  - A block owns a brick of BZ x BY x 8 output voxels (BZ, BY even, the
+//    brick origin a multiple of the brick, so every 2x2x2 pool cell lies in
+//    one brick) and BN = 32 output channels; one warp per 2 x 2 x 8
+//    sub-brick, 32 x 32 of y per warp as 2 x 4 mma tiles (rows of a tile:
+//    x = 0..7 at (z, y) and at (z, y + 1)).
+//  - Halo tile: per 32-channel chunk the block stages the brick's halo
+//    once, (BZ + 2s) x (BY + 2s) x (8 + 2s) voxels, s = min(dilation,
+//    extent) per axis (a dilation larger than the brick stages three
+//    separate slabs instead of the span between them, so any dilation
+//    fits).  Every tap's A fragments come from that one buffer: ldmatrix
+//    takes a row address per lane, so a tap is a row offset.  Rows are 32
+//    bytes of codes padded to 48: any 8 consecutive rows (one ldmatrix
+//    phase) then fall on 8 distinct bank groups, and a tap's offset stays a
+//    plain add.  Halo voxels outside the volume, and channels past C, are
+//    zero-filled (cp.async with src-size 0).  The weight tile (27 x BN rows
+//    of 32 bytes, [tap][o][c]) is XOR-swizzled in 16-byte halves by bit 2
+//    of the row instead, which keeps a tap's offset a compile-time one.
+//  - Pipeline: blocks are persistent over bricks (block x takes bricks x,
+//    x + gridDim.x, ...; the grid and brick come from _tile_plan in
+//    kernels/qconv3d.py) and walk (brick, chunk) steps with two stages of
+//    cp.async (16 bytes, .cg): step s + 1's halo, and its weights when
+//    C > 32, load while step s's 27 taps run.  With C <= 32 the weights
+//    stay resident for all of the block's bricks.
+//  - Channel counts that are not a multiple of 16 (C = 3 in the tests)
+//    stage their halo with plain byte loads instead of cp.async.
+//  - Epilogue: the int32 sums of a brick go to the spent stage's shared
+//    memory, and the block runs the epilogue over them element-wise, 4
+//    channels a thread, so the residual, y and the int8 codes move in
+//    coalesced 4- to 16-byte vectors; the pool then takes the max of the
+//    stored values of each cell from the same tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;      // voxels per tile (8 cells)
-constexpr int BN = 64;      // output channels per tile
-constexpr int BK4 = 8;      // packed input-channel words per K step (32 ch)
-constexpr int THREADS = 256;
+constexpr int BX = 8;                   // brick extent in x: one ldmatrix
+constexpr int BN = 32;                  // output channels per block
+constexpr int CK = 32;                  // input channels per staged chunk
+constexpr int WBYTES = 27 * BN * CK;    // one chunk of weights (27,648 B)
+constexpr int HS = 48;                  // halo row stride: 32 bytes + 16
+constexpr int SR = BN + 4;              // staged sums row stride, words
+constexpr int SMEM_MAX = 232448;        // a block's opt-in shared memory
 
-struct Vox {
-  int n, z, y, x;
-  bool inside;  // a real voxel (not past the grid end or an odd edge)
+struct Args {
+  const int8_t* qa;
+  const int8_t* w;
+  const float* scale;  // (O,), or one value with scale_stride 0
+  const float* bias;   // (O,), or null for none
+  const void* residual;
+  const float* qalpha;
+  void* out_y;
+  int8_t* out_i8;
+  void* out_pool;
+  int N, D, H, W, C, O, dil;
+  int res_relu, quant_qlvl, res_bf16, out_bf16, scale_stride;
+  int Cp, nchunks;
+  int sz, sy, sx;     // tap stride in halo rows per axis: min(dil, extent)
+  int EZ, EY, EX;     // halo extents
+  int nbz, nby, nbx;  // bricks per axis
+  int bricks;         // N * nbz * nby * nbx
+  int halo_bytes;     // one halo buffer, a multiple of 128
+  int stage_bytes;    // one pipeline stage, a multiple of 128
 };
 
-__device__ __forceinline__ Vox decode(long long m, long long M, int D, int H,
-                                      int W) {
-  const int Dc = (D + 1) / 2, Hc = (H + 1) / 2, Wc = (W + 1) / 2;
-  const long long cell = m >> 3;
-  const int sub = static_cast<int>(m & 7);
-  Vox v;
-  const int xc = static_cast<int>(cell % Wc);
-  long long t = cell / Wc;
-  const int yc = static_cast<int>(t % Hc);
-  t /= Hc;
-  const int zc = static_cast<int>(t % Dc);
-  v.n = static_cast<int>(t / Dc);
-  v.z = 2 * zc + (sub >> 2);
-  v.y = 2 * yc + ((sub >> 1) & 1);
-  v.x = 2 * xc + (sub & 1);
-  v.inside = m < M && v.z < D && v.y < H && v.x < W;
-  return v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ int load_act_word(const int8_t* __restrict__ qa,
-                                             long long vox, int c4, int C,
-                                             bool vec) {
-  if (vec) {  // C % 4 == 0: one aligned 32-bit load
-    return reinterpret_cast<const int*>(qa + vox * C)[c4];
-  }
-  int v = 0;  // scalar tail: pack the channels that exist, zeros after
-  const int c0 = 4 * c4;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (c0 + b < C) {
-      v |= static_cast<int>(static_cast<uint8_t>(qa[vox * C + c0 + b]))
-           << (8 * b);
-    }
-  }
-  return v;
+// byte offset of 16-byte half j of 32-byte weight row r, swizzled so that
+// the 8 consecutive rows of one ldmatrix phase hit 8 distinct bank groups
+__device__ __forceinline__ uint32_t wslot(int r, int j) {
+  return static_cast<uint32_t>(r * 32 + ((j ^ ((r >> 2) & 1)) << 4));
 }
 
-__global__ void __launch_bounds__(THREADS)
-qconv3d_int8_kernel(const int8_t* __restrict__ qa,
-                    const int* __restrict__ w,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias,
-                    const void* __restrict__ residual,
-                    const float* __restrict__ qalpha,
-                    void* __restrict__ out_y,
-                    int8_t* __restrict__ out_i8,
-                    void* __restrict__ out_pool,
-                    int N, int D, int H, int W, int C, int O, int dil,
-                    int res_relu, int quant_qlvl, int res_bf16,
-                    int out_bf16) {
-  __shared__ int As[BK4][BM + 4];   // +4: conflict-free stores
-  __shared__ int Bs[BK4][BN];
-  __shared__ float Ys[BM][BN + 1];  // the tile's y, for the pool epilogue
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
 
-  const int tid = threadIdx.x;
-  const long long cells = static_cast<long long>(N) * ((D + 1) / 2) *
-                          ((H + 1) / 2) * ((W + 1) / 2);
-  const long long M = cells * 8;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int o0 = blockIdx.y * BN;
-  const int C4 = (C + 3) / 4;
-  const bool vec = (C % 4) == 0;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  // loader roles: 8 threads read the 8 words of one voxel; 2 voxels each
-  const int lk = tid & 7;
-  Vox lv[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) lv[s] = decode(m0 + (tid >> 3) + 32 * s, M, D, H, W);
-  const int bk = tid >> 5;  // weight loader: word row, 2 channels each
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
 
-  // compute roles: voxels tm + 16 i, channels tn + 16 j
-  const int tm = tid >> 4, tn = tid & 15;
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
-  for (int tap = 0; tap < 27; ++tap) {
-    const int dz = (tap / 9 - 1) * dil;
-    const int dy = ((tap / 3) % 3 - 1) * dil;
-    const int dx = (tap % 3 - 1) * dil;
-    long long nv[2];
-    bool ok[2];
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// input coordinate of halo index h along an axis whose brick starts at o0
+// and spans B, with tap stride s = min(dil, B): one span (s == dil) or
+// three slabs of B (dil > B)
+__device__ __forceinline__ int halo_coord(int o0, int h, int s, int B,
+                                          int dil) {
+  return s == dil ? o0 - dil + h : o0 + (h / B - 1) * dil + h % B;
+}
+
+template <int BZ, int BY>
+__device__ __forceinline__ void brick_origin(const Args& a, int b, int& n,
+                                             int& z0, int& y0, int& x0) {
+  x0 = (b % a.nbx) * BX;
+  int t = b / a.nbx;
+  y0 = (t % a.nby) * BY;
+  t /= a.nby;
+  z0 = (t % a.nbz) * BZ;
+  n = t / a.nbz;
+}
+
+// n (<= 4) consecutive elements at p + e of a float32 or bfloat16 tensor
+// as float32 (zeros after n); `vec`: n == 4 and the group is aligned, one
+// 8- or 16-byte access
+__device__ __forceinline__ void load4(const void* p, long long e, bool bf16,
+                                      bool vec, int n, float (&v)[4]) {
+  if (bf16) {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p) + e;
+    if (vec) {
+      const uint2 u = *reinterpret_cast<const uint2*>(q);
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+    } else {
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int zz = lv[s].z + dz, yy = lv[s].y + dy, xx = lv[s].x + dx;
-      ok[s] = lv[s].inside && zz >= 0 && zz < D && yy >= 0 && yy < H &&
-              xx >= 0 && xx < W;
-      nv[s] = ((static_cast<long long>(lv[s].n) * D + zz) * H + yy) * W + xx;
+      for (int j = 0; j < 4; ++j) v[j] = j < n ? __bfloat162float(q[j]) : 0.0f;
     }
-    for (int c40 = 0; c40 < C4; c40 += BK4) {
-      const int c4 = c40 + lk;
+  } else {
+    const float* q = static_cast<const float*>(p) + e;
+    if (vec) {
+      const float4 f = *reinterpret_cast<const float4*>(q);
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    } else {
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        As[lk][(tid >> 3) + 32 * s] =
-            (ok[s] && c4 < C4) ? load_act_word(qa, nv[s], c4, C, vec) : 0;
-      }
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int ol = (tid & 31) + 32 * s;
-        const int o = o0 + ol;
-        Bs[bk][ol] = (c40 + bk < C4 && o < O)
-                         ? w[(static_cast<long long>(tap) * C4 + c40 + bk) * O + o]
-                         : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK4; ++k) {
-        int a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[k][tm + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[k][tn + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+      for (int j = 0; j < 4; ++j) v[j] = j < n ? q[j] : 0.0f;
     }
   }
+}
 
-  const float qa_alpha = quant_qlvl ? *qalpha : 1.0f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Vox v = decode(m0 + tm + 16 * i, M, D, H, W);
-    const long long vox =
-        ((static_cast<long long>(v.n) * D + v.z) * H + v.y) * W + v.x;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tn + 16 * j;
-      float y = 0.0f;
-      if (v.inside && o < O) {
-        y = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), scale[o]), bias[o]);
-        if (residual) {
-          float r = res_bf16
-                        ? __bfloat162float(static_cast<const __nv_bfloat16*>(
-                              residual)[vox * O + o])
-                        : static_cast<const float*>(residual)[vox * O + o];
-          if (res_relu) r = fmaxf(r, 0.0f);
-          y = __fadd_rn(y, r);
-        }
-        if (quant_qlvl) {
-          float q = fminf(fmaxf(__fdiv_rn(y, qa_alpha), 0.0f), 1.0f);
-          q = __fmul_rn(q, static_cast<float>(quant_qlvl - 1));
-          out_i8[vox * O + o] = static_cast<int8_t>(static_cast<int>(rintf(q)));
-        } else if (out_bf16) {
-          const __nv_bfloat16 yb = __float2bfloat16_rn(y);
-          static_cast<__nv_bfloat16*>(out_y)[vox * O + o] = yb;
-          y = __bfloat162float(yb);  // the pool takes the rounded value
-        } else {
-          static_cast<float*>(out_y)[vox * O + o] = y;
-        }
-      }
-      if (out_pool) Ys[tm + 16 * i][tn + 16 * j] = y;
+// stores n (<= 4) values at p + e as float32, or as bfloat16 rounded to
+// nearest even (the rounded values are handed back in v)
+__device__ __forceinline__ void store4(void* p, long long e, bool bf16,
+                                       bool vec, int n, float (&v)[4]) {
+  if (bf16) {
+    __nv_bfloat16* q = static_cast<__nv_bfloat16*>(p) + e;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    if (vec) {
+      uint2 u;
+      u.x = *reinterpret_cast<const uint32_t*>(&lo);
+      u.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(q) = u;
+    } else {
+      const __nv_bfloat16 b[4] = {lo.x, lo.y, hi.x, hi.y};
+      for (int j = 0; j < n; ++j) q[j] = b[j];
+    }
+    v[0] = __low2float(lo);
+    v[1] = __high2float(lo);
+    v[2] = __low2float(hi);
+    v[3] = __high2float(hi);
+  } else {
+    float* q = static_cast<float*>(p) + e;
+    if (vec) {
+      *reinterpret_cast<float4*>(q) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      for (int j = 0; j < n; ++j) q[j] = v[j];
     }
   }
+}
 
-  if (out_pool) {
-    __syncthreads();
-    const int Dp = D / 2, Hp = H / 2, Wp = W / 2;
-    const int Dc = (D + 1) / 2, Hc = (H + 1) / 2, Wc = (W + 1) / 2;
+template <int BZ, int BY, bool VEC>
+__global__ void __launch_bounds__(BZ * BY * 8, 512 / (BZ * BY * 8))
+qconv3d_int8_kernel(const Args a) {
+  constexpr int THREADS = BZ * BY * 8;  // one warp per 2 x 2 x 8 sub-brick
+  constexpr int M = BZ * BY * BX;       // output voxels per brick
+  extern __shared__ __align__(128) uint8_t smem[];
+  // stage k (k = 0, 1) at smem + k * stage_bytes: the halo, then (C > 32)
+  // the chunk's weights; with C <= 32 the weights sit after both stages
+  uint8_t* const wres = smem + 2 * a.stage_bytes;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wz = warp / (BY / 2), wy = warp % (BY / 2);
+  const int n0 = blockIdx.y * BN;
+  const int halo_rows = a.EZ * a.EY * a.EX;
+
+  // ldmatrix roles.  A (m-tile mt): lanes 0-7 rows (2wz+mt, 2wy, x) bytes
+  // 0-15, lanes 8-15 rows (.., 2wy+1, x), lanes 16-31 the same at bytes
+  // 16-31; a tap adds its row offset.  B (n-tile pair np): lanes 0-7 /
+  // 8-15 channels 0-7 at bytes 0-15 / 16-31, lanes 16-31 channels 8-15; a
+  // tap adds tap * BN rows, a compile-time offset.
+  uint32_t a_off[2];
 #pragma unroll
-    for (int e = tid; e < (BM / 8) * BN; e += THREADS) {
-      const int cl = e / BN, ol = e % BN;
-      const int o = o0 + ol;
-      const long long cell = (m0 >> 3) + cl;
-      if (cell >= cells || o >= O) continue;
-      const int xc = static_cast<int>(cell % Wc);
-      long long t = cell / Wc;
-      const int yc = static_cast<int>(t % Hc);
-      t /= Hc;
-      const int zc = static_cast<int>(t % Dc);
-      const long long n = t / Dc;
-      if (zc >= Dp || yc >= Hp || xc >= Wp) continue;  // VALID: partial cell
-      float mx = Ys[cl * 8][ol];
+  for (int mt = 0; mt < 2; ++mt)
+    a_off[mt] = (((2 * wz + mt) * a.EY + 2 * wy + ((lane >> 3) & 1)) * a.EX +
+                 (lane & 7)) * HS + ((lane >> 4) << 4);
+  uint32_t b_off[2];
 #pragma unroll
-      for (int s = 1; s < 8; ++s) mx = fmaxf(mx, Ys[cl * 8 + s][ol]);
-      const long long p = (((n * Dp + zc) * Hp + yc) * Wp + xc) * O + o;
-      if (out_bf16) {  // exact: mx is one of the rounded values
-        static_cast<__nv_bfloat16*>(out_pool)[p] = __float2bfloat16_rn(mx);
+  for (int np = 0; np < 2; ++np)
+    b_off[np] = wslot(np * 16 + ((lane >> 4) << 3) + (lane & 7),
+                      (lane >> 3) & 1);
+  // a tap's row offset in the halo, in bytes, per axis
+  const int tz = a.sz * a.EY * a.EX * HS, ty = a.sy * a.EX * HS,
+            tx = a.sx * HS;
+
+  const float qa_alpha = a.quant_qlvl ? *a.qalpha : 1.0f;
+  const float qmax = static_cast<float>(a.quant_qlvl - 1);
+
+  auto load_weights = [&](uint8_t* dst, int chunk) {
+    const uint32_t base = smem_u32(dst);
+    const int c0 = chunk * CK;
+    for (int e = tid; e < 27 * BN * 2; e += THREADS) {
+      const int j = e & 1, row = e >> 1;  // row = tap * BN + n
+      const int tap = row / BN, o = n0 + row % BN;
+      const bool ok = o < a.O;
+      const int8_t* src =
+          ok ? a.w + (static_cast<long long>(tap) * a.O + o) * a.Cp + c0 +
+                   16 * j
+             : a.w;
+      cp_async16(base + wslot(row, j), src, ok);
+    }
+  };
+
+  auto load_halo = [&](uint8_t* dst, int b, int chunk) {
+    int n, z0, y0, x0;
+    brick_origin<BZ, BY>(a, b, n, z0, y0, x0);
+    const uint32_t base = smem_u32(dst);
+    const int c0 = chunk * CK;
+    for (int e = tid; e < halo_rows * 2; e += THREADS) {
+      const int j = e & 1, row = e >> 1;
+      const int hx = row % a.EX, r2 = row / a.EX;
+      const int hy = r2 % a.EY, hz = r2 / a.EY;
+      const int z = halo_coord(z0, hz, a.sz, BZ, a.dil);
+      const int y = halo_coord(y0, hy, a.sy, BY, a.dil);
+      const int x = halo_coord(x0, hx, a.sx, BX, a.dil);
+      const bool in = z >= 0 && z < a.D && y >= 0 && y < a.H && x >= 0 &&
+                      x < a.W;
+      const int c = c0 + 16 * j;
+      const long long vox =
+          ((static_cast<long long>(n) * a.D + z) * a.H + y) * a.W + x;
+      const uint32_t at = row * HS + 16 * j;
+      if (VEC) {  // C % 16 == 0: 16-byte halves are all in or all out
+        const bool ok = in && c < a.C;
+        cp_async16(base + at, ok ? a.qa + vox * a.C + c : a.qa, ok);
       } else {
-        static_cast<float*>(out_pool)[p] = mx;
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        if (in) {
+          const int8_t* src = a.qa + vox * a.C;
+#pragma unroll
+          for (int k = 0; k < 16; ++k)
+            if (c + k < a.C)
+              v[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                               src[c + k]))
+                           << (8 * (k & 3));
+        }
+        *reinterpret_cast<uint4*>(dst + at) = make_uint4(v[0], v[1], v[2],
+                                                         v[3]);
       }
     }
+  };
+
+  const int bricks_here =
+      (a.bricks - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int steps = bricks_here * a.nchunks;
+  auto issue = [&](int s) {  // the loads of step s into stage s & 1
+    const int b = blockIdx.x + (s / a.nchunks) * gridDim.x;
+    const int chunk = s % a.nchunks;
+    uint8_t* const stage = smem + (s & 1) * a.stage_bytes;
+    load_halo(stage, b, chunk);
+    if (a.nchunks > 1) load_weights(stage + a.halo_bytes, chunk);
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0;
+
+  if (a.nchunks == 1) load_weights(wres, 0);  // resident for every brick
+  issue(0);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) issue(s + 1);
+    cp_async_commit();
+    cp_async_wait_1();  // step s's group has landed
+    __syncthreads();
+
+    uint8_t* const stage = smem + (s & 1) * a.stage_bytes;
+    const uint32_t hs = smem_u32(stage);
+    const uint32_t ws = smem_u32(a.nchunks > 1 ? stage + a.halo_bytes : wres);
+    // the 27 taps, software-pipelined: tap + 1's fragments load while
+    // tap's mma run (ldmatrix and mma are volatile asm, issued in order)
+    uint32_t af[2][2][4], bf[2][4][2];
+    auto fragments = [&](int tap, uint32_t (&fa)[2][4],
+                         uint32_t (&fb)[4][2]) {
+      const uint32_t off = hs + (tap / 9) * tz + ((tap / 3) % 3) * ty +
+                           (tap % 3) * tx;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(fa[mt], off + a_off[mt]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t q[4];
+        ldmatrix_x4(q, ws + tap * (BN * CK) + b_off[np]);
+        fb[2 * np][0] = q[0];
+        fb[2 * np][1] = q[1];
+        fb[2 * np + 1][0] = q[2];
+        fb[2 * np + 1][1] = q[3];
+      }
+    };
+    fragments(0, af[0], bf[0]);
+#pragma unroll
+    for (int tap = 0; tap < 27; ++tap) {
+      if (tap + 1 < 27)
+        fragments(tap + 1, af[(tap + 1) & 1], bf[(tap + 1) & 1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_s8(acc[mt][nt], af[tap & 1][mt], bf[tap & 1][nt]);
+    }
+
+    if (s % a.nchunks == a.nchunks - 1) {  // the brick is summed: epilogue
+      // the stage's halo and weights are spent: the int32 sums go there
+      // (row m of the brick, BN + 4 words), and the epilogue runs over
+      // them element-wise, 4 channels a thread, coalesced along the rows
+      __syncthreads();
+      int* const sums = reinterpret_cast<int*>(stage);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int m = ((2 * wz + mt) * BY + 2 * wy + half) * BX + g;
+            *reinterpret_cast<int2*>(sums + m * SR + nt * 8 + 2 * t) =
+                make_int2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+          }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0;
+      __syncthreads();
+      int n, z0, y0, x0;
+      brick_origin<BZ, BY>(a, blockIdx.x + (s / a.nchunks) * gridDim.x, n,
+                           z0, y0, x0);
+      const bool quad = (a.O & 3) == 0;  // 4-channel groups are aligned
+      for (int e = tid; e < M * (BN / 4); e += THREADS) {
+        const int m = e / (BN / 4), c = 4 * (e % (BN / 4)), o = n0 + c;
+        const int z = z0 + m / (BY * BX), y = y0 + (m / BX) % BY,
+                  x = x0 + m % BX;
+        const int nv = min(4, a.O - o);  // channels of the group that exist
+        const int4 acc4 = *reinterpret_cast<const int4*>(sums + m * SR + c);
+        const int iv[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = j < nv ? __fadd_rn(
+                              __fmul_rn(__int2float_rn(iv[j]),
+                                        __ldg(a.scale +
+                                              (o + j) * a.scale_stride)),
+                              a.bias ? __ldg(a.bias + o + j) : 0.0f)
+                        : 0.0f;
+        if (nv > 0 && z < a.D && y < a.H && x < a.W) {
+          const long long at =
+              (((static_cast<long long>(n) * a.D + z) * a.H + y) * a.W + x) *
+                  a.O + o;
+          const bool vec = quad && nv == 4;
+          if (a.residual) {
+            float r[4];
+            load4(a.residual, at, a.res_bf16, vec, nv, r);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j] = __fadd_rn(v[j], a.res_relu ? fmaxf(r[j], 0.0f) : r[j]);
+          }
+          if (a.quant_qlvl) {
+            uint32_t packed = 0u;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float u = fminf(fmaxf(__fdiv_rn(v[j], qa_alpha), 0.0f), 1.0f);
+              u = rintf(__fmul_rn(u, qmax));
+              packed |= (static_cast<uint32_t>(static_cast<int>(u)) & 0xffu)
+                        << (8 * j);
+            }
+            int8_t* dst = a.out_i8 + at;
+            if (vec) {
+              *reinterpret_cast<uint32_t*>(dst) = packed;
+            } else {
+              for (int j = 0; j < nv; ++j)
+                dst[j] = static_cast<int8_t>(packed >> (8 * j));
+            }
+          } else {
+            store4(a.out_y, at, a.out_bf16, vec, nv, v);
+          }
+        } else if (a.out_bf16) {  // a voxel past the edge: round as stored
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = __bfloat162float(__float2bfloat16_rn(v[j]));
+        }
+        if (a.out_pool)  // the stored values, for the pool
+          *reinterpret_cast<float4*>(sums + m * SR + c) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      }
+      if (a.out_pool) {  // VALID 2x2x2 max of the stored values
+        __syncthreads();
+        const float* const ys = reinterpret_cast<const float*>(sums);
+        const int Dp = a.D / 2, Hp = a.H / 2, Wp = a.W / 2;
+        constexpr int CY = BY / 2, CX = BX / 2;
+        for (int e = tid; e < (M / 8) * (BN / 4); e += THREADS) {
+          const int cell = e / (BN / 4), c = 4 * (e % (BN / 4)), o = n0 + c;
+          const int cz = cell / (CY * CX), cy = (cell / CX) % CY,
+                    cx = cell % CX;
+          const int zc = z0 / 2 + cz, yc = y0 / 2 + cy, xc = x0 / 2 + cx;
+          const int nv = min(4, a.O - o);
+          if (nv <= 0 || zc >= Dp || yc >= Hp || xc >= Wp) continue;
+          float mx[4];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int m = ((2 * cz + (k >> 2)) * BY + 2 * cy + ((k >> 1) & 1)) *
+                              BX + 2 * cx + (k & 1);
+            const float4 f = *reinterpret_cast<const float4*>(ys + m * SR + c);
+            const float w4[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mx[j] = k ? fmaxf(mx[j], w4[j]) : w4[j];
+          }
+          const long long at =
+              (((static_cast<long long>(n) * Dp + zc) * Hp + yc) * Wp + xc) *
+                  a.O + o;
+          // exact: each max is one of the stored values
+          store4(a.out_pool, at, a.out_bf16, quad && nv == 4, nv, mx);
+        }
+      }
+    }
+    __syncthreads();  // stage s & 1 is free for step s + 2
   }
+}
+
+template <int BZ, int BY, bool VEC>
+int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
+  static bool configured = false;  // once per instantiation
+  auto kernel = qconv3d_int8_kernel<BZ, BY, VEC>;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  kernel<<<grid, BZ * BY * 8, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes.  Pointers that do not apply are null:
-// residual (no residual epilogue), qalpha and out_i8 (quant_qlvl == 0),
+// bias (none), residual (no residual epilogue), qalpha and out_i8
+// (quant_qlvl == 0),
 // out_y (quant_qlvl > 0), out_pool (no pool epilogue).  residual is
 // bfloat16 with res_bf16, else float32; out_y and out_pool are bfloat16
-// with out_bf16, else float32.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
+// with out_bf16, else float32.  scale is (O,) with scale_per_channel, else
+// one value.  qa (when C % 16 == 0) and w are 16-byte
+// aligned, residual 8-byte aligned.  The tile plan (brick_z x brick_y x 8
+// voxels, grid_x x grid_y blocks) is kernels/qconv3d.py::_tile_plan's.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a plan it does not take; it does not
+// synchronise.
 extern "C" int qconv3d_int8_launch(const void* qa, const void* w,
                                    const void* scale, const void* bias,
                                    const void* residual, const void* qalpha,
@@ -263,17 +535,60 @@ extern "C" int qconv3d_int8_launch(const void* qa, const void* w,
                                    int N, int D, int H, int W, int C, int O,
                                    int dil, int res_relu, int quant_qlvl,
                                    int res_bf16, int out_bf16,
+                                   int scale_per_channel, int brick_z,
+                                   int brick_y, int grid_x, int grid_y,
                                    void* stream) {
-  const long long cells = static_cast<long long>(N) * ((D + 1) / 2) *
-                          ((H + 1) / 2) * ((W + 1) / 2);
-  const dim3 grid(static_cast<unsigned>((cells * 8 + BM - 1) / BM),
-                  static_cast<unsigned>((O + BN - 1) / BN));
-  qconv3d_int8_kernel<<<grid, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qa), static_cast<const int*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      residual, static_cast<const float*>(qalpha), out_y,
-      static_cast<int8_t*>(out_i8), out_pool, N, D, H, W, C, O, dil, res_relu,
-      quant_qlvl, res_bf16, out_bf16);
-  return static_cast<int>(cudaGetLastError());
+  Args a;
+  a.qa = static_cast<const int8_t*>(qa);
+  a.w = static_cast<const int8_t*>(w);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.residual = residual;
+  a.qalpha = static_cast<const float*>(qalpha);
+  a.out_y = out_y;
+  a.out_i8 = static_cast<int8_t*>(out_i8);
+  a.out_pool = out_pool;
+  a.N = N; a.D = D; a.H = H; a.W = W; a.C = C; a.O = O; a.dil = dil;
+  a.res_relu = res_relu;
+  a.quant_qlvl = quant_qlvl;
+  a.res_bf16 = res_bf16;
+  a.out_bf16 = out_bf16;
+  a.scale_stride = scale_per_channel ? 1 : 0;
+  a.nchunks = (C + CK - 1) / CK;
+  a.Cp = a.nchunks * CK;
+  a.sz = dil < brick_z ? dil : brick_z;
+  a.sy = dil < brick_y ? dil : brick_y;
+  a.sx = dil < BX ? dil : BX;
+  a.EZ = brick_z + 2 * a.sz;
+  a.EY = brick_y + 2 * a.sy;
+  a.EX = BX + 2 * a.sx;
+  a.nbz = (D + brick_z - 1) / brick_z;
+  a.nby = (H + brick_y - 1) / brick_y;
+  a.nbx = (W + BX - 1) / BX;
+  const long long bricks = static_cast<long long>(N) * a.nbz * a.nby * a.nbx;
+  a.halo_bytes = (a.EZ * a.EY * a.EX * HS + 127) / 128 * 128;
+  // a stage holds the halo and the chunk's weights (C > 32), and at the
+  // epilogue the brick's y at float32 (rows of BN * 4 + 16 bytes)
+  const int staged = brick_z * brick_y * BX * (BN * 4 + 16);
+  const int loads = a.halo_bytes + (a.nchunks > 1 ? WBYTES : 0);
+  a.stage_bytes = ((loads > staged ? loads : staged) + 127) / 128 * 128;
+  const int smem = 2 * a.stage_bytes + (a.nchunks > 1 ? 0 : WBYTES);
+  if (bricks > 0x7fffffffLL || grid_x < 1 || grid_x > bricks ||
+      grid_y != (O + BN - 1) / BN || smem > SMEM_MAX || dil < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.bricks = static_cast<int>(bricks);
+  const dim3 grid(static_cast<unsigned>(grid_x),
+                  static_cast<unsigned>(grid_y));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = C % 16 == 0;
+#define K1_CASE(BZ, BY)                                          \
+  if (brick_z == BZ && brick_y == BY)                            \
+    return vec ? launch<BZ, BY, true>(a, grid, smem, s)          \
+               : launch<BZ, BY, false>(a, grid, smem, s);
+  K1_CASE(4, 8)
+  K1_CASE(4, 4)
+  K1_CASE(2, 4)
+  K1_CASE(2, 2)
+#undef K1_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,12 +21,17 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # sm_90a (Hopper); no fast math, and no FMA contraction, so the float
-# epilogues round exactly as the reference does
+# epilogues round exactly as the reference does; ptxas reports each
+# kernel's registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# nvcc's messages (ptxas's resource lines) of each source built by this
+# process
+build_log: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -70,10 +75,11 @@ def load_all(sources: Sequence[str]) -> List[ctypes.CDLL]:
                     text=True)))
         errors = []
         for source, lib, tmp, proc in builds:
-            _, err = proc.communicate()
+            out, err = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"nvcc failed on {source}:\n{err}")
             else:
+                build_log[source] = out + err
                 os.replace(tmp, lib)
         if errors:
             raise RuntimeError("\n".join(errors))

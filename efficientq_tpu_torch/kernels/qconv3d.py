@@ -2,11 +2,13 @@
 
 Counterpart of the JAX package's ``pallas/qconv3d.py::qconv3x3_int8_ndhwc``
 (a Pallas TPU kernel).  Here the conv is the hand-written CUDA kernel
-``csrc/qconv3d_int8.cu`` (int32 accumulation with ``__dp4a``; its header
-says what bounds it), built with nvcc and bound with ctypes
-(kernels/build.py).  Beside it, ``qconv3x3_int8_ndhwc_reference`` is the
-plain PyTorch version of the same function, op for op the JAX package's
-``_xla_qconv3x3``.
+``csrc/qconv3d_int8.cu``: an implicit GEMM on the int8 tensor cores
+(``mma.sync`` m16n8k32, int32 accumulation) over a shared-memory halo tile
+that all 27 taps read, loaded with ``cp.async`` in two stages; its header
+says what bounds it.  It is built with nvcc and bound with ctypes
+(kernels/build.py).  ``_tile_plan`` picks its brick and grid per call.
+Beside it, ``qconv3x3_int8_ndhwc_reference`` is the plain PyTorch version
+of the same function, op for op the JAX package's ``_xla_qconv3x3``.
 
 ``qconv3x3_int8_ndhwc`` takes the plain version for tensors on the CPU
 only; for CUDA tensors it launches the kernel or raises.  Each launch adds
@@ -18,26 +20,37 @@ package (its kernel too reads int8 codes produced outside it).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import ops
 from ..quant import act_codes
 
+# the kernel's fixed tile sizes (csrc/qconv3d_int8.cu): output channels per
+# block, input channels per staged chunk, brick extent along x
+_BN, _CK, _BX = 32, 32, 8
+_HS = 48  # bytes per staged halo row: 32 channels + 16 (no bank conflicts)
+# brick extents (z, y) the kernel is built for, largest first; one warp
+# per 2 x 2 x 8 sub-brick
+_BRICKS = ((4, 8), (4, 4), (2, 4), (2, 2))
+# NVIDIA H100: SMs, shared memory per SM and per block (opt-in), bytes
+_SMS, _SMEM_SM, _SMEM_BLOCK = 132, 233472, 232448
+
 
 def pack_weights(w_codes: torch.Tensor) -> torch.Tensor:
-    """(3, 3, 3, C, O) int8 DHWIO codes -> the kernel's (27, ceil(C/4), O)
-    int32 layout: four consecutive input channels per word, channel 4k+b
-    in byte b (little-endian), zero-padded to a multiple of 4."""
+    """(3, 3, 3, C, O) int8 DHWIO codes -> the kernel's (27, O, Cp) int8
+    layout, ``packed[tap, o, c] = w_codes[tap, c, o]``: input channels
+    contiguous (the mma's B fragment runs along k), zero-padded to
+    Cp = 32 * ceil(C / 32), one mma depth."""
     *taps, c, o = w_codes.shape
     assert tuple(taps) == (3, 3, 3), taps
-    c4 = -(-c // 4)
-    w = w_codes.reshape(27, c, o)
-    if c4 * 4 != c:
-        w = torch.cat([w, w.new_zeros(27, c4 * 4 - c, o)], dim=1)
-    w = w.reshape(27, c4, 4, o).permute(0, 1, 3, 2).contiguous()
-    return w.view(torch.int32).reshape(27, c4, o)
+    cp = -(-c // _CK) * _CK
+    w = w_codes.reshape(27, c, o).permute(0, 2, 1)
+    if cp != c:
+        w = torch.cat([w, w.new_zeros(27, o, cp - c)], dim=2)
+    return w.contiguous()
 
 
 def qconv3x3_int8_ndhwc_reference(x, w_codes, bias, alpha_act, scale,
@@ -129,48 +142,124 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     from . import build
 
-    lib = build.load("qconv3d_int8.cu")
-    fn = lib.qconv3d_int8_launch
-    if fn.argtypes is None:  # ctypes would pass ints as 32-bit
-        fn.argtypes = [_P] * 9 + [_I] * 11 + [_P]
-        fn.restype = _I
+    fn = build.load("qconv3d_int8.cu").qconv3d_int8_launch
+    fn.argtypes = [_P] * 9 + [_I] * 16 + [_P]  # else ints pass as 32-bit
+    fn.restype = _I
     return fn
+
+
+def _smem_bytes(brick, c, dil):
+    """Dynamic shared memory of one block, as the launch computes it: two
+    pipeline stages, each the halo ((bz + 2s) x (by + 2s) x (8 + 2s) rows
+    of 48 bytes, s = min(dil, extent) per axis) and, when C spans more
+    than one 32-channel chunk, the chunk's 27 x 32 x 32 bytes of weights;
+    a stage also holds the brick's float32 y at the epilogue (rows of
+    32 x 4 + 16 bytes).  With one chunk the weights stay resident after
+    the two stages."""
+    rows = 1
+    for b in brick:
+        rows *= b + 2 * min(dil, b)
+    up = lambda n: -(-n // 128) * 128  # noqa: E731
+    weights = 27 * _BN * _CK
+    loads = up(rows * _HS) + (weights if c > _CK else 0)
+    stage = up(max(loads, brick[0] * brick[1] * brick[2] * (_BN * 4 + 16)))
+    return 2 * stage + (0 if c > _CK else weights)
+
+
+class TilePlan(NamedTuple):
+    brick: Tuple[int, int, int]   # output voxels per brick, (z, y, x)
+    bn: int                       # output channels per block
+    grid: Tuple[int, int]         # (blocks over bricks, column tiles)
+    bricks: Tuple[int, int, int, int]  # bricks per axis: n, z, y, x
+    n_bricks: int
+    threads: int                  # per block
+    smem: int                     # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def _tile_plan(n, d, h, w, c, o, dil) -> TilePlan:
+    """K1's tiling of one call, as the launch takes it.
+
+    Each block owns ``bn`` = 32 output channels (``grid[1]`` column tiles)
+    and walks bricks of ``brick`` = (bz, by, 8) output voxels: block x takes
+    bricks x, x + grid[0], x + 2 grid[0], ... (``_brick_origin`` numbers
+    them).  The brick is the largest of ``_BRICKS`` whose shared memory
+    fits a block and that still gives every SM a block (larger bricks
+    reload the weights for more voxels), else the smallest; ``grid[0]`` is
+    as many blocks as the SMs hold at once (persistent blocks), at most
+    one per brick."""
+    gy = -(-o // _BN)
+    for bz, by in _BRICKS:
+        brick = (bz, by, _BX)
+        smem = _smem_bytes(brick, c, dil)
+        per_axis = (n, -(-d // bz), -(-h // by), -(-w // _BX))
+        n_bricks = per_axis[0] * per_axis[1] * per_axis[2] * per_axis[3]
+        if smem <= _SMEM_BLOCK and n_bricks * gy >= _SMS:
+            break
+    threads = bz * by * _BX
+    # blocks per SM: shared memory (1 KB reserved per block) and registers
+    # (the kernel's launch bounds hold 512 threads per SM at <= 128 each)
+    per_sm = max(1, min(_SMEM_SM // (smem + 1024), 512 // threads))
+    gx = min(n_bricks, max(1, _SMS * per_sm // gy))
+    return TilePlan(brick, _BN, (gx, gy), per_axis, n_bricks, threads,
+                    smem)
+
+
+def _brick_origin(plan, b):
+    """(n, z0, y0, x0) of brick b: x fastest, then y, z and n, as the
+    kernel numbers them."""
+    _, nbz, nby, nbx = plan.bricks
+    bz, by, bx = plan.brick
+    t, xi = divmod(b, nbx)
+    t, yi = divmod(t, nby)
+    ni, zi = divmod(t, nbz)
+    return ni, zi * bz, yi * by, xi * bx
 
 
 _FLOAT_OUT = (torch.float32, torch.bfloat16)
 
 
+def _aligned(t, nbytes):
+    """t, or a copy of it whose data starts on an nbytes boundary (the
+    kernel's vector accesses)."""
+    return t if t is None or t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
             quant_alpha, quant_qlvl, pool, out_dtype):
     dev = qa.device
-    qa = qa.contiguous()
+    qa = _aligned(qa.contiguous(), 16)
     n, d, h, w, c = qa.shape
     if qa.dtype != torch.int8 or qa.numel() == 0:
         raise ValueError(f"K1 needs non-empty int8 codes, got {qa.dtype} "
                          f"{tuple(qa.shape)}")
-    if (w_packed.dtype != torch.int32 or w_packed.device != dev
-            or tuple(w_packed.shape) != (27, -(-c // 4), o)
+    if (w_packed.dtype != torch.int8 or w_packed.device != dev
+            or tuple(w_packed.shape) != (27, o, -(-c // _CK) * _CK)
             or not w_packed.is_contiguous()):
         raise ValueError(f"packed weights {w_packed.dtype} "
                          f"{tuple(w_packed.shape)} on {w_packed.device} do "
                          f"not fit codes {tuple(qa.shape)} -> {o} channels")
+    w_packed = _aligned(w_packed, 16)
     dil = int(dilation)
     if dil < 1:
         raise ValueError(f"dilation {dil}")
     if out_dtype not in _FLOAT_OUT:
         raise ValueError(f"K1 stores float32 or bfloat16, not {out_dtype}")
     f32 = dict(dtype=torch.float32, device=dev)
-    scale_v = torch.as_tensor(scale, **f32).expand(o).contiguous()
-    bias_v = (torch.zeros(o, **f32) if bias is None
-              else bias.to(**f32).contiguous())
+    scale_v = torch.as_tensor(scale, **f32)
+    if scale_v.numel() not in (1, o):
+        raise ValueError(f"scale {tuple(scale_v.shape)}: one value or {o}")
+    scale_v = scale_v.reshape(-1).contiguous()
+    bias_v = None if bias is None else bias.to(**f32).contiguous()
     res = None
     if residual is not None:
-        res = residual.to(device=dev, dtype=(
+        res = _aligned(residual.to(device=dev, dtype=(
             residual.dtype if residual.dtype in _FLOAT_OUT
-            else torch.float32)).contiguous()
+            else torch.float32)).contiguous(), 16)
         if tuple(res.shape) != (n, d, h, w, o):
             raise ValueError(f"residual {tuple(res.shape)} != output "
                              f"{(n, d, h, w, o)}")
@@ -180,6 +269,7 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
                       dtype=torch.int8 if quant_qlvl else out_dtype)
     pooled = (torch.empty((n, d // 2, h // 2, w // 2, o), device=dev,
                           dtype=out_dtype) if pool else None)
+    plan = _tile_plan(n, d, h, w, c, o, dil)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -193,6 +283,7 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
                     int(quant_qlvl),
                     int(res is not None and res.dtype == torch.bfloat16),
                     int(out_dtype == torch.bfloat16),
+                    int(scale_v.numel() > 1), *plan.brick[:2], *plan.grid,
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")

@@ -90,10 +90,11 @@ def matmul_case(m, k, n, dtype, per_channel, with_bias, seed=0):
 
 
 def make_case(seed, c, dil=1, quant=False, res=False, relu=False, pool=False,
-              odd=False, xq=False, per_channel=False):
-    """NumPy inputs of one K1 call (N=2, 6^3 or 5x6x7 volume, O=6)."""
+              odd=False, xq=False, per_channel=False, n=2, shape=None, o=6):
+    """NumPy inputs of one K1 call (by default N=2, 6^3 or 5x6x7 volume,
+    O=6)."""
     rng = np.random.RandomState(seed)
-    n, d, h, w, o = 2, (5 if odd else 6), 6, (7 if odd else 6), 6
+    d, h, w = shape or ((5 if odd else 6), 6, (7 if odd else 6))
     x = (np.abs(rng.randn(n, d, h, w, c)) * 0.8).astype(np.float32)
     alpha = np.float32(0.9)
     if xq:
@@ -154,6 +155,66 @@ def test_cuda_k1_matches_plain(name, bf16, cuda):
         np.testing.assert_array_equal(g, r)
 
 
+# K1 cases at the kernel's tile edges (run on the card only): C and O of
+# 40, 72 and 256 (partial 32-channel chunks and column tiles, the byte-load
+# path where C % 16 != 0), extents below one brick and odd, N = 1 and 3,
+# dilation 1 to 9 (a dilation past the brick stages three slabs), every
+# epilogue, and every brick of the tile plan ("brick": the one the plan
+# picks, (2, 2, 8) when not given)
+TILE_CASES = {
+    "c40-o72-n3-32cube-dil2-res-relu-pool": dict(
+        c=40, o=72, n=3, shape=(32, 32, 32), dil=2, res=True, relu=True,
+        pool=True, brick=(4, 8, 8)),
+    "c64-o264-n1-6x16x16-xq-res-pool": dict(
+        c=64, o=264, n=1, shape=(6, 16, 16), xq=True, res=True, pool=True,
+        brick=(4, 4, 8)),
+    "c256-o256-n1-8x16x16-quant": dict(
+        c=256, o=256, n=1, shape=(8, 16, 16), quant=True, brick=(2, 4, 8)),
+    "c40-o72-n1-odd-quant": dict(c=40, o=72, n=1, shape=(5, 6, 7),
+                                 quant=True),
+    "c72-o40-n3-dil2-res-relu-pool": dict(
+        c=72, o=40, n=3, shape=(7, 9, 10), dil=2, res=True, relu=True,
+        pool=True, brick=(2, 4, 8)),
+    "c256-o256-n1-xq-res-relu-pool": dict(
+        c=256, o=256, n=1, shape=(8, 8, 8), xq=True, res=True, relu=True,
+        pool=True),
+    "c256-o256-n3-dil2-quant": dict(c=256, o=256, n=3, shape=(4, 6, 9),
+                                    dil=2, quant=True, brick=(2, 4, 8)),
+    "c48-o40-n1-below-brick-pool": dict(c=48, o=40, n=1, shape=(3, 2, 5),
+                                        pool=True),
+    "c96-o72-n3-per-channel-res": dict(c=96, o=72, n=3, shape=(6, 5, 12),
+                                       per_channel=True, res=True),
+    "c32-o32-n1-one-voxel": dict(c=32, o=32, n=1, shape=(1, 1, 1)),
+    "c64-o64-n3-dil2-xq-res-relu-pool": dict(
+        c=64, o=64, n=3, shape=(10, 11, 9), dil=2, xq=True, res=True,
+        relu=True, pool=True, brick=(2, 4, 8)),
+    "c40-o40-n1-dil3": dict(c=40, o=40, n=1, shape=(9, 8, 17), dil=3),
+    "c24-o9-n1-odd-o-res-relu-pool": dict(c=24, o=9, n=1, shape=(6, 7, 6),
+                                          res=True, relu=True, pool=True),
+    "c16-o72-n1-dil9-pool": dict(c=16, o=72, n=1, shape=(10, 12, 12), dil=9,
+                                 pool=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_cuda_k1_tiles_match_plain(name, bf16, cuda):
+    kw = dict(TILE_CASES[name])
+    brick = kw.pop("brick", (2, 2, 8))
+    case = make_case(100 + sorted(TILE_CASES).index(name), **kw)
+    n, (d, h, w), c, o = kw["n"], kw["shape"], kw["c"], kw["o"]
+    assert K._tile_plan(n, d, h, w, c, o, kw.get("dil", 1)).brick == brick
+    before = K.qconv3x3_int8_ndhwc.launches
+    got = run_port(case, device=cuda, bf16=bf16)
+    ref = run_port(case, K.qconv3x3_int8_ndhwc_reference, device=cuda,
+                   bf16=bf16)
+    assert K.qconv3x3_int8_ndhwc.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        np.testing.assert_array_equal(g, r)
+
+
 @pytest.mark.cuda
 def test_cuda_k1_rejects_mismatched_weights(cuda):
     x = torch.zeros(1, 4, 4, 4, 8, device=cuda)
@@ -161,6 +222,9 @@ def test_cuda_k1_rejects_mismatched_weights(cuda):
     with pytest.raises(ValueError, match="packed weights"):
         K.qconv3x3_int8_ndhwc(x, codes, None, 1.0, 1.0, NA,
                               w_packed=K.pack_weights(codes[..., :2]))
+    with pytest.raises(ValueError, match="scale"):
+        K.qconv3x3_int8_ndhwc(x, codes, None, 1.0,
+                              torch.ones(3, device=cuda), NA)
 
 
 def small_net(seed, alpha_act, **cfg):

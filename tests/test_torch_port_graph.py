@@ -29,6 +29,7 @@ from efficientq_tpu_torch.models import UResQConfig, build_uresq, torch_io
 from efficientq_tpu_torch.models import min_input_divisor, num_mo
 from efficientq_tpu_torch.models import preset_config, validate_spatial_shape
 from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+from efficientq_tpu_torch.kernels.qconv3d import pack_weights
 from efficientq_tpu_torch.ptq.deploy import eligible
 
 TINY = dict(num_mod=2, num_classes=3, depth_config=[1, 1, 1],
@@ -160,7 +161,9 @@ def test_int8_deploy_graph_matches_jax(name):
             np.testing.assert_array_equal(tdv["params"][node][k].numpy(), want,
                                           err_msg=f"{node}.{k}")
         if "kernel_int8" in entries and tdg.node(node).attrs.get("pallas"):
-            assert tdv["params"][node]["kernel_packed"].dtype == torch.int32
+            assert torch.equal(tdv["params"][node]["kernel_packed"],
+                               pack_weights(tdv["params"][node]["kernel_int8"]))
+            assert tdv["params"][node]["kernel_packed"].dtype == torch.int8
 
 
 def test_eligible_matches_jax():

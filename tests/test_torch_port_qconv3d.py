@@ -67,17 +67,66 @@ def test_plain_k1_matches_jax(name):
 
 
 def test_pack_weights_layout():
-    """Word k of tap t, channel o holds input channels 4k..4k+3 in bytes
-    0..3; missing channels are zero."""
+    """packed[tap, o, c] holds input channel c of output channel o (the
+    mma's B fragment runs along c); channels past C, up to the next
+    multiple of 32, are zero."""
     rng = np.random.RandomState(0)
-    codes = rng.randint(-7, 8, size=(3, 3, 3, 5, 2)).astype(np.int8)
+    codes = rng.randint(-7, 8, size=(3, 3, 3, 37, 2)).astype(np.int8)
     packed = K.pack_weights(torch.from_numpy(codes)).numpy()
-    assert packed.shape == (27, 2, 2) and packed.dtype == np.int32
-    as_bytes = packed.view(np.int8).reshape(27, 2, 2, 4)
-    flat = codes.reshape(27, 5, 2)
-    for c in range(8):
-        want = flat[:, c] if c < 5 else 0
-        np.testing.assert_array_equal(as_bytes[:, c // 4, :, c % 4], want)
+    assert packed.shape == (27, 2, 64) and packed.dtype == np.int8
+    flat = codes.reshape(27, 37, 2)
+    np.testing.assert_array_equal(packed[:, :, :37],
+                                  flat.transpose(0, 2, 1))
+    assert not packed[:, :, 37:].any()
+
+
+# (N, D, H, W, C, O, dilation): the flagship's 14 convs at the s2d batch
+# (8) and the float32 batch (2), and odd, small and wide geometries
+PLAN_CASES = [
+    (8, 64, 64, 64, 32, 32, 1), (2, 64, 64, 64, 32, 32, 2),
+    (8, 32, 32, 32, 64, 64, 1), (2, 32, 32, 32, 64, 64, 1),
+    (8, 16, 16, 16, 128, 128, 1), (2, 16, 16, 16, 128, 128, 2),
+    (8, 8, 8, 8, 256, 256, 1), (2, 8, 8, 8, 256, 256, 1),
+    (1, 5, 6, 7, 3, 6, 1), (3, 1, 1, 1, 8, 3, 1), (2, 9, 9, 9, 40, 72, 2),
+    (1, 3, 17, 2, 72, 40, 1), (4, 7, 13, 11, 256, 256, 3),
+    (1, 6, 6, 6, 4, 6, 9), (8, 64, 64, 64, 32, 32, 40),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=["x".join(map(str, c)) for c in PLAN_CASES])
+def test_tile_plan_covers_each_output_once(case):
+    """Every output voxel and channel belongs to exactly one block; bricks
+    are even and start on even coordinates, so no 2x2x2 pool cell spans
+    two blocks; the grid and shared memory are what the launch takes."""
+    n, d, h, w, c, o, dil = case
+    plan = K._tile_plan(n, d, h, w, c, o, dil)
+    gx, gy = plan.grid
+    bz, by, bx = plan.brick
+    assert (bz, by) in K._BRICKS and bx == 8
+    assert plan.threads == bz * by * bx and plan.threads % 32 == 0
+    assert plan.smem == K._smem_bytes(plan.brick, c, dil)
+    assert plan.smem <= K._SMEM_BLOCK
+    assert 1 <= gx <= plan.n_bricks == int(np.prod(plan.bricks))
+    assert gy * plan.bn >= o > (gy - 1) * plan.bn
+    owned = np.zeros((n, d, h, w), np.int32)
+    for block in range(gx):
+        for b in range(block, plan.n_bricks, gx):
+            ni, z0, y0, x0 = K._brick_origin(plan, b)
+            assert z0 % bz == y0 % by == x0 % bx == 0
+            owned[ni, z0:z0 + bz, y0:y0 + by, x0:x0 + bx] += 1
+    assert (owned == 1).all()  # each column tile walks the same bricks
+
+
+def test_tile_plan_fills_the_card_at_the_flagship():
+    """At the flagship's first stage the blocks fill every SM at least
+    twice over and are the largest bricks, and the widest convs still
+    spread over every SM."""
+    big = K._tile_plan(8, 64, 64, 64, 32, 32, 1)
+    assert big.brick == (4, 8, 8) and big.grid[0] >= 2 * K._SMS
+    for n in (2, 8):
+        plan = K._tile_plan(n, 8, 8, 8, 256, 256, 1)
+        assert plan.grid[0] * plan.grid[1] >= K._SMS
 
 
 def test_wrapper_dispatches_by_device():
