@@ -62,7 +62,10 @@ Phases, each printed on its own lines:
    versions and one library call each (``torch._int_mm`` on the codes for
    K3, float32 ``torch.addmm`` with TF32 off on the fake-quantized x for
    K4), and the bounds (bytes over 3.35 TB/s against operations over the
-   int8 tensor-core or the float32 non-tensor peak).
+   int8 tensor-core or the float32 non-tensor peak).  K4 and
+   ``torch.addmm`` also as device time alone (CUDA graph replay), the
+   difference printed as the host's time per call; K4 per call in three
+   rounds (min / median / max, its same-card spread); K4's plan per shape.
 6. the ``include_1x1`` serving paths on the same net and volumes:
    (a) the int8 deployment with the 1x1 convs flagged, on the int8
    float32 path: 14 K1 and 6 K3 launches per forward, predictions equal
@@ -127,6 +130,7 @@ AGREE_PLAIN_S2D = 0.99
 # K4 against its plain version (float32 sums in another order) on the
 # paths of phase 6 (c) and (d): the same amplification of code flips
 AGREE_PLAIN_K4 = 0.99
+K4_ROUNDS = 3  # phase 5 times K4 this many times (its same-card spread)
 # the flagship's six transition 1x1 convs: (name, voxels per 128^3 patch,
 # K, N)
 ONE_BY_ONE = [("TransDown1", 32768, 32, 64), ("TransDown2", 4096, 64, 128),
@@ -894,6 +898,8 @@ def phase5(seed: int):
         tot = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                          t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
                for key in ("k3", "k4")}
+        tot["k4"].update(graph_ms=0.0, graph_library_ms=0.0,
+                         rounds=[0.0] * K4_ROUNDS)
         for name, per_patch, k, n in ONE_BY_ONE:
             m = per_patch * batch
             x = (torch.randn(m, k, device=dev, generator=gen) * 0.7).to(dt)
@@ -926,6 +932,12 @@ def phase5(seed: int):
             qa = act_codes(x, alpha, 4)
             xq = fake_quant_act(x, alpha, 4)
             xbytes = x.element_size() * m * k
+            # K4 per call in K4_ROUNDS rounds (the same-card spread), and
+            # K4 and addmm as device time alone (CUDA graph replay)
+            k4_rounds = [_median_ms(lambda: KM.fused_qact_matmul(*args4))
+                         for _ in range(K4_ROUNDS)]
+            g4 = _graph_ms(lambda: KM.fused_qact_matmul(*args4))
+            gl4 = _graph_ms(lambda: torch.addmm(b, xq, w))
             times = {
                 "k3": (_median_ms(lambda: KM.fused_int8_matmul(*args)),
                        _median_ms(lambda: KM.fused_int8_matmul_reference(
@@ -933,12 +945,18 @@ def phase5(seed: int):
                        _int_mm_ms(qa, codes),
                        _bound(xbytes + k * n + 8 * n + 4 * m * n, 2 * m * k * n,
                               INT8_OPS)),
-                "k4": (_median_ms(lambda: KM.fused_qact_matmul(*args4)),
+                "k4": (statistics.median(k4_rounds),
                        _median_ms(lambda: KM.fused_qact_matmul_reference(
                            *args4)),
                        _median_ms(lambda: torch.addmm(b, xq, w)),
                        _bound(xbytes + 4 * k * n + 4 * n + 4 * m * n,
                               2 * m * k * n, FP32_OPS))}
+            t4 = tot["k4"]
+            t4["graph_ms"] += g4
+            t4["graph_library_ms"] += gl4
+            for r, ms in enumerate(k4_rounds):
+                t4["rounds"][r] += ms
+            plan = KM._k4_plan(m, k, n, dt == torch.bfloat16)
             for key, (tk, tp, tl, (bound, by)) in times.items():
                 t = tot[key]
                 t["ms"] += tk
@@ -954,6 +972,16 @@ def phase5(seed: int):
                       f"K={k} N={n}: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
                       f"library {lib}  bound {bound:.4f} ms ({by}; peak "
                       f"{peak / 1e12:.0f} T/s)", flush=True)
+            print(f"[phase5]   K4 per call over {K4_ROUNDS} rounds min / "
+                  f"median / max {min(k4_rounds):.4f} / "
+                  f"{statistics.median(k4_rounds):.4f} / "
+                  f"{max(k4_rounds):.4f} ms; device time (CUDA graph replay)"
+                  f" K4 {g4:.4f} ms ({times['k4'][3][0] / g4:.1%} of the "
+                  f"bound), addmm {gl4:.4f} ms; host per call (per call - "
+                  f"device) K4 {times['k4'][0] - g4:.4f} ms, addmm "
+                  f"{times['k4'][2] - gl4:.4f} ms; plan nc={plan.nc} "
+                  f"rn={plan.rn} bm={plan.bm} grid={plan.grid} "
+                  f"smem={plan.smem}", flush=True)
             del x, qa, xq
         for key in ("k3", "k4"):
             t = tot[key]
@@ -965,6 +993,18 @@ def phase5(seed: int):
                   f"B={batch} {dt}: kernel {t['ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms, library {lib}, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+        t = tot["k4"]
+        rounds = t.pop("rounds")
+        t.update(rounds_min_ms=min(rounds), rounds_max_ms=max(rounds))
+        print(f"[phase5] K4 one forward's six 1x1 convs at B={batch} {dt}: "
+              f"per call over {K4_ROUNDS} rounds min / median / max "
+              f"{min(rounds):.4f} / {statistics.median(rounds):.4f} / "
+              f"{max(rounds):.4f} ms; device time K4 {t['graph_ms']:.4f} ms "
+              f"({t['bound_ms'] / t['graph_ms']:.1%} of the bound), addmm "
+              f"{t['graph_library_ms']:.4f} ms; host per call K4 "
+              f"{t['ms'] - t['graph_ms']:.4f} ms, addmm "
+              f"{t['library_ms'] - t['graph_library_ms']:.4f} ms (six "
+              f"calls)", flush=True)
         out[batch] = tot
         torch.cuda.empty_cache()
     print(f"[phase5] K3 == plain (torch.equal) at every shape, both scales; "

@@ -26,6 +26,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
+# the card the kernels are tiled for, NVIDIA H100 (SXM): SMs, and shared
+# memory per SM and per block (opt-in), bytes
+SMS, SMEM_SM, SMEM_BLOCK = 132, 233472, 232448
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

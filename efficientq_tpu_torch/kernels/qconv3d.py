@@ -27,6 +27,7 @@ import torch
 
 from .. import ops
 from ..quant import act_codes
+from .build import SMEM_BLOCK, SMEM_SM, SMS
 
 # the kernel's fixed tile sizes (csrc/qconv3d_int8.cu): output channels per
 # block, input channels per staged chunk, brick extent along x
@@ -35,8 +36,6 @@ _HS = 48  # bytes per staged halo row: 32 channels + 16 (no bank conflicts)
 # brick extents (z, y) the kernel is built for, largest first; one warp
 # per 2 x 2 x 8 sub-brick
 _BRICKS = ((4, 8), (4, 4), (2, 4), (2, 2))
-# NVIDIA H100: SMs, shared memory per SM and per block (opt-in), bytes
-_SMS, _SMEM_SM, _SMEM_BLOCK = 132, 233472, 232448
 
 
 def pack_weights(w_codes: torch.Tensor) -> torch.Tensor:
@@ -198,13 +197,13 @@ def _tile_plan(n, d, h, w, c, o, dil) -> TilePlan:
         smem = _smem_bytes(brick, c, dil)
         per_axis = (n, -(-d // bz), -(-h // by), -(-w // _BX))
         n_bricks = per_axis[0] * per_axis[1] * per_axis[2] * per_axis[3]
-        if smem <= _SMEM_BLOCK and n_bricks * gy >= _SMS:
+        if smem <= SMEM_BLOCK and n_bricks * gy >= SMS:
             break
     threads = bz * by * _BX
     # blocks per SM: shared memory (1 KB reserved per block) and registers
     # (the kernel's launch bounds hold 512 threads per SM at <= 128 each)
-    per_sm = max(1, min(_SMEM_SM // (smem + 1024), 512 // threads))
-    gx = min(n_bricks, max(1, _SMS * per_sm // gy))
+    per_sm = max(1, min(SMEM_SM // (smem + 1024), 512 // threads))
+    gx = min(n_bricks, max(1, SMS * per_sm // gy))
     return TilePlan(brick, _BN, (gx, gy), per_axis, n_bricks, threads,
                     smem)
 

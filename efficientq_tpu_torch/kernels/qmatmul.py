@@ -12,8 +12,11 @@ Counterpart of the JAX package's ``pallas/qmatmul.py``:
 - K4, ``fused_qact_matmul``: fake-quantized x times float32 weights, full
   float32 (no TF32), plus bias (the activation-quantized 1x1x1 convs off the
   int8 path: the mixed deployment and fq mode), run by
-  ``qconv1x1_ndhwc``.  Its kernel is ``csrc/qmatmul_f32.cu`` (a
-  register-tiled SGEMM with the fake-quant prologue).
+  ``qconv1x1_ndhwc``.  Its kernel is ``csrc/qmatmul_f32.cu``: a
+  register-tiled SGEMM whose persistent blocks keep a column chunk's
+  weights in shared memory and fake-quantize each x element once, with
+  ``cp.async`` loads of the next slice of x under the FMAs;
+  ``_k4_plan`` picks its tiling and grid per call.
 - ``to_pallas_inference``: flags the convs that the fused kernels run
   (attribute ``pallas``, the JAX package's name, so the graphs compare node
   for node).
@@ -27,14 +30,18 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .. import ops
 from ..quant import act_codes, fake_quant_act
+from .build import SMEM_BLOCK, SMEM_SM, SMS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _F32 = dict(dtype=torch.float32)
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -88,12 +95,12 @@ def fused_qact_matmul(x, w, bias, alpha_act, qlvl_act: int):
     x: (M, K) float32 or bfloat16; w: (K, N) float32 (post-PTQ quantized
     values, or fake-quantized in fq mode); bias: (N,) or None.  Returns
     (M, N) float32."""
+    if x.is_cuda:
+        return _launch_f32(x, w, bias, alpha_act, qlvl_act)
     if x.device.type == "cpu":
         return fused_qact_matmul_reference(x, w, bias, alpha_act, qlvl_act)
-    if x.device.type != "cuda":
-        raise ValueError(f"K4 runs on CUDA or (plain) CPU tensors, got "
-                         f"{x.device}")
-    return _launch_f32(x, w, bias, alpha_act, qlvl_act)
+    raise ValueError(f"K4 runs on CUDA or (plain) CPU tensors, got "
+                     f"{x.device}")
 
 
 fused_qact_matmul.launches = 0
@@ -156,30 +163,144 @@ def _int8_lib():
                 [_P] * 6 + [_I] * 5 + [_P])
 
 
+class _K4Call(ctypes.Structure):
+    """One K4 call's shape and plan, laid out as ``K4Call`` of
+    ``csrc/qmatmul_f32.cu``."""
+    _fields_ = [("M", _I), ("K", _I), ("N", _I), ("delta", _F),
+                ("x_bf16", _I), ("nc", _I), ("rn", _I), ("grid_x", _I)]
+
+
+@functools.lru_cache(maxsize=None)
 def _f32_lib():
     return _lib("qmatmul_f32.cu", "qmatmul_f32_launch",
-                [_P] * 5 + [_I] * 3 + [ctypes.c_float, _I, _P])
+                [_P] * 4 + [_F, _P, ctypes.POINTER(_K4Call), _P])
 
 
-def _check_x(x, what):
-    """x as a contiguous, 16-byte aligned 2-d float32/bfloat16 tensor."""
+# K4's fixed sizes (csrc/qmatmul_f32.cu): threads per block, K per step
+_K4_THREADS, _K4_BK = 256, 32
+# a thread's tile of y, 4 rows by RN quads of columns, and its FMA rate
+# relative to 4 x 8 (fewer FMAs per float4 operand read from shared
+# memory).  An 8 x 4 tile measured 1-4 % slower than 4 x 8 at the flagship
+# shapes (scripts/k4_timing.py --sweep) and was dropped.
+_K4_TILES = {2: 1.0, 1: 0.8}
+
+
+class K4Plan(NamedTuple):
+    nc: int                 # columns of y per block (a column chunk)
+    rn: int                 # column quads per thread
+    bm: int                 # rows per tile
+    grid: Tuple[int, int]   # (persistent blocks per chunk, column chunks)
+    threads: int            # per block
+    smem: int               # dynamic shared memory per block, bytes
+
+
+def _k4_smem(k, nc, bm, elt):
+    """Shared memory of one K4 block, as the launch computes it: the
+    chunk's weights (K rounded up to 32 rows), two fake-quantized k-major
+    tiles and two slices of raw x rows (32 elements + 16 bytes each)."""
+    kp = -(-k // _K4_BK) * _K4_BK
+    raw = -(-(bm * (_K4_BK * elt + 16)) // 128) * 128
+    return 4 * kp * nc + 8 * _K4_BK * bm + 2 * raw
+
+
+def _k4_candidates(m, k, n, bf16):
+    """Every tiling K4 takes for one call, as ((work, column chunks,
+    -quads), K4Plan) pairs: ``nc`` a power of two from 32 to 256 no wider
+    than N needs, each thread tile of ``_K4_TILES``, shared memory within
+    a block.  Work is the busiest SM's: the waves of tiles times chunks
+    over the SMs (two blocks at once per SM where shared memory allows),
+    each tile's bm x nc x K FMAs at the tile's rate."""
+    elt = 2 if bf16 else 4
+    kp = -(-k // _K4_BK) * _K4_BK
+    widest = max(32, 1 << (n - 1).bit_length())
+    for nc in (32, 64, 128, 256):
+        if nc > widest:
+            break
+        chunks = -(-n // nc)
+        for rn, rate in _K4_TILES.items():
+            tx = nc // (4 * rn)
+            bm = (_K4_THREADS // tx) * 4
+            smem = _k4_smem(k, nc, bm, elt)
+            if smem > SMEM_BLOCK:
+                continue
+            tiles = -(-m // bm)
+            per_sm = max(1, min(2, SMEM_SM // (smem + 1024)))
+            # an SM needs two blocks to hide its latencies: one block alone
+            # runs a wave in the time two take together
+            waves = -(-tiles * chunks // (SMS * per_sm))
+            work = waves * bm * nc * kp / rate
+            gx = min(tiles, max(1, SMS * per_sm // chunks))
+            yield ((work, chunks, -rn),
+                   K4Plan(nc, rn, bm, (gx, chunks), _K4_THREADS, smem))
+
+
+@functools.lru_cache(maxsize=1024)
+def _k4_plan(m, k, n, bf16) -> K4Plan:
+    """K4's tiling of one call, as the launch takes it.
+
+    A block owns ``nc`` columns and walks row tiles of ``bm`` rows; each
+    thread holds 4 x (4 rn) sums.  Of ``_k4_candidates``, the one with
+    the least work on the busiest SM wins, then the one with fewer column
+    chunks (x read fewer times), then the larger thread tile.  ``grid[0]``
+    is as many blocks per chunk as the SMs hold at once (persistent
+    blocks), at most one per tile.  Raises when even a 32-column chunk's
+    weights do not fit a block."""
+    best = min(_k4_candidates(m, k, n, bf16), key=lambda c: c[0],
+               default=None)
+    if best is None:
+        raise ValueError(f"K4 keeps a block's weights in shared memory: "
+                         f"K = {k} rows of 32 columns do not fit")
+    return best[1]
+
+
+def _check_x(x, what, aligned=True):
+    """x as a contiguous 2-d float32/bfloat16 tensor; with ``aligned``, one
+    whose data starts on a 16-byte boundary (a copy if it does not)."""
     if x.dim() != 2 or x.dtype not in _X_DTYPES or x.numel() == 0:
         raise ValueError(f"{what} needs a non-empty (M, K) float32 or "
                          f"bfloat16 x, got {x.dtype} {tuple(x.shape)}")
     x = x.contiguous()
-    return x.clone() if x.data_ptr() % 16 else x
+    return x.clone() if aligned and x.data_ptr() % 16 else x
 
 
-def _vector(v, n, dev, what):
-    """A contiguous (n,) float32 vector on ``dev``, or None."""
+def _vector(v, n, like, what):
+    """A contiguous (n,) float32 vector on the device of tensor ``like``, or
+    None: ``v`` itself when it is one already."""
     if v is None:
         return None
-    v = torch.as_tensor(v, device=dev, **_F32)
+    if (isinstance(v, torch.Tensor) and v.dtype == torch.float32
+            and v.get_device() == like.get_device() and v.shape == (n,)
+            and v.is_contiguous()):
+        return v
+    v = torch.as_tensor(v, device=like.device, **_F32)
     if v.dim() == 0:
         v = v.expand(n)
     if tuple(v.shape) != (n,):
         raise ValueError(f"{what} {tuple(v.shape)} != ({n},)")
     return v.contiguous()
+
+
+def _alpha(alpha, like):
+    """(float32 tensor or None, value) of the activation clip: a one-element
+    tensor on the device of tensor ``like`` passes by pointer (its value
+    stays on the card), anything else by value, so no tensor is made from a
+    number."""
+    if isinstance(alpha, torch.Tensor):
+        if alpha.numel() != 1:
+            raise ValueError(f"alpha_act {tuple(alpha.shape)}: one value")
+        if alpha.get_device() == like.get_device():
+            return (alpha if alpha.dtype == torch.float32 else alpha.float(),
+                    0.0)
+    return None, float(alpha)
+
+
+def _on_device(index, fn, *args):
+    """fn(*args, the current stream of CUDA device ``index``), with the
+    device made current only when it is not."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act):
@@ -193,8 +314,8 @@ def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act):
                          f"fit x {tuple(x.shape)}")
     n = w_codes.shape[1]
     w_codes = w_codes.contiguous()
-    scale_v = _vector(scale, n, dev, "scale")
-    bias_v = _vector(bias, n, dev, "bias")
+    scale_v = _vector(scale, n, x, "scale")
+    bias_v = _vector(bias, n, x, "bias")
     if not 2 <= int(qlvl_act) <= 128:
         raise ValueError(f"qlvl_act {qlvl_act}: int8 codes need 2..128")
     alpha = torch.as_tensor(alpha_act, device=dev, **_F32).reshape(1)
@@ -211,31 +332,45 @@ def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act):
     return y
 
 
-def _launch_f32(x, w, bias, alpha_act, qlvl_act):
-    dev = x.device
-    x = _check_x(x, "K4")
+@functools.lru_cache(maxsize=1024)
+def _k4_call(m, k, n, bf16, qlvl, plan=None):
+    """The launch's ``_K4Call``: the shape, delta, x_bf16 and ``plan`` (by
+    default ``_k4_plan``'s).  delta is rounded once, from the double
+    1 / (qlvl - 1), as the JAX kernel's Python float enters its float32
+    arithmetic."""
+    if qlvl < 2:
+        raise ValueError(f"qlvl_act {qlvl}: need at least 2 levels")
+    plan = plan or _k4_plan(m, k, n, bf16)
+    return _K4Call(m, k, n, 1.0 / (qlvl - 1), int(bf16), plan.nc, plan.rn,
+                   plan.grid[0])
+
+
+def _launch_f32(x, w, bias, alpha_act, qlvl_act, plan=None):
+    """K4 on the card, with ``plan`` (by default ``_k4_plan``'s).  Lean on
+    the host: device indices, not device objects; the shape and plan passed
+    as one cached struct; alpha and bias taken as they are when they are
+    already on the card as float32."""
+    x = _check_x(x, "K4", aligned=False)  # the kernel stages any alignment
+    index = x.get_device()
     m, k = x.shape
     if (w.dtype != torch.float32 or w.dim() != 2 or w.shape[0] != k
-            or w.device != dev):
+            or w.get_device() != index):
         raise ValueError(f"weights {w.dtype} {tuple(w.shape)} on {w.device} "
-                         f"do not fit x {tuple(x.shape)}")
+                         f"do not fit x {tuple(x.shape)} on {x.device}")
     n = w.shape[1]
     w = w.contiguous()
-    bias_v = _vector(bias, n, dev, "bias")
-    if int(qlvl_act) < 2:
-        raise ValueError(f"qlvl_act {qlvl_act}: need at least 2 levels")
-    alpha = torch.as_tensor(alpha_act, device=dev, **_F32).reshape(1)
-    y = torch.empty((m, n), device=dev, **_F32)
-    with torch.cuda.device(dev):
-        # delta rounded once, from the double 1 / (n - 1), as the JAX
-        # kernel's Python float enters its float32 arithmetic
-        rc = _f32_lib()(x.data_ptr(), w.data_ptr(),
-                        None if bias_v is None else bias_v.data_ptr(),
-                        alpha.data_ptr(), y.data_ptr(), m, k, n,
-                        1.0 / (int(qlvl_act) - 1),
-                        int(x.dtype == torch.bfloat16),
-                        torch.cuda.current_stream(dev).cuda_stream)
+    bias_v = _vector(bias, n, x, "bias")
+    alpha, alpha_v = _alpha(alpha_act, x)
+    call = _k4_call(m, k, n, x.dtype == torch.bfloat16, int(qlvl_act), plan)
+    y = x.new_empty((m, n), dtype=torch.float32)
+    rc = _on_device(index, _f32_lib(), x.data_ptr(), w.data_ptr(),
+                    None if bias_v is None else bias_v.data_ptr(),
+                    None if alpha is None else alpha.data_ptr(), alpha_v,
+                    y.data_ptr(), call)
     if rc != 0:
-        raise RuntimeError(f"K4 launch failed: cudaError_t {rc}")
+        raise RuntimeError(
+            f"K4 launch failed: cudaError_t {rc} ("
+            + ", ".join(f"{f} {getattr(call, f)}" for f, _ in call._fields_)
+            + ")")
     fused_qact_matmul.launches += 1
     return y

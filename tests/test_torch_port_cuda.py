@@ -440,6 +440,143 @@ def test_cuda_k4_matches_plain(case, cuda):
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
+# K4 cases at the edges of its tiling (run on the card only): (M, K, N, x
+# dtype, bias, layout).  M is a number or "tile-1" / "tile+1", one row short
+# of or past the plan's row tile.  Layout "slice": x is a column slice of an
+# (M, K + 1) array; "offset": a contiguous x whose data starts 1 element
+# past an allocation (the element-load staging); "zero-row": rows of x at
+# or below 0, clipped to 0 by alpha, so their y is the bias.
+K4_CASES = [
+    (1, 1, 1, "f32", True, ""),
+    (1, 12, 3, "bf16", False, ""),
+    ("tile-1", 32, 32, "bf16", True, ""),
+    ("tile+1", 64, 32, "f32", False, "zero-row"),
+    ("tile-1", 64, 64, "f32", True, ""),
+    ("tile+1", 32, 64, "bf16", True, "zero-row"),
+    (4097, 128, 256, "bf16", True, ""),
+    (4097, 256, 128, "f32", False, ""),
+    ("tile+1", 128, 128, "bf16", False, "slice"),
+    (4097, 264, 264, "f32", True, "slice"),
+    (4097, 12, 256, "bf16", True, ""),
+    ("tile-1", 264, 3, "bf16", True, "zero-row"),
+    (4097, 1, 64, "f32", True, ""),
+    (1, 256, 264, "bf16", False, "slice"),
+    ("tile+1", 128, 1, "f32", True, "offset"),
+    (4097, 64, 128, "bf16", True, "offset"),
+    ("tile-1", 256, 256, "f32", False, "offset"),
+    (4097, 32, 32, "f32", False, ""),
+]
+
+
+def k4_case(m, k, n, dtype, with_bias, layout, device, seed=0):
+    """The inputs of one K4 call on ``device``: (x, w, bias, alpha)."""
+    bf16 = dtype == "bf16"
+    if isinstance(m, str):
+        bm = KM._k4_plan(1 << 20, k, n, bf16).bm
+        m = bm - 1 if m == "tile-1" else bm + 1
+    rng = np.random.RandomState(seed + k + n)
+    x = (rng.randn(m, k + 1) * 0.7).astype(np.float32)
+    if layout == "zero-row":
+        x[0] = -np.abs(x[0])
+        x[m // 2] = 0.0
+    dt = torch.bfloat16 if bf16 else torch.float32
+    full = torch.from_numpy(x).to(device, dt)
+    if layout == "slice":
+        x = full[:, 1:]
+    elif layout == "offset":
+        x = full.reshape(-1)[1:m * k + 1].view(m, k)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    else:
+        x = full[:, :k].contiguous()
+    w = torch.from_numpy((rng.randn(k, n) * 0.2).astype(np.float32))
+    b = torch.from_numpy(rng.randn(n).astype(np.float32))
+    return (x, w.to(device), b.to(device) if with_bias else None,
+            torch.tensor(1.1, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_CASES,
+                         ids=["-".join(map(str, c)).rstrip("-")
+                              for c in K4_CASES])
+def test_cuda_k4_tiles_match_plain(case, cuda):
+    x, w, b, alpha = k4_case(*case, device=cuda)
+    before = KM.fused_qact_matmul.launches
+    got = KM.fused_qact_matmul(x, w, b, alpha, NA)
+    ref = KM.fused_qact_matmul_reference(x, w, b, alpha, NA)
+    torch.cuda.synchronize()
+    assert KM.fused_qact_matmul.launches == before + 1
+    assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    if case[-1] == "zero-row":  # clipped to 0: the bias (or 0) exactly
+        want = torch.zeros_like(got[0]) if b is None else b
+        assert torch.equal(got[0], want)
+        assert torch.equal(got[x.shape[0] // 2], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1500, 64, 32, "bf16", True, ""),
+                                  (1500, 32, 64, "f32", False, "slice"),
+                                  (700, 128, 256, "bf16", True, ""),
+                                  (700, 256, 128, "f32", True, "offset")],
+                         ids=["64x32", "32x64", "128x256", "256x128"])
+def test_cuda_k4_every_tiling_matches_plain(case, cuda):
+    """Every tiling that the plan chooses among, not only its choice."""
+    x, w, b, alpha = k4_case(*case, device=cuda)
+    ref = KM.fused_qact_matmul_reference(x, w, b, alpha, NA)
+    m, k = x.shape
+    plans = [p for _, p in KM._k4_candidates(m, k, w.shape[1],
+                                             x.dtype == torch.bfloat16)]
+    assert len(plans) >= 2
+    for plan in plans:
+        got = KM._launch_f32(x, w, b, alpha, NA, plan=plan)
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qlvl,alpha", [(2, 1.1), (4, 1.1), (4, 0.37),
+                                        (16, 2.5), (255, 0.9), (256, 0.9),
+                                        (300, 1.3), (4, -0.8)])
+def test_cuda_k4_fake_quant_is_exact(qlvl, alpha, cuda):
+    """With identity weights y is fq(x) itself: equal to the plain
+    fake-quant bit for bit (up to the sign of zero) for x at and one float
+    either side of every code's tie, at the clip, and random: 2 and 4
+    levels by thresholds, more levels or a negative alpha by the divides."""
+    from efficientq_tpu_torch.quant import fake_quant_act
+
+    rng = np.random.RandomState(qlvl)
+    d = np.float32(1.0 / (qlvl - 1))
+    mids = (np.arange(qlvl, dtype=np.float32) + np.float32(0.5)) * d
+    mids = (mids * np.float32(abs(alpha))).astype(np.float32)
+    near = np.concatenate([np.nextafter(mids, -np.inf), mids,
+                           np.nextafter(mids, np.inf)])
+    edges = np.float32([0.0, -0.0, abs(alpha), -abs(alpha), 1e-38, 3e38,
+                        np.inf, -np.inf, np.nan])
+    x = np.concatenate([near, edges, (rng.randn(4096) * abs(alpha))
+                        .astype(np.float32)])
+    x = np.resize(x, (-(-x.size // 64), 64)).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda)
+    a = torch.tensor(alpha, device=cuda)
+    y = KM.fused_qact_matmul(xt, torch.eye(64, device=cuda), None, a, qlvl)
+    want = fake_quant_act(xt, a, qlvl)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(xt)  # the kernel's clip takes NaN to code 0
+    assert torch.equal(y[finite], want[finite])
+    assert not bool(torch.isnan(y).any())
+
+
+@pytest.mark.cuda
+def test_cuda_k4_alpha_by_value_and_on_the_card(cuda):
+    """alpha as a Python number, a CPU tensor and a card tensor of another
+    dtype: the same y."""
+    x, w, b, alpha = k4_case(700, 32, 64, "bf16", True, "", device=cuda)
+    ys = [KM.fused_qact_matmul(x, w, b, a, NA)
+          for a in (1.1, torch.tensor(1.1), alpha,
+                    alpha.double().reshape(1))]
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+
+
 @pytest.mark.cuda
 def test_cuda_qmatmul_rejects_mismatched_shapes(cuda):
     x = torch.zeros(8, 12, device=cuda)

@@ -20,6 +20,7 @@ import torch
 from efficientq_tpu.pallas.qconv3d import _xla_qconv3x3
 from efficientq_tpu.pallas.qconv3d import qconv3x3_int8_ndhwc as jax_k1
 from efficientq_tpu_torch.kernels import qconv3d as K
+from efficientq_tpu_torch.kernels.build import SMEM_BLOCK, SMS
 from test_torch_port_cuda import CASES, NA, make_case, run_port
 
 
@@ -106,7 +107,7 @@ def test_tile_plan_covers_each_output_once(case):
     assert (bz, by) in K._BRICKS and bx == 8
     assert plan.threads == bz * by * bx and plan.threads % 32 == 0
     assert plan.smem == K._smem_bytes(plan.brick, c, dil)
-    assert plan.smem <= K._SMEM_BLOCK
+    assert plan.smem <= SMEM_BLOCK
     assert 1 <= gx <= plan.n_bricks == int(np.prod(plan.bricks))
     assert gy * plan.bn >= o > (gy - 1) * plan.bn
     owned = np.zeros((n, d, h, w), np.int32)
@@ -123,10 +124,10 @@ def test_tile_plan_fills_the_card_at_the_flagship():
     twice over and are the largest bricks, and the widest convs still
     spread over every SM."""
     big = K._tile_plan(8, 64, 64, 64, 32, 32, 1)
-    assert big.brick == (4, 8, 8) and big.grid[0] >= 2 * K._SMS
+    assert big.brick == (4, 8, 8) and big.grid[0] >= 2 * SMS
     for n in (2, 8):
         plan = K._tile_plan(n, 8, 8, 8, 256, 256, 1)
-        assert plan.grid[0] * plan.grid[1] >= K._SMS
+        assert plan.grid[0] * plan.grid[1] >= SMS
 
 
 def test_wrapper_dispatches_by_device():

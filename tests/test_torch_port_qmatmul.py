@@ -106,6 +106,81 @@ def test_plain_k4_matches_jax(case):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("k,n", [(128, 256), (64, 32)])
+def test_plain_k4_matches_jax_at_flagship_widths(k, n):
+    """The widest (TransDown3) and narrowest (TransUp6) flagship 1x1
+    widths, bf16 x with bias."""
+    c = matmul_case(300, k, n, "bf16", False, True)
+    got = K.fused_qact_matmul(_tx(c), _t(c["w"]), _t(c["bias"]),
+                              _t(c["alpha"]), NA).numpy()
+    want = np.asarray(jqm.fused_qact_matmul(
+        _jx(c), jnp.asarray(c["w"]), _j(c["bias"]), c["alpha"], NA,
+        tile_m=64, interpret=True))
+    assert got.shape == want.shape == (300, n)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# the flagship's six transition 1x1 convs (voxels per 128^3 patch, K, N)
+FLAGSHIP_1X1 = [(32768, 32, 64), (4096, 64, 128), (512, 128, 256),
+                (512, 256, 128), (4096, 128, 64), (32768, 64, 32)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("shape", FLAGSHIP_1X1,
+                         ids=["x".join(map(str, s)) for s in FLAGSHIP_1X1])
+def test_k4_plan_fills_the_card_and_covers_n(shape, batch, bf16):
+    per_patch, k, n = shape
+    m = per_patch * batch
+    plan = K._k4_plan(m, k, n, bf16)
+    tiles = -(-m // plan.bm)
+    gx, chunks = plan.grid
+    # persistent blocks: enough to fill 132 SMs, or one per row tile
+    assert gx * chunks >= 132 or gx == tiles
+    assert 1 <= gx <= tiles
+    assert plan.smem <= 232448 and plan.threads == 256
+    # the column chunks cover N exactly, each by whole thread quads
+    assert chunks == -(-n // plan.nc) and (chunks - 1) * plan.nc < n
+    tx = plan.nc // (4 * plan.rn)
+    assert 256 % tx == 0 and plan.bm == (256 // tx) * 4
+    # no thread owns only columns past N: at N = 32 a block is 32 wide
+    assert plan.nc <= max(32, n)
+
+
+def test_k4_plan_edges():
+    """Remainder widths take the narrowest chunk that holds them; a K
+    whose 32-column weights overflow a block raises."""
+    assert K._k4_plan(1, 1, 1, False).nc == 32
+    plan = K._k4_plan(4097, 264, 264, False)
+    assert plan.nc * plan.grid[1] >= 264 and plan.smem <= 232448
+    assert all(p.smem <= 232448 for _, p in K._k4_candidates(4097, 264,
+                                                               264, True))
+    with pytest.raises(ValueError, match="K = 4000"):
+        K._k4_plan(64, 4000, 8, False)
+
+
+def test_k4_vector_and_alpha_pass_through():
+    """The wrapper's helpers copy nothing that is already in the kernel's
+    form and make no tensor from a number."""
+    b = torch.randn(5)
+    assert K._vector(b, 5, b, "bias") is b
+    assert torch.equal(K._vector(2.0, 3, b, "scale"), torch.full((3,), 2.0))
+    alpha = torch.tensor(0.9)
+    assert K._alpha(alpha, b)[0] is alpha
+    assert K._alpha(0.9, b) == (None, 0.9)
+    with pytest.raises(ValueError, match="one value"):
+        K._alpha(torch.ones(2), b)
+    call = K._k4_call(700, 32, 64, True, 4)
+    plan = K._k4_plan(700, 32, 64, True)
+    assert call is K._k4_call(700, 32, 64, True, 4)  # cached
+    assert ((call.M, call.K, call.N, call.x_bf16, call.nc, call.rn,
+             call.grid_x)
+            == (700, 32, 64, 1, plan.nc, plan.rn, plan.grid[0]))
+    assert call.delta == np.float32(1 / 3)
+    with pytest.raises(ValueError, match="at least 2"):
+        K._k4_call(700, 32, 64, True, 1)
+
+
 def test_qconv1x1_matches_jax():
     rng = np.random.RandomState(1)
     x = np.abs(rng.randn(2, 4, 5, 6, 8)).astype(np.float32)
