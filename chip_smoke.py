@@ -62,10 +62,12 @@ Phases, each printed on its own lines:
    versions and one library call each (``torch._int_mm`` on the codes for
    K3, float32 ``torch.addmm`` with TF32 off on the fake-quantized x for
    K4), and the bounds (bytes over 3.35 TB/s against operations over the
-   int8 tensor-core or the float32 non-tensor peak).  K4 and
-   ``torch.addmm`` also as device time alone (CUDA graph replay), the
-   difference printed as the host's time per call; K4 per call in three
-   rounds (min / median / max, its same-card spread); K4's plan per shape.
+   int8 tensor-core or the float32 non-tensor peak).  K3 (with weights
+   packed as the deployment packs them), K4 and their library calls also
+   as device time alone (CUDA graph replay of 10 calls), the difference
+   printed as the host's time per call; each kernel per call in three
+   rounds (min / median / max, its same-card spread); each kernel's plan
+   per shape.
 6. the ``include_1x1`` serving paths on the same net and volumes:
    (a) the int8 deployment with the 1x1 convs flagged, on the int8
    float32 path: 14 K1 and 6 K3 launches per forward, predictions equal
@@ -83,8 +85,8 @@ Phases, each printed on its own lines:
    printed.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
-path (phases 2 and 4, and path (c) of phase 6): wall time, device time
-and the kernels by device time.
+path (phases 2 and 4, and paths (b) and (c) of phase 6): wall time,
+device time and the kernels by device time.
 
 Then one JSON line describing each kernel of the paths, the card's
 nvidia-smi line, and the result line.  With no CUDA device, or when any
@@ -130,7 +132,7 @@ AGREE_PLAIN_S2D = 0.99
 # K4 against its plain version (float32 sums in another order) on the
 # paths of phase 6 (c) and (d): the same amplification of code flips
 AGREE_PLAIN_K4 = 0.99
-K4_ROUNDS = 3  # phase 5 times K4 this many times (its same-card spread)
+ROUNDS = 3  # phase 5 times K3 and K4 this many times (the same-card spread)
 # the flagship's six transition 1x1 convs: (name, voxels per 128^3 patch,
 # K, N)
 ONE_BY_ONE = [("TransDown1", 32768, 32, 64), ("TransDown2", 4096, 64, 128),
@@ -226,16 +228,18 @@ def _median_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
-def _graph_ms(fn, reps=20, rounds=5):
-    """Device time of one call of fn: fn captured once in a CUDA graph,
-    the graph replayed ``reps`` times between two events (no Python
-    between the launches), median over ``rounds``."""
+def _graph_ms(fn, calls=10, reps=4, rounds=5):
+    """Device time of one call of fn: ``calls`` calls of fn captured in
+    one CUDA graph, the graph replayed ``reps`` times between two events
+    (no Python between the launches, and the host's time to launch a
+    graph spread over ``calls`` kernels), median over ``rounds``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     times = []
     for _ in range(rounds):
@@ -247,7 +251,7 @@ def _graph_ms(fn, reps=20, rounds=5):
             graph.replay()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
+        times.append(start.elapsed_time(end) / (reps * calls))
     del graph
     return statistics.median(times)
 
@@ -867,19 +871,31 @@ def phase4(seed: int, served):
     return k1, k2, infer, preds
 
 
-def _int_mm_ms(qa, codes):
-    """``torch._int_mm`` (cuBLASLt int8 GEMM, int32 out) on the codes, or
-    None where this build refuses the shape or layout."""
+def _int_mm_call(qa, codes):
+    """A call of ``torch._int_mm`` (cuBLASLt int8 GEMM, int32 out) on the
+    codes, or None where this build refuses the shape or layout."""
     for b in (codes, codes.t().contiguous().t()):
         try:
             torch._int_mm(qa, b)
         except RuntimeError as e:
             err = str(e).splitlines()[0]
             continue
-        return _median_ms(lambda: torch._int_mm(qa, b))
+        return lambda: torch._int_mm(qa, b)
     print(f"[phase5]   torch._int_mm refused {tuple(qa.shape)} x "
           f"{tuple(codes.shape)}: {err}", flush=True)
     return None
+
+
+def _plan_line(key, m, k, n, bf16):
+    """The plan of K3 or K4 at one shape, as printed."""
+    from efficientq_tpu_torch.kernels import qmatmul as KM
+
+    if key == "k3":
+        p = KM._k3_plan(m, k, n, bf16)
+        return (f"bm={p.bm} nc={p.nc} mt={p.mt} nt={p.nt} wn={p.wn} "
+                f"stages={p.stages} grid={p.grid} smem={p.smem}")
+    p = KM._k4_plan(m, k, n, bf16)
+    return f"nc={p.nc} rn={p.rn} bm={p.bm} grid={p.grid} smem={p.smem}"
 
 
 def phase5(seed: int):
@@ -896,22 +912,23 @@ def phase5(seed: int):
     out = {}
     for batch, dt in ((N_BATCH, torch.float32), (S2D_BATCH, torch.bfloat16)):
         tot = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                         t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+                         t_bytes=0.0, t_ops=0.0, max_abs_err=0.0,
+                         graph_ms=0.0, graph_library_ms=0.0,
+                         rounds=[0.0] * ROUNDS)
                for key in ("k3", "k4")}
-        tot["k4"].update(graph_ms=0.0, graph_library_ms=0.0,
-                         rounds=[0.0] * K4_ROUNDS)
         for name, per_patch, k, n in ONE_BY_ONE:
             m = per_patch * batch
             x = (torch.randn(m, k, device=dev, generator=gen) * 0.7).to(dt)
             codes = (2 * torch.randint(0, 4, (k, n), device=dev,
                                        generator=gen) - 3).to(torch.int8)
+            wp = KM.pack_weights_1x1(codes)  # as the deployment packs it
             w = torch.randn(k, n, device=dev, generator=gen) * 0.1
             b = torch.randn(n, device=dev, generator=gen)
             scales = {"per-tensor": torch.tensor(0.05, device=dev),
                       "per-channel": torch.rand(n, device=dev,
                                                 generator=gen) * 0.05}
             for kind, sc in scales.items():
-                args = (x, codes, b, alpha, sc, 4)
+                args = (x, codes, b, alpha, sc, 4, wp)
                 got = KM.fused_int8_matmul(*args)
                 ref = KM.fused_int8_matmul_reference(*args)
                 torch.cuda.synchronize()
@@ -928,83 +945,85 @@ def phase5(seed: int):
                   f" > {tol}")
             tot["k4"]["max_abs_err"] = max(tot["k4"]["max_abs_err"], err)
             del got, ref
-            args = (x, codes, b, alpha, scales["per-tensor"], 4)
+            args = (x, codes, b, alpha, scales["per-tensor"], 4, wp)
             qa = act_codes(x, alpha, 4)
             xq = fake_quant_act(x, alpha, 4)
             xbytes = x.element_size() * m * k
-            # K4 per call in K4_ROUNDS rounds (the same-card spread), and
-            # K4 and addmm as device time alone (CUDA graph replay)
-            k4_rounds = [_median_ms(lambda: KM.fused_qact_matmul(*args4))
-                         for _ in range(K4_ROUNDS)]
-            g4 = _graph_ms(lambda: KM.fused_qact_matmul(*args4))
-            gl4 = _graph_ms(lambda: torch.addmm(b, xq, w))
-            times = {
-                "k3": (_median_ms(lambda: KM.fused_int8_matmul(*args)),
-                       _median_ms(lambda: KM.fused_int8_matmul_reference(
-                           *args)),
-                       _int_mm_ms(qa, codes),
-                       _bound(xbytes + k * n + 8 * n + 4 * m * n, 2 * m * k * n,
-                              INT8_OPS)),
-                "k4": (statistics.median(k4_rounds),
-                       _median_ms(lambda: KM.fused_qact_matmul_reference(
-                           *args4)),
-                       _median_ms(lambda: torch.addmm(b, xq, w)),
+            # per kernel: (kernel, plain version, library call or None,
+            # bound); per call in ROUNDS rounds (the same-card spread),
+            # and kernel and library call as device time alone (CUDA
+            # graph replay)
+            calls = {
+                "k3": (lambda: KM.fused_int8_matmul(*args),
+                       lambda: KM.fused_int8_matmul_reference(*args),
+                       _int_mm_call(qa, codes),
+                       _bound(xbytes + k * n + 8 * n + 4 * m * n,
+                              2 * m * k * n, INT8_OPS)),
+                "k4": (lambda: KM.fused_qact_matmul(*args4),
+                       lambda: KM.fused_qact_matmul_reference(*args4),
+                       lambda: torch.addmm(b, xq, w),
                        _bound(xbytes + 4 * k * n + 4 * n + 4 * m * n,
                               2 * m * k * n, FP32_OPS))}
-            t4 = tot["k4"]
-            t4["graph_ms"] += g4
-            t4["graph_library_ms"] += gl4
-            for r, ms in enumerate(k4_rounds):
-                t4["rounds"][r] += ms
-            plan = KM._k4_plan(m, k, n, dt == torch.bfloat16)
-            for key, (tk, tp, tl, (bound, by)) in times.items():
+            for key, (fn, plain, lib, (bound, by)) in calls.items():
                 t = tot[key]
+                rounds = [_median_ms(fn) for _ in range(ROUNDS)]
+                tk = statistics.median(rounds)
+                tp = _median_ms(plain)
+                tl = None if lib is None else _median_ms(lib)
+                gk = _graph_ms(fn)
+                gl = None if lib is None else _graph_ms(lib)
                 t["ms"] += tk
                 t["plain_ms"] += tp
-                t["library_ms"] = (None if tl is None or t["library_ms"] is None
-                                   else t["library_ms"] + tl)
+                for r, ms in enumerate(rounds):
+                    t["rounds"][r] += ms
+                for field, v in (("library_ms", tl), ("graph_library_ms", gl)):
+                    t[field] = (None if v is None or t[field] is None
+                                else t[field] + v)
+                t["graph_ms"] += gk
                 t["bound_ms"] += bound
                 peak = INT8_OPS if key == "k3" else FP32_OPS
                 t["t_bytes"] += (bound if by == "bytes" else 0.0)
                 t["t_ops"] += (bound if by == "operations" else 0.0)
-                lib = "n/a" if tl is None else f"{tl:.4f} ms"
+                lib_name = "_int_mm" if key == "k3" else "addmm"
+                lib_s = ("n/a" if tl is None else
+                         f"{tl:.4f} ms, device {gl:.4f} ms (host per call "
+                         f"{tl - gl:.4f} ms)")
                 print(f"[phase5] {key.upper()} {name} B={batch} {dt} M={m} "
                       f"K={k} N={n}: kernel {tk:.4f} ms  plain {tp:.4f} ms  "
-                      f"library {lib}  bound {bound:.4f} ms ({by}; peak "
+                      f"library {lib_s}  bound {bound:.4f} ms ({by}; peak "
                       f"{peak / 1e12:.0f} T/s)", flush=True)
-            print(f"[phase5]   K4 per call over {K4_ROUNDS} rounds min / "
-                  f"median / max {min(k4_rounds):.4f} / "
-                  f"{statistics.median(k4_rounds):.4f} / "
-                  f"{max(k4_rounds):.4f} ms; device time (CUDA graph replay)"
-                  f" K4 {g4:.4f} ms ({times['k4'][3][0] / g4:.1%} of the "
-                  f"bound), addmm {gl4:.4f} ms; host per call (per call - "
-                  f"device) K4 {times['k4'][0] - g4:.4f} ms, addmm "
-                  f"{times['k4'][2] - gl4:.4f} ms; plan nc={plan.nc} "
-                  f"rn={plan.rn} bm={plan.bm} grid={plan.grid} "
-                  f"smem={plan.smem}", flush=True)
-            del x, qa, xq
+                print(f"[phase5]   {key.upper()} per call over {ROUNDS} "
+                      f"rounds min / median / max {min(rounds):.4f} / "
+                      f"{tk:.4f} / {max(rounds):.4f} ms; device time (CUDA "
+                      f"graph replay) {gk:.4f} ms ({bound / gk:.1%} of the "
+                      f"bound; {lib_name} "
+                      f"{'n/a' if gl is None else f'{gl:.4f} ms'}); host per "
+                      f"call (per call - device) {tk - gk:.4f} ms; plan "
+                      f"{_plan_line(key, m, k, n, dt == torch.bfloat16)}",
+                      flush=True)
+            del x, qa, xq, wp
         for key in ("k3", "k4"):
             t = tot[key]
             t["bound_by"] = ("bytes" if t.pop("t_bytes") >= t.pop("t_ops")
                              else "operations")
-            lib = ("n/a" if t["library_ms"] is None
-                   else f"{t['library_ms']:.4f} ms")
+            rounds = t.pop("rounds")
+            t.update(rounds_min_ms=min(rounds), rounds_max_ms=max(rounds))
+            lib_name = "_int_mm" if key == "k3" else "addmm"
+            lib = ("n/a" if t["library_ms"] is None else
+                   f"{t['library_ms']:.4f} ms, device "
+                   f"{t['graph_library_ms']:.4f} ms, host per call "
+                   f"{t['library_ms'] - t['graph_library_ms']:.4f} ms")
             print(f"[phase5] {key.upper()} one forward's six 1x1 convs at "
-                  f"B={batch} {dt}: kernel {t['ms']:.4f} ms, plain "
-                  f"{t['plain_ms']:.4f} ms, library {lib}, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
-        t = tot["k4"]
-        rounds = t.pop("rounds")
-        t.update(rounds_min_ms=min(rounds), rounds_max_ms=max(rounds))
-        print(f"[phase5] K4 one forward's six 1x1 convs at B={batch} {dt}: "
-              f"per call over {K4_ROUNDS} rounds min / median / max "
-              f"{min(rounds):.4f} / {statistics.median(rounds):.4f} / "
-              f"{max(rounds):.4f} ms; device time K4 {t['graph_ms']:.4f} ms "
-              f"({t['bound_ms'] / t['graph_ms']:.1%} of the bound), addmm "
-              f"{t['graph_library_ms']:.4f} ms; host per call K4 "
-              f"{t['ms'] - t['graph_ms']:.4f} ms, addmm "
-              f"{t['library_ms'] - t['graph_library_ms']:.4f} ms (six "
-              f"calls)", flush=True)
+                  f"B={batch} {dt}: kernel {t['ms']:.4f} ms per call (over "
+                  f"{ROUNDS} rounds min / median / max {min(rounds):.4f} / "
+                  f"{statistics.median(rounds):.4f} / {max(rounds):.4f}), "
+                  f"device {t['graph_ms']:.4f} ms "
+                  f"({t['bound_ms'] / t['graph_ms']:.1%} of the bound), host "
+                  f"per call "
+                  f"{t['ms'] - t['graph_ms']:.4f} ms; plain "
+                  f"{t['plain_ms']:.4f} ms; {lib_name} {lib}; bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (six calls)",
+                  flush=True)
         out[batch] = tot
         torch.cuda.empty_cache()
     print(f"[phase5] K3 == plain (torch.equal) at every shape, both scales; "
@@ -1017,7 +1036,10 @@ def phase5(seed: int):
         result[key] = dict(b8, max_abs_err=max(b8["max_abs_err"],
                                                b2["max_abs_err"]),
                            n2_f32_ms=b2["ms"], n2_f32_plain_ms=b2["plain_ms"],
-                           n2_f32_bound_ms=b2["bound_ms"])
+                           n2_f32_bound_ms=b2["bound_ms"],
+                           n2_f32_graph_ms=b2["graph_ms"],
+                           n2_f32_library_ms=b2["library_ms"],
+                           n2_f32_graph_library_ms=b2["graph_library_ms"])
     return result
 
 
@@ -1068,7 +1090,7 @@ def _serve(label, infer, vols, want):
 
 def phase6(seed: int, served, s2d_preds):
     """The include_1x1 serving paths (a)-(d); returns the launches of each
-    path and path (c)'s inferencer."""
+    path and the inferencers of paths (b) and (c)."""
     from efficientq_tpu_torch import nnir
     from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
                                                    patch_grid)
@@ -1115,7 +1137,7 @@ def phase6(seed: int, served, s2d_preds):
           "(b): predictions differ from phase 4's")
     print("[phase6] (b) predictions equal phase 4's on all 3 volumes",
           flush=True)
-    del infer_a, infer_b
+    del infer_a
     torch.cuda.empty_cache()
 
     # (c) --deploy mixed + --serve_stem s2d + include_1x1
@@ -1197,10 +1219,10 @@ def phase6(seed: int, served, s2d_preds):
           f"{AGREE_PLAIN_K4}")
     del fq_net, logits, ref
     torch.cuda.empty_cache()
-    return launches, infer_c
+    return launches, infer_b, infer_c
 
 
-def profile_paths(served, s2d_infer, mixed_infer):
+def profile_paths(served, s2d_infer, k3_infer, mixed_infer):
     """torch.profiler over one volume of each serving path."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1209,6 +1231,8 @@ def profile_paths(served, s2d_infer, mixed_infer):
     runs = [("int8 f32 path (phase 2)", lambda: served["infer"](
                 served["net"].variables, vol.to(dev), PATCH, OVERLAP)),
             ("s2d bf16 path (phase 4)", lambda: s2d_infer(
+                None, vol.numpy(), PATCH, OVERLAP)),
+            ("int8 + include_1x1 s2d path (phase 6 b)", lambda: k3_infer(
                 None, vol.numpy(), PATCH, OVERLAP)),
             ("mixed + s2d + include_1x1 path (phase 6 c)", lambda:
                 mixed_infer(None, vol.numpy(), PATCH, OVERLAP))]
@@ -1256,9 +1280,9 @@ def main():
     p3 = phase3(args.seed)
     k1_s2d, k2, s2d_infer, s2d_preds = phase4(args.seed, served)
     p5 = phase5(args.seed)
-    paths, mixed_infer = phase6(args.seed, served, s2d_preds)
+    paths, k3_infer, mixed_infer = phase6(args.seed, served, s2d_preds)
     if args.profile:
-        profile_paths(served, s2d_infer, mixed_infer)
+        profile_paths(served, s2d_infer, k3_infer, mixed_infer)
     # launches of each kernel on each serving path, counted from 0 around
     # the path's run
     by_path = {"K1": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},

@@ -5,10 +5,12 @@ Counterpart of the JAX package's ``pallas/qmatmul.py``:
 
 - K3, ``fused_int8_matmul``: the activation codes of x times int8 weight
   codes, int32 sums, then ``* scale + bias`` in float32 (an int8 1x1x1 conv
-  of the int8 deployment).  The hand-written CUDA kernel
-  ``csrc/qmatmul_int8.cu`` (int8 tensor cores) reads the (K, N) codes as
-  they are: the deployment packs weights only for the K1 convs it flags, so
-  K3 needs no layout of its own.
+  of the int8 deployment).  Its kernel is ``csrc/qmatmul_int8.cu``: int8
+  tensor cores in persistent blocks that keep a column chunk's weights,
+  packed k-contiguous by ``pack_weights_1x1`` (once, at deploy time), in
+  shared memory and quantize each x element once, with ``cp.async`` loads
+  of the next tile of x under the mma steps; ``_k3_plan`` picks its
+  tiling and grid per call.
 - K4, ``fused_qact_matmul``: fake-quantized x times float32 weights, full
   float32 (no TF32), plus bias (the activation-quantized 1x1x1 convs off the
   int8 path: the mixed deployment and fq mode), run by
@@ -47,11 +49,11 @@ _X_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def fused_int8_matmul_reference(x, w_codes, bias, alpha_act, scale,
-                                qlvl_act: int):
+                                qlvl_act: int, w_packed=None):
     """Plain K3: ``act_codes`` of x, an exact integer matmul in the float
     type that ``nnir.int_conv_dtype`` picks for codes of at most 127, then
     ``* scale`` and ``+ bias`` rounded separately in float32 (the port's
-    int8 1x1 route of ``nnir._eval_conv``)."""
+    int8 1x1 route of ``nnir._eval_conv``).  ``w_packed`` is ignored."""
     from ..nnir import int_conv_dtype
 
     qa = act_codes(x, alpha_act, qlvl_act)
@@ -62,19 +64,22 @@ def fused_int8_matmul_reference(x, w_codes, bias, alpha_act, scale,
     return y if bias is None else y + bias
 
 
-def fused_int8_matmul(x, w_codes, bias, alpha_act, scale, qlvl_act: int):
+def fused_int8_matmul(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
+                      w_packed=None):
     """y = (int8_codes(x) @ w_codes) * scale + bias, one kernel.
 
     x: (M, K) float32 or bfloat16 (codes taken in float32); w_codes: (K, N)
     int8; scale: () or (N,) float32, alpha_act * alpha_w / ((na-1)(nw-1));
-    bias: (N,) or None.  Returns (M, N) float32."""
+    bias: (N,) or None; w_packed: ``pack_weights_1x1(w_codes)``, made at
+    deploy time (packed here when None).  Returns (M, N) float32."""
     if x.device.type == "cpu":
         return fused_int8_matmul_reference(x, w_codes, bias, alpha_act,
                                            scale, qlvl_act)
     if x.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or (plain) CPU tensors, got "
                          f"{x.device}")
-    return _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act)
+    return _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act,
+                        w_packed)
 
 
 fused_int8_matmul.launches = 0
@@ -156,11 +161,6 @@ def _lib(source, name, argtypes):
         fn.argtypes = argtypes
         fn.restype = _I
     return fn
-
-
-def _int8_lib():
-    return _lib("qmatmul_int8.cu", "qmatmul_int8_launch",
-                [_P] * 6 + [_I] * 5 + [_P])
 
 
 class _K4Call(ctypes.Structure):
@@ -253,6 +253,135 @@ def _k4_plan(m, k, n, bf16) -> K4Plan:
     return best[1]
 
 
+# K3's fixed sizes (csrc/qmatmul_int8.cu): warps per block, the mma depth
+_K3_WARPS, _K3_BK = 8, 32
+
+
+def pack_weights_1x1(w_codes: torch.Tensor) -> torch.Tensor:
+    """(K, N) (or (1, 1, 1, K, N)) int8 weight codes -> K3's (N, Kp) int8
+    layout, ``packed[n, k] = w_codes[k, n]``: k contiguous (the mma's B
+    fragment runs along k), zero-padded to Kp = 32 * ceil(K / 32), one mma
+    depth."""
+    w = w_codes.reshape(-1, w_codes.shape[-1])
+    k, n = w.shape
+    out = w.new_zeros((n, -(-k // _K3_BK) * _K3_BK))
+    out[:, :k] = w.t()
+    return out
+
+
+class K3Plan(NamedTuple):
+    bm: int                 # rows per tile
+    nc: int                 # columns of y per block (a column chunk)
+    mt: int                 # 16-row mma tiles per warp
+    nt: int                 # 8-column mma tiles per warp
+    wn: int                 # warps along the columns
+    stages: int             # raw x slices in the cp.async ring
+    grid: Tuple[int, int]   # (persistent blocks per chunk, column chunks)
+    threads: int            # per block
+    smem: int               # dynamic shared memory per block, bytes
+
+
+def _k3_smem(k, bm, nc, stages, elt):
+    """Shared memory of one K3 block, as the launch computes it: the
+    chunk's packed weights and the code tile (rows of Kp + 16 bytes), the
+    ring of raw x slices (rows of Kp elements + 16 bytes), scale and
+    bias."""
+    kp = -(-k // _K3_BK) * _K3_BK
+    raw = -(-(bm * (kp * elt + 16)) // 128) * 128
+    return -(-((nc + bm) * (kp + 16)) // 128) * 128 + stages * raw + 8 * nc
+
+
+# K3's cost model (_k3_candidates), in ns and bytes/ns, set by hand from
+# the device times of every tiling that scripts/k3_timing.py --sweep gave
+# at the twelve phase-5 shapes on an H100 (PERF.md section 6, PR 7): one
+# SM's rate of device-memory traffic (x and y), a tile's least time, a
+# block's fixed time, and the rate at which a block stages its weights
+_K3_SM_RATE, _K3_TILE_NS, _K3_BLOCK_NS, _K3_W_RATE = 15.0, 2500.0, 1000.0, 25.0
+
+
+def _k3_candidates(m, k, n, bf16):
+    """Every tiling K3 takes for one call, as ((work, column chunks, -rows,
+    -mt, stages), K3Plan) pairs: the 8 warps as wm x wn, a warp's mt x nt
+    mma tiles (at most 8), nc = 8 wn nt up to 256 and, with nt > 1, less
+    than twice N (rounded up to 8), a ring of 2-4 raw slices, shared
+    memory within a block (up to three blocks an SM).  Work is the busiest
+    block's time: its tiles, each the longer of its bytes at the SM's rate
+    (shared by the blocks on the SM) and the least tile time; plus its
+    fixed time and weights."""
+    elt = 2 if bf16 else 4
+    kp = -(-k // _K3_BK) * _K3_BK
+    n8 = -(-n // 8) * 8
+    for wn in (1, 2, 4, 8):
+        wm = _K3_WARPS // wn
+        for nt in (1, 2, 4, 8):
+            nc = 8 * wn * nt
+            if nc > 256 or (nt > 1 and nc >= 2 * n8):
+                continue
+            chunks = -(-n // nc)
+            for mt in (1, 2):
+                bm = 16 * wm * mt
+                if mt * nt > 8:
+                    continue
+                for stages in (2, 3, 4):
+                    smem = _k3_smem(k, bm, nc, stages, elt)
+                    if smem > SMEM_BLOCK:
+                        continue
+                    tiles = -(-m // bm)
+                    per_sm = max(1, min(3, SMEM_SM // (smem + 1024)))
+                    gx = min(tiles, -(-SMS * per_sm // chunks))
+                    # blocks sharing an SM's memory rate
+                    busy = min(per_sm, -(-gx * chunks // SMS))
+                    tile_bytes = bm * k * elt + bm * min(nc, n) * 4
+                    tile = max(tile_bytes * busy / _K3_SM_RATE, _K3_TILE_NS)
+                    work = (_K3_BLOCK_NS + nc * kp / _K3_W_RATE
+                            + -(-tiles // gx) * tile)
+                    yield ((work, chunks, -bm, -mt, stages),
+                           K3Plan(bm, nc, mt, nt, wn, stages, (gx, chunks),
+                                  32 * _K3_WARPS, smem))
+
+
+@functools.lru_cache(maxsize=1024)
+def _k3_plan(m, k, n, bf16) -> K3Plan:
+    """K3's tiling of one call, as the launch takes it: of
+    ``_k3_candidates``, the least work on the busiest block, then fewer
+    column chunks (x read fewer times), larger tiles, taller warp tiles
+    (measured faster at every B = 8 shape) and fewer raw slices.
+    ``grid[0]`` is as many blocks per chunk as the SMs hold at once
+    (persistent blocks), at most one per tile.  Raises when even the
+    smallest tile does not fit a block."""
+    best = min(_k3_candidates(m, k, n, bf16), key=lambda c: c[0],
+               default=None)
+    if best is None:
+        raise ValueError(f"K3 keeps a block's weights and x rows in shared "
+                         f"memory: K = {k} does not fit")
+    return best[1]
+
+
+class _K3Call(ctypes.Structure):
+    """One K3 call's shape and plan, laid out as ``K3Call`` of
+    ``csrc/qmatmul_int8.cu``."""
+    _fields_ = [(f, _I) for f in ("M", "K", "N", "qlvl", "x_bf16", "bm",
+                                  "nc", "mt", "nt", "wn", "stages", "grid_x")]
+
+
+@functools.lru_cache(maxsize=1024)
+def _k3_call(m, k, n, bf16, qlvl, plan=None):
+    """The launch's ``_K3Call``: the shape, qlvl, x_bf16 and ``plan`` (by
+    default ``_k3_plan``'s)."""
+    if not 2 <= qlvl <= 128:
+        raise ValueError(f"qlvl_act {qlvl}: int8 codes need 2..128")
+    p = plan or _k3_plan(m, k, n, bf16)
+    return _K3Call(m, k, n, qlvl, int(bf16), p.bm, p.nc, p.mt, p.nt, p.wn,
+                   p.stages, p.grid[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_lib():
+    return _lib("qmatmul_int8.cu", "qmatmul_int8_launch",
+                [_P, _P, _P, _F, _I, _P, _P, _F, _P,
+                 ctypes.POINTER(_K3Call), _P])
+
+
 def _check_x(x, what, aligned=True):
     """x as a contiguous 2-d float32/bfloat16 tensor; with ``aligned``, one
     whose data starts on a 16-byte boundary (a copy if it does not)."""
@@ -280,6 +409,19 @@ def _vector(v, n, like, what):
     return v.contiguous()
 
 
+def _scale(scale, n, like):
+    """(float32 tensor or None, value, stride) of K3's scale: one value on
+    the device of tensor ``like`` passes by pointer with stride 0 (not
+    expanded), one elsewhere (or a number) by value, an (n,) vector by
+    pointer with stride 1; nothing is copied to the card for a number."""
+    t = scale if isinstance(scale, torch.Tensor) else torch.as_tensor(scale)
+    if t.numel() == 1:
+        if t is not scale or t.get_device() != like.get_device():
+            return None, float(t), 0
+        return (t if t.dtype == torch.float32 else t.float()), 0.0, 0
+    return _vector(t, n, like, "scale"), 0.0, 1
+
+
 def _alpha(alpha, like):
     """(float32 tensor or None, value) of the activation clip: a one-element
     tensor on the device of tensor ``like`` passes by pointer (its value
@@ -303,31 +445,50 @@ def _on_device(index, fn, *args):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
-def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act):
-    dev = x.device
-    x = _check_x(x, "K3")
+def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act,
+                 w_packed=None, plan=None):
+    """K3 on the card, with ``plan`` (by default ``_k3_plan``'s).  Lean on
+    the host: device indices, not device objects; the shape and plan
+    passed as one cached struct; the weights packed at deploy time; alpha,
+    scale and bias taken as they are when they are already on the card as
+    float32, a one-value scale by pointer with stride 0, numbers by value;
+    so a call can be captured in a CUDA graph."""
+    x = _check_x(x, "K3", aligned=False)  # the kernel stages any alignment
+    index = x.get_device()
     m, k = x.shape
     if (w_codes.dtype != torch.int8 or w_codes.dim() != 2
-            or w_codes.shape[0] != k or w_codes.device != dev):
+            or w_codes.shape[0] != k or w_codes.get_device() != index):
         raise ValueError(f"weight codes {w_codes.dtype} "
                          f"{tuple(w_codes.shape)} on {w_codes.device} do not "
-                         f"fit x {tuple(x.shape)}")
+                         f"fit x {tuple(x.shape)} on {x.device}")
     n = w_codes.shape[1]
-    w_codes = w_codes.contiguous()
-    scale_v = _vector(scale, n, x, "scale")
+    if w_packed is None:
+        w_packed = pack_weights_1x1(w_codes)
+    kp = -(-k // _K3_BK) * _K3_BK
+    # (a packed copy that is not 16-byte aligned the launch refuses)
+    if (w_packed.dtype != torch.int8 or w_packed.shape != (n, kp)
+            or w_packed.get_device() != index
+            or not w_packed.is_contiguous()):
+        raise ValueError(f"packed weights {w_packed.dtype} "
+                         f"{tuple(w_packed.shape)} on {w_packed.device}: "
+                         f"pack_weights_1x1 gives ({n}, {kp}) int8 on "
+                         f"{x.device}")
+    scale_t, scale_v, scale_stride = _scale(scale, n, x)
     bias_v = _vector(bias, n, x, "bias")
-    if not 2 <= int(qlvl_act) <= 128:
-        raise ValueError(f"qlvl_act {qlvl_act}: int8 codes need 2..128")
-    alpha = torch.as_tensor(alpha_act, device=dev, **_F32).reshape(1)
-    y = torch.empty((m, n), device=dev, **_F32)
-    with torch.cuda.device(dev):
-        rc = _int8_lib()(x.data_ptr(), w_codes.data_ptr(), scale_v.data_ptr(),
-                         None if bias_v is None else bias_v.data_ptr(),
-                         alpha.data_ptr(), y.data_ptr(), m, k, n,
-                         int(qlvl_act), int(x.dtype == torch.bfloat16),
-                         torch.cuda.current_stream(dev).cuda_stream)
+    alpha, alpha_v = _alpha(alpha_act, x)
+    call = _k3_call(m, k, n, x.dtype == torch.bfloat16, int(qlvl_act), plan)
+    y = x.new_empty((m, n), dtype=torch.float32)
+    rc = _on_device(index, _int8_lib(), x.data_ptr(), w_packed.data_ptr(),
+                    None if scale_t is None else scale_t.data_ptr(), scale_v,
+                    scale_stride,
+                    None if bias_v is None else bias_v.data_ptr(),
+                    None if alpha is None else alpha.data_ptr(), alpha_v,
+                    y.data_ptr(), call)
     if rc != 0:
-        raise RuntimeError(f"K3 launch failed: cudaError_t {rc}")
+        raise RuntimeError(
+            f"K3 launch failed: cudaError_t {rc} ("
+            + ", ".join(f"{f} {getattr(call, f)}" for f, _ in call._fields_)
+            + ")")
     fused_int8_matmul.launches += 1
     return y
 

@@ -297,10 +297,12 @@ def _eval_fused_1x1(node: Node, p, x, mode: str, int8_matmul: Callable,
         raise ValueError(f"{node.name}: a flagged 1x1 conv quantizes its "
                          f"float input itself and cannot take int8 codes")
     if a.get("int8"):
+        # K3's packed weights (made at deploy time) go as the seventh
+        # argument, so a hook with K3's positional signature takes them too
         n, d, h, w, c = x.shape
         y = int8_matmul(x.reshape(-1, c), p["kernel_int8"].reshape(c, -1),
                         p.get("bias"), p["alpha_act"], p["scale"],
-                        qcfg.qlvl_act)
+                        qcfg.qlvl_act, p.get("kernel_packed"))
         return y.reshape(n, d, h, w, -1)
     kernel = p["kernel"]
     if mode == "fq" and qcfg.q_weight:

@@ -32,7 +32,7 @@ from ..eval.sliding import (make_volume_inferencer, patch_grid,
                             sliding_window_inference)
 from ..kernels.epilogue import fuse_int8_epilogues
 from ..kernels.qconv3d import pack_weights
-from ..kernels.qmatmul import to_pallas_inference
+from ..kernels.qmatmul import pack_weights_1x1, to_pallas_inference
 from ..kernels.stem import (extract_pre_s2d_patches, s2d_need_planes,
                             s2d_stem_weights, s2d_supported, s2d_volume)
 from ..nnir import Graph
@@ -49,8 +49,10 @@ def to_int8_inference(graph: Graph, variables,
     """Returns (graph', variables') with eligible qconvs converted to int8
     codes + a scale epilogue, the int8 3^3 convs flagged for K1 and their
     epilogues fused.  Input variables must hold post-PTQ quantized kernels
-    (values = alpha_w * grid).  K1's weight layout (``kernel_packed``) is
-    made here, once.
+    (values = alpha_w * grid).  The kernels' weight layouts
+    (``kernel_packed``) are made here, once: K1's for the flagged 3^3
+    convs, K3's for every int8 1x1x1 conv that
+    ``to_pallas_inference(include_1x1=True)`` can flag.
 
     ``only_kernel_sizes``: kernel-size triples to deploy; qconvs of other
     sizes keep the float fake-quant path.  ``{(3, 3, 3)}`` is the mixed
@@ -80,6 +82,9 @@ def to_int8_inference(graph: Graph, variables,
         if node.attrs.get("pallas"):
             p = params[node.name]
             p["kernel_packed"] = pack_weights(p["kernel_int8"])
+        elif node.attrs.get("int8") and nnir._pallas_1x1_eligible(node.attrs):
+            p = params[node.name]
+            p["kernel_packed"] = pack_weights_1x1(p["kernel_int8"])
     return out, {"params": params, "state": variables.get("state", {})}
 
 

@@ -424,6 +424,157 @@ def test_cuda_k3_matches_plain(case, cuda):
     assert torch.equal(got, ref)
 
 
+# the flagship's six transition 1x1 convs at one patch: (M, K, N)
+FLAGSHIP_1X1 = [(32768, 32, 64), (4096, 64, 128), (512, 128, 256),
+                (512, 256, 128), (4096, 128, 64), (32768, 64, 32)]
+
+
+def k3_case(m, k, n, dtype, per_channel, with_bias, layout, device, seed=0):
+    """The inputs of one K3 call on ``device``: (x, codes, bias, alpha,
+    scale).  Layout "offset": a contiguous x whose data starts 1 element
+    past an allocation (the element-load staging)."""
+    c = matmul_case(m, k, n, dtype, per_channel, with_bias, seed)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    full = torch.as_tensor(c["x"], device=device).to(dt)
+    if layout == "offset":
+        buf = torch.empty(m * k + 1, device=device, dtype=dt)
+        x = buf[1:].view(m, k)
+        x.copy_(full)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    else:
+        x = full
+    return (x, torch.as_tensor(c["codes"], device=device),
+            None if c["bias"] is None else torch.as_tensor(c["bias"],
+                                                           device=device),
+            torch.tensor(c["alpha"], device=device),
+            torch.as_tensor(c["scale"], device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", [c + ("",) for c in MATMUL_CASES]
+    + [(m // 8, k, n, "bf16", True, True, "") for m, k, n in FLAGSHIP_1X1]
+    + [(m // 32, k, n, "f32", False, False, "") for m, k, n in FLAGSHIP_1X1],
+    ids=lambda c: "-".join(map(str, c)).rstrip("-"))
+def test_cuda_k3_every_plan_matches_plain(case, cuda):
+    """Every tiling that K3's plan chooses among, not only its choice."""
+    x, codes, b, alpha, scale = k3_case(*case, device=cuda)
+    ref = KM.fused_int8_matmul_reference(x, codes, b, alpha, scale, NA)
+    wp = KM.pack_weights_1x1(codes)
+    m, k = x.shape
+    plans = [p for _, p in KM._k3_candidates(m, k, codes.shape[1],
+                                             x.dtype == torch.bfloat16)]
+    assert len(plans) >= 2
+    for plan in plans:
+        got = KM._launch_int8(x, codes, b, alpha, scale, NA, wp, plan=plan)
+        assert torch.equal(got, ref), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(70, 12, 20, "bf16", True, True, ""),
+                                  (700, 20, 64, "bf16", False, False, ""),
+                                  (700, 12, 33, "f32", True, True, "offset"),
+                                  (4097, 64, 128, "bf16", False, True,
+                                   "offset"),
+                                  (333, 264, 264, "f32", True, False,
+                                   "offset")],
+                         ids=["k12-bf16", "k20-bf16", "offset-f32",
+                              "offset-bf16", "k264-offset"])
+def test_cuda_k3_element_loads_match_plain(case, cuda):
+    """x rows that are not 16-byte aligned (K * element size not a
+    multiple of 16, or a misaligned x) take the element-load staging."""
+    x, codes, b, alpha, scale = k3_case(*case, device=cuda)
+    got = KM.fused_int8_matmul(x, codes, b, alpha, scale, NA)
+    ref = KM.fused_int8_matmul_reference(x, codes, b, alpha, scale, NA)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("qlvl,alpha", [(2, 1.1), (3, 1.1), (4, 1.1),
+                                        (4, 0.37), (4, 3e-18), (16, 2.5),
+                                        (128, 0.9), (4, -0.8)])
+def test_cuda_k3_threshold_codes_are_exact(qlvl, alpha, dtype, cuda):
+    """With identity weight codes and scale 1, y is the activation code
+    itself.  The threshold codes (2-4 levels; bfloat16 x compared as its
+    bits) equal the plain version's divide bit for bit for x at, and one
+    float (or one bfloat16) either side of, every code's tie, at the clip,
+    at +-inf and +-0, and random; 16 and 128 levels and a negative alpha
+    take the kernel's divide.  NaN gives code 0, as the clip takes it; an
+    infinity the code of its side of the clip."""
+    from efficientq_tpu_torch.quant import act_codes
+
+    rng = np.random.RandomState(qlvl)
+    qmax = np.float32(qlvl - 1)
+    a = np.float32(alpha)
+    ties = ((np.arange(qlvl, dtype=np.float32) + np.float32(0.5)) / qmax
+            * abs(a)).astype(np.float32)
+    near = np.concatenate([np.nextafter(ties, -np.inf), ties,
+                           np.nextafter(ties, np.inf)])
+    edges = np.float32([0.0, -0.0, abs(a), -abs(a), np.nextafter(abs(a), 0),
+                        1e-38, 3e38, np.inf, -np.inf, np.nan])
+    x = np.concatenate([near, edges,
+                        (rng.randn(4096) * abs(a)).astype(np.float32)])
+    x = np.resize(x, (-(-x.size // 64), 64)).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda)
+    if dtype == "bf16":  # the values rounded, and their bf16 neighbours
+        bits = xt.to(torch.bfloat16).view(torch.int16)
+        xt = torch.cat([bits, bits + 1, bits - 1]).view(torch.bfloat16)
+    eye = torch.eye(64, dtype=torch.int8, device=cuda)
+    at = torch.tensor(alpha, device=cuda)
+    y = KM.fused_int8_matmul(xt, eye, None, at, 1.0, qlvl)
+    torch.cuda.synchronize()
+    nan = torch.isnan(xt)
+    assert torch.equal(y[~nan], act_codes(xt, at, qlvl)[~nan].float())
+    top = float(qlvl - 1)
+    want = {float("nan"): 0.0, float("inf"): top if alpha > 0 else 0.0,
+            float("-inf"): 0.0 if alpha > 0 else top}
+    for v, code in want.items():
+        at_v = nan if v != v else xt.float() == v
+        assert int(at_v.sum()) > 0
+        assert torch.equal(y[at_v], torch.full_like(y[at_v], code)), v
+
+
+@pytest.mark.cuda
+def test_cuda_k3_alpha_and_scale_kinds_agree(cuda):
+    """alpha as a Python number, a CPU tensor, a card tensor and a card
+    tensor of another dtype; the per-tensor scale as a number, a 0-d and a
+    one-element card tensor and expanded to (N,): the same y."""
+    x, codes, b, alpha, _ = k3_case(700, 32, 64, "bf16", False, True, "",
+                                    device=cuda)
+    s = 0.0371
+    st = torch.tensor(s, device=cuda)
+    ys = [KM.fused_int8_matmul(x, codes, b, a, st, NA)
+          for a in (1.1, torch.tensor(1.1), alpha,
+                    alpha.double().reshape(1))]
+    ys += [KM.fused_int8_matmul(x, codes, b, alpha, sc, NA)
+           for sc in (s, st.reshape(1), st.expand(64).contiguous(),
+                      torch.tensor(s))]
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    assert torch.equal(ys[0], KM.fused_int8_matmul_reference(
+        x, codes, b, alpha, st, NA))
+
+
+@pytest.mark.cuda
+def test_cuda_k3_call_replays_in_a_cuda_graph(cuda):
+    """A lean call (packed weights, alpha and a 0-d scale on the card) is
+    captured in a CUDA graph, and its replay equals the eager call."""
+    x, codes, b, alpha, _ = k3_case(4096, 128, 64, "bf16", False, True, "",
+                                    device=cuda)
+    scale = torch.tensor(0.0371, device=cuda)
+    wp = KM.pack_weights_1x1(codes)
+    eager = KM.fused_int8_matmul(x, codes, b, alpha, scale, NA, wp)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = KM.fused_int8_matmul(x, codes, b, alpha, scale, NA, wp)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", MATMUL_CASES,
                          ids=["-".join(map(str, c)) for c in MATMUL_CASES])

@@ -181,6 +181,122 @@ def test_k4_vector_and_alpha_pass_through():
         K._k4_call(700, 32, 64, True, 1)
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("shape", FLAGSHIP_1X1,
+                         ids=["x".join(map(str, s)) for s in FLAGSHIP_1X1])
+def test_k3_plan_fills_the_card_and_covers_n(shape, batch, bf16):
+    per_patch, k, n = shape
+    m = per_patch * batch
+    plan = K._k3_plan(m, k, n, bf16)
+    tiles = -(-m // plan.bm)
+    gx, chunks = plan.grid
+    # persistent blocks: enough to fill 132 SMs, or one per row tile
+    assert gx * chunks >= 132 or gx == tiles
+    assert 1 <= gx <= tiles
+    assert plan.smem <= 232448 and plan.threads == 256
+    assert plan.smem == K._k3_smem(k, plan.bm, plan.nc, plan.stages,
+                                   2 if bf16 else 4)
+    # the column chunks cover N exactly
+    assert chunks == -(-n // plan.nc) and (chunks - 1) * plan.nc < n
+    # the 8 warps: wm x wn, each mt x nt mma tiles of 16 x 8
+    wm = 8 // plan.wn
+    assert wm * plan.wn == 8
+    assert plan.bm == 16 * wm * plan.mt and plan.nc == 8 * plan.wn * plan.nt
+    assert plan.mt * plan.nt <= 8 and 2 <= plan.stages <= 4
+
+
+def test_k3_plan_edges():
+    """Remainder shapes take a plan within a block's shared memory; a K
+    whose rows do not fit raises."""
+    plan = K._k3_plan(1, 1, 1, False)
+    assert plan.nc == 8 and plan.grid == (1, 1)
+    for m, k, n, bf16 in ((4097, 264, 264, False), (70, 12, 20, True),
+                          (700, 512, 3, True)):
+        plan = K._k3_plan(m, k, n, bf16)
+        assert plan.nc * plan.grid[1] >= n and plan.smem <= 232448
+        assert all(p.smem <= 232448 and p.nc <= 256
+                   for _, p in K._k3_candidates(m, k, n, bf16))
+    with pytest.raises(ValueError, match="K = 20000"):
+        K._k3_plan(64, 20000, 8, False)
+
+
+@pytest.mark.parametrize("k,n", [(12, 20), (32, 64), (40, 3), (256, 128)])
+def test_pack_weights_1x1_layout(k, n):
+    """K3's packed layout is the codes transposed to [n][k] and zero-padded
+    to a multiple of 32 along k, from (K, N) or (1, 1, 1, K, N) codes."""
+    codes = np.random.RandomState(k + n).randint(-127, 128, size=(k, n))
+    codes = codes.astype(np.int8)
+    kp = -(-k // 32) * 32
+    want = np.zeros((n, kp), np.int8)
+    want[:, :k] = codes.T
+    for shape in ((k, n), (1, 1, 1, k, n)):
+        got = K.pack_weights_1x1(torch.from_numpy(codes.reshape(shape)))
+        assert got.dtype == torch.int8 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k3_call_and_scale_pass_through():
+    """The wrapper's scale helper copies and expands nothing and makes no
+    tensor from a number; the call struct is cached and carries the
+    plan."""
+    like = torch.zeros(2, 3)
+    s0 = torch.tensor(0.05)
+    assert K._scale(s0, 7, like)[0] is s0 and K._scale(s0, 7, like)[2] == 0
+    assert K._scale(0.25, 7, like) == (None, 0.25, 0)
+    s1 = torch.full((1,), 0.5)
+    assert K._scale(s1, 7, like)[0] is s1
+    sv = torch.rand(7)
+    assert K._scale(sv, 7, like) == (sv, 0.0, 1)
+    t, v, stride = K._scale(np.float32(0.125), 7, like)
+    assert (t, v, stride) == (None, 0.125, 0)
+    with pytest.raises(ValueError, match="scale"):
+        K._scale(torch.ones(3), 7, like)
+    call = K._k3_call(700, 32, 64, True, 4)
+    plan = K._k3_plan(700, 32, 64, True)
+    assert call is K._k3_call(700, 32, 64, True, 4)  # cached
+    assert ((call.M, call.K, call.N, call.qlvl, call.x_bf16, call.bm,
+             call.nc, call.mt, call.nt, call.wn, call.stages, call.grid_x)
+            == (700, 32, 64, 4, 1, plan.bm, plan.nc, plan.mt, plan.nt,
+                plan.wn, plan.stages, plan.grid[0]))
+    assert K._k3_call(700, 32, 64, False, 4).x_bf16 == 0
+    with pytest.raises(ValueError, match="2..128"):
+        K._k3_call(700, 32, 64, True, 129)
+
+
+def test_int8_deploy_packs_every_1x1(tiny):
+    """to_int8_inference gives each int8 1x1x1 conv K3's packed weights
+    (and each flagged 3^3 conv K1's); the mixed deployment has no int8
+    1x1 conv to pack."""
+    (_, _), (tg, tv) = tiny["int8"]
+    ones = [n for n in tg.nodes if n.attrs.get("int8")
+            and n.attrs["kernel_size"] == (1, 1, 1)]
+    assert ones
+    for node in ones:
+        p = tv["params"][node.name]
+        assert torch.equal(p["kernel_packed"],
+                           K.pack_weights_1x1(p["kernel_int8"]))
+    (_, _), (mg, mv) = tiny["mixed"]
+    assert not any("kernel_packed" in mv["params"][n.name] for n in mg.nodes
+                   if n.op == "conv" and n.attrs["kernel_size"] == (1, 1, 1))
+
+
+def test_flagged_int8_forward_passes_packed_weights(tiny):
+    """nnir hands each flagged int8 1x1 conv's packed weights to the K3
+    hook as its seventh argument."""
+    (_, _), (tg, tv) = tiny["int8"]
+    got = []
+
+    def hook(*a):
+        got.append(a[6])
+        return K.fused_int8_matmul_reference(*a)
+
+    nnir.apply(tg, tv, torch.from_numpy(_x(1)), mode="quantized",
+               int8_matmul=hook)
+    assert got and all(w is not None and w.dtype == torch.int8
+                       and w.shape[1] % 32 == 0 for w in got)
+
+
 def test_qconv1x1_matches_jax():
     rng = np.random.RandomState(1)
     x = np.abs(rng.randn(2, 4, 5, 6, 8)).astype(np.float32)
