@@ -10,7 +10,7 @@ Phases, each printed on its own lines:
    (csrc/stem_s2d.cu), K3 (csrc/qmatmul_int8.cu) and K4
    (csrc/qmatmul_f32.cu), one nvcc for sm_90a per source, started
    together, with the build seconds, and ptxas's registers, barriers and
-   spills of each K1 kernel;
+   spills of each K1 and K2 kernel;
 1. K1 against its plain PyTorch version on the card, at every conv shape
    and epilogue of the flagship BraTS net (N = 2, 128^3 patches) and at
    dilation 1 and 2, and at wide and remainder geometries (C and O of 40,
@@ -39,7 +39,11 @@ Phases, each printed on its own lines:
    (torch.equal).  Times: median of 20 launches after 3 warm-ups, with
    the plain version's, one PyTorch library call's (cuDNN) and the bound
    (bytes over 3.35 TB/s, operations over the tensor-core peak); for K1
-   per stage also its int8 TOP/s, its share of the bound and its tiles.
+   per stage also its int8 TOP/s, its share of the bound and its tiles;
+   K1, K2 and cuDNN also as device time alone (CUDA graph replay of 10
+   calls); K2 at the flagship called as the serving path calls it (alpha
+   on the card, weights packed at deploy time), per call in three rounds
+   (min / median / max), with its plan (``kernels/stem.py::_k2_plan``).
 4. the s2d bf16 serving slice (``--serve_stem s2d``): the same net and
    volumes through ``ptq.deploy.make_s2d_volume_inferencer`` (host
    volume, channels-first tail, K2 stem, K1 at bfloat16, final head,
@@ -132,7 +136,8 @@ AGREE_PLAIN_S2D = 0.99
 # K4 against its plain version (float32 sums in another order) on the
 # paths of phase 6 (c) and (d): the same amplification of code flips
 AGREE_PLAIN_K4 = 0.99
-ROUNDS = 3  # phase 5 times K3 and K4 this many times (the same-card spread)
+# phases 3 and 5 time K2, K3 and K4 this many times (the same-card spread)
+ROUNDS = 3
 # the flagship's six transition 1x1 convs: (name, voxels per 128^3 patch,
 # K, N)
 ONE_BY_ONE = [("TransDown1", 32768, 32, 64), ("TransDown2", 4096, 64, 128),
@@ -186,13 +191,15 @@ def setup():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for line in _ptxas_lines(build.build_log.get("qconv3d_int8.cu")):
         print(f"[setup] K1 ptxas: {line}", flush=True)
+    for line in _ptxas_lines(build.build_log.get("stem_s2d.cu")):
+        print(f"[setup] K2 ptxas: {line}", flush=True)
     return smi
 
 
 def _ptxas_lines(log):
     """One line per kernel of an nvcc -Xptxas=-v log: the template
-    arguments (brick z, brick y, 16-byte loads), registers, barriers,
-    stack and spills."""
+    arguments (K1: brick z, brick y, 16-byte loads; K2: k-steps per tap,
+    output type), registers, barriers, stack and spills."""
     import re
 
     if log is None:
@@ -202,9 +209,13 @@ def _ptxas_lines(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", m.group(1))
+            k2 = re.search(r"stem_s2d_kernelILi(\d+)ELb(\d)E", m.group(1))
             name = (f"brick {t.group(1)}x{t.group(2)}x8 "
                     f"{'cp.async' if t.group(3) == '1' else 'byte loads'}"
-                    if t else m.group(1))
+                    if t else
+                    f"k-steps {k2.group(1)} (0: run time), "
+                    f"{'bf16' if k2.group(2) == '1' else 'f32'} out"
+                    if k2 else m.group(1))
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -538,6 +549,44 @@ def _check_stem(label, y, q, yr, qr, alpha, qlvl):
     return err, int(qdiff.sum())
 
 
+def stem_inputs(gen, seed, vol_shape, c, o, patch, overlap):
+    """K2's inputs on the card: the s2d patches of a random (vol_shape, c)
+    volume on the standard grid (both z parities where the depth allows),
+    their parities, the s2d weights of a random 3^3 kernel and a bias."""
+    from efficientq_tpu_torch.eval.sliding import patch_grid
+    from efficientq_tpu_torch.kernels import stem
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed + o)
+    vol = torch.randn(1, *vol_shape, c, device=dev, generator=gen)
+    starts = patch_grid(vol_shape, patch, overlap)
+    x, par = stem.extract_s2d_patches(vol, starts, patch)
+    w3 = rng.randn(3, 3, 3, c, o).astype(np.float32) * 0.2
+    we, wo = (torch.from_numpy(w).to(dev, torch.bfloat16)
+              for w in stem.s2d_stem_weights(w3))
+    bias = torch.from_numpy(rng.randn(o).astype(np.float32) * 0.1)
+    return x, par, we, wo, bias.to(dev)
+
+
+def k2_cost(x, o):
+    """(bytes, multiply-adds) of one K2 call with bfloat16 output: the
+    patches and both parities' weights read once, the bias, the bf16 and
+    int8 outputs written once; 8 C8 multiply-adds per output."""
+    b, d1, h, w, c8 = x.shape
+    vox = b * (d1 - 1) * h * w
+    return (x.numel() * 2 + 2 * 2 * 4 * c8 * o * 2 + o * 4 + vox * o * 3,
+            vox * o * 8 * c8)
+
+
+def k2_plan_line(x, o, out_bytes=2):
+    from efficientq_tpu_torch.kernels import stem
+
+    b, d1, h, w, c8 = x.shape
+    p = stem._k2_plan(b, d1 - 1, h, w, c8, o, out_bytes=out_bytes)
+    return (f"rows={p.rows} zc={p.zc} grid={p.grid} smem={p.smem} "
+            f"threads={p.threads}")
+
+
 def phase3(seed: int):
     """K2 and K1-bf16 against their plain versions; times and bounds."""
     import torch.nn.functional as F
@@ -553,22 +602,12 @@ def phase3(seed: int):
     out = {}
 
     # K2 at the flagship geometry and an odd small one
-    def stem_inputs(vol_shape, c, o, patch, overlap):
-        rng = np.random.RandomState(seed + o)
-        vol = torch.randn(1, *vol_shape, c, device=dev, generator=gen)
-        starts = patch_grid(vol_shape, patch, overlap)
-        x, par = stem.extract_s2d_patches(vol, starts, patch)
-        w3 = rng.randn(3, 3, 3, c, o).astype(np.float32) * 0.2
-        we, wo = (torch.from_numpy(w).to(dev, bf16)
-                  for w in stem.s2d_stem_weights(w3))
-        bias = torch.from_numpy(rng.randn(o).astype(np.float32) * 0.1)
-        return x, par, we, wo, bias.to(dev)
-
     k2_err, geos = 0.0, [
         ("flagship", VOL_SHAPE, 4, 32, PATCH, OVERLAP, 1.0),
         ("odd small", (23, 32, 32), 4, 8, (16, 16, 16), (4, 4, 4), 0.7)]
     for label, vol_shape, c, o, patch, overlap, alpha in geos:
-        x, par, we, wo, bias = stem_inputs(vol_shape, c, o, patch, overlap)
+        x, par, we, wo, bias = stem_inputs(gen, seed, vol_shape, c, o, patch,
+                                           overlap)
         check(0 < int(par.sum()) < par.numel(),
               f"K2 {label}: parities {par.tolist()} are not mixed")
         for dt in (torch.float32, bf16):
@@ -586,8 +625,18 @@ def phase3(seed: int):
                   f"of {q.numel()}", flush=True)
             del y, q, yr, qr
         if label == "flagship":
-            args = (x, par, we, wo, bias, alpha, 4)
-            tk = _median_ms(lambda: stem.stem_s2d_conv(*args, out_dtype=bf16))
+            # as the serving path calls it: alpha on the card, the weights
+            # packed at deploy time
+            at = torch.tensor(alpha, device=dev)
+            wp = stem.pack_stem_weights(we, wo)
+            args = (x, par, we, wo, bias, at, 4)
+
+            def k2():
+                return stem.stem_s2d_conv(*args, out_dtype=bf16, w_packed=wp)
+
+            rounds = [_median_ms(k2) for _ in range(ROUNDS)]
+            tk = statistics.median(rounds)
+            gk = _graph_ms(k2)
             tp = _median_ms(lambda: stem.stem_s2d_conv_reference(
                 *args, out_dtype=bf16))
             # the nearest library call: cuDNN's bf16 stride-2 conv with
@@ -597,20 +646,28 @@ def phase3(seed: int):
             wl = torch.randn(o, c, 3, 3, 3, device=dev, generator=gen,
                              dtype=bf16)
             bl = torch.randn(o, device=dev, generator=gen, dtype=bf16)
-            tl = _median_ms(lambda: F.conv3d(xl, wl, bl, stride=2,
-                                             padding=1))
-            b, d1, h, w, c8 = x.shape
-            vox = b * (d1 - 1) * h * w
-            nbytes = x.numel() * 2 + 2 * we.numel() * 2 + o * 4 + vox * o * 3
-            bound, by = _bound(nbytes, 2 * vox * o * 8 * c8, BF16_OPS)
-            print(f"[phase3] K2 flagship, bf16 out: K2 {tk:.4f} ms  plain "
-                  f"{tp:.4f} ms  cuDNN bf16 stride-2 conv + bias on "
-                  f"{tuple(xl.shape)} {tl:.4f} ms  bound {bound:.4f} ms "
-                  f"({by}: {nbytes / 1e6:.1f} MB, "
-                  f"{vox * o * 8 * c8 / 1e9:.2f} G multiply-adds)",
-                  flush=True)
+            def cudnn():
+                return F.conv3d(xl, wl, bl, stride=2, padding=1)
+
+            tl = _median_ms(cudnn)
+            gl = _graph_ms(cudnn)
+            nbytes, macs = k2_cost(x, o)
+            bound, by = _bound(nbytes, 2 * macs, BF16_OPS)
+            print(f"[phase3] K2 flagship, bf16 out: K2 {tk:.4f} ms per call "
+                  f"(over {ROUNDS} rounds min / median / max "
+                  f"{min(rounds):.4f} / {tk:.4f} / {max(rounds):.4f}), "
+                  f"device {gk:.4f} ms ({bound / gk:.1%} of the bound)  "
+                  f"plain {tp:.4f} ms  cuDNN bf16 stride-2 conv + bias on "
+                  f"{tuple(xl.shape)} {tl:.4f} ms, device {gl:.4f} ms  bound "
+                  f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+                  f"{macs / 1e9:.2f} G multiply-adds); plan "
+                  f"{k2_plan_line(x, o)}", flush=True)
             out["k2"] = dict(max_abs_err=k2_err, ms=tk, plain_ms=tp,
-                             bound_ms=bound, bound_by=by, library_ms=tl)
+                             bound_ms=bound, bound_by=by, library_ms=tl,
+                             graph_ms=gk, graph_library_ms=gl,
+                             rounds_min_ms=min(rounds),
+                             rounds_max_ms=max(rounds))
+            del wp, xl, wl, bl
         del x, par, we, wo, bias
     out["k2"]["max_abs_err"] = k2_err
     torch.cuda.empty_cache()

@@ -20,21 +20,27 @@ phase-lane mask on the first output plane; even-start patches carry a
 physical zero plane there.  The patch grid stays the reference's rule.
 
 ``stem_s2d_conv`` launches the hand-written CUDA kernel ``csrc/stem_s2d.cu``
-(bf16 ``mma.sync``, float32 accumulation; its header says what bounds it)
-for CUDA tensors, and takes the plain PyTorch version
-``stem_s2d_conv_reference`` for tensors on the CPU only.  Each launch adds
-one to ``stem_s2d_conv.launches``.
+for CUDA tensors (bf16 ``mma.sync``, float32 accumulation; blocks own a
+band of output rows of one patch and walk its planes through a
+shared-memory ring, so each s2d plane is read once per band; the weights
+come packed by ``pack_stem_weights`` at deploy time and ``_k2_plan``
+picks the bands and z chunks; its header says what bounds it), and takes
+the plain PyTorch version ``stem_s2d_conv_reference`` for tensors on the
+CPU only.  Each launch adds one to ``stem_s2d_conv.launches``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import ops
+from .build import SMEM_BLOCK, SMEM_SM, SMS
+from .qmatmul import _alpha, _on_device, _vector
 
 # (tap, phase) -> original kernel index along one axis, for a patch whose
 # start is even / odd on that axis.  Output voxel z' taps original offsets
@@ -165,9 +171,28 @@ def _slice_s2d(svol: torch.Tensor, starts, patch_size
     return out.reshape(-1, *out.shape[2:]), parities
 
 
+def pack_stem_weights(w_even: torch.Tensor,
+                      w_odd: torch.Tensor) -> torch.Tensor:
+    """The two (2, 4 C8, O) s2d weight matrices of ``s2d_stem_weights``
+    -> K2's shared-memory layout, (2, O, 8 C8p) bfloat16 on their device:
+    ``packed[p, o, tap * C8p + c8] = w_p[kd2][(kh2 * 2 + kw2) * C8 + c8][o]``
+    with tap = (kd2 * 2 + kh2) * 2 + kw2 and parity p (0 even, 1 odd); k
+    contiguous (the mma's B fragment runs along k), each tap zero-padded
+    from C8 to C8p = 16 * ceil(C8 / 16), one mma depth."""
+    _, k4, o = w_even.shape
+    c8 = k4 // 4
+    out = w_even.new_zeros((2, o, 8, -(-c8 // 16) * 16),
+                           dtype=torch.bfloat16)
+    for p, w in enumerate((w_even, w_odd)):
+        out[p, :, :, :c8] = w.reshape(8, c8, o).permute(2, 0, 1)
+    return out.reshape(2, o, -1)
+
+
 def stem_s2d_conv_reference(x, parities, w_even, w_odd, bias, alpha_next,
-                            qlvl_next: int, out_dtype=torch.float32):
-    """Plain PyTorch K2, on any device, with the wrapper's signature.
+                            qlvl_next: int, out_dtype=torch.float32,
+                            w_packed=None):
+    """Plain PyTorch K2, on any device, with the wrapper's signature
+    (``w_packed`` is ignored).
 
     The odd-parity mask, then the zero-padded 2^3 conv of each s2d patch
     with its parity's weights, accumulated in float64 and rounded once to
@@ -199,15 +224,16 @@ def stem_s2d_conv_reference(x, parities, w_even, w_odd, bias, alpha_next,
 
 
 def stem_s2d_conv(x, parities, w_even, w_odd, bias, alpha_next,
-                  qlvl_next: int, out_dtype=torch.float32):
+                  qlvl_next: int, out_dtype=torch.float32, w_packed=None):
     """Fused s2d stem: (relu(conv(x) + bias) as ``out_dtype``, the int8
     codes of that value for the consumer conv).
 
     x: (B, D+1, H, W, 8C) bfloat16 s2d patches from ``extract_s2d_patches``;
     parities: (B,) int32 z-start parity per patch; w_even / w_odd:
     (2, 32C, O) bfloat16 from ``s2d_stem_weights``; bias: (O,);
-    alpha_next / qlvl_next: the consumer conv's activation quantizer.
-    Returns two (B, D, H, W, O) tensors."""
+    alpha_next / qlvl_next: the consumer conv's activation quantizer;
+    w_packed: ``pack_stem_weights(w_even, w_odd)``, made at deploy time
+    (packed here when None).  Returns two (B, D, H, W, O) tensors."""
     if x.device.type == "cpu":
         return stem_s2d_conv_reference(x, parities, w_even, w_odd, bias,
                                        alpha_next, qlvl_next, out_dtype)
@@ -215,7 +241,7 @@ def stem_s2d_conv(x, parities, w_even, w_odd, bias, alpha_next,
         raise ValueError(f"K2 runs on CUDA or (plain) CPU tensors, got "
                          f"{x.device}")
     return _launch(x, parities, w_even, w_odd, bias, alpha_next, qlvl_next,
-                   out_dtype)
+                   out_dtype, w_packed)
 
 
 stem_s2d_conv.launches = 0
@@ -223,60 +249,181 @@ stem_s2d_conv.launches = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# K2's fixed sizes (csrc/stem_s2d.cu): warps per block, planes in the ring,
+# output channels per chunk of O
+_K2_WARPS, _K2_SLOTS, _K2_BN = 8, 3, 32
+# K2's cost model (_k2_candidates), in ns and bytes/ns, set by hand from
+# the device times of every tiling that scripts/k2_timing.py --sweep gave
+# at the flagship on an H100 (PERF.md section 6): a plane's latency
+# per round of 32-voxel groups over the block's 8 warps (and per 32
+# output channels), the rate at which one SM moves a plane's bytes (shared
+# by the blocks on it), and a block's fixed time (its weights and first
+# planes)
+_K2_PLANE_NS, _K2_SM_RATE, _K2_BLOCK_NS = 3200.0, 38.0, 2000.0
 
+
+class K2Plan(NamedTuple):
+    rows: int               # output rows per band
+    zc: int                 # output planes per z chunk
+    grid: Tuple[int, int]   # (bands x z chunks, patches)
+    threads: int            # per block
+    smem: int               # dynamic shared memory per block, bytes
+
+
+def _k2_smem(w, c8, o, rows):
+    """Shared memory of one K2 block, as the launch computes it: the
+    parity's weights (rows of 8 C8p + 8 bf16), the bias and the ring of
+    three plane tiles of (rows + 1) x (W + 1) voxels of C8p + 8 bf16."""
+    c8p = -(-c8 // 16) * 16
+    op = -(-o // _K2_BN) * _K2_BN
+
+    def up(v):
+        return -(-v // 128) * 128
+
+    off_ring = up(up(op * (8 * c8p + 8) * 2) + 4 * op)
+    return off_ring + _K2_SLOTS * up((rows + 1) * (w + 1) * (c8p + 8) * 2)
+
+
+def _k2_candidates(b, d, h, w, c8, o, out_bytes=2, sms=SMS):
+    """Every tiling K2 takes for one call, as ((work, blocks, -rows),
+    K2Plan) pairs: bands of 1, 2, 4, 8 or 16 rows (at most H), z chunks
+    of ceil(D / n) planes for n in 1, 2, 3, 4, 6, 8, 12, 16 (each chunk
+    count once), shared memory within a block.  Work is the busiest SM's
+    time: its waves of blocks (two at once where shared memory allows),
+    each block's fixed time plus, per plane, its warps' latency and its
+    bytes at the SM's rate, shared by the blocks on the SM."""
+    seen = set()
+    for rows in (1, 2, 4, 8, 16):
+        if rows > h and rows != 1:
+            break
+        smem = _k2_smem(w, c8, o, rows)
+        if smem > SMEM_BLOCK:
+            break
+        per_sm = max(1, min(2, SMEM_SM // (smem + 1024)))
+        bands = -(-h // rows)
+        groups = -(-(rows * w) // 32)  # 32-voxel groups of a band
+        rounds = -(-groups // _K2_WARPS) * -(-o // _K2_BN)
+        plane_bytes = (rows + 1) * w * c8 * 2 + rows * w * o * (out_bytes + 1)
+        for n in (1, 2, 3, 4, 6, 8, 12, 16):
+            zc = -(-d // n)
+            chunks = -(-d // zc)
+            if (rows, chunks) in seen:
+                continue
+            seen.add((rows, chunks))
+            blocks = b * bands * chunks
+            busy = min(per_sm, -(-blocks // sms))
+            waves = -(-blocks // (sms * per_sm))
+            plane_ns = (rounds * _K2_PLANE_NS
+                        + plane_bytes * busy / _K2_SM_RATE)
+            work = waves * (_K2_BLOCK_NS + (zc + 1) * plane_ns)
+            yield ((work, blocks, -rows),
+                   K2Plan(rows, zc, (bands * chunks, b), 32 * _K2_WARPS,
+                          smem))
+
+
+@functools.lru_cache(maxsize=1024)
+def _k2_plan(b, d, h, w, c8, o, sm_count=SMS, out_bytes=2) -> K2Plan:
+    """K2's tiling of one call, as the launch takes it: of
+    ``_k2_candidates``, the least work on the busiest SM, then fewer
+    blocks, then taller bands.  Raises when even a one-row band does not
+    fit a block's shared memory."""
+    best = min(_k2_candidates(b, d, h, w, c8, o, out_bytes, sm_count),
+               key=lambda c: c[0], default=None)
+    if best is None:
+        raise ValueError(f"K2 keeps a block's weights and three plane tiles "
+                         f"in shared memory: W = {w}, C8 = {c8}, O = {o} "
+                         f"do not fit")
+    return best[1]
+
+
+class _K2Call(ctypes.Structure):
+    """One K2 call's shape and plan, laid out as ``K2Call`` of
+    ``csrc/stem_s2d.cu``."""
+    _fields_ = [(f, _I) for f in ("B", "D", "H", "W", "C8", "O", "qlvl",
+                                  "out_bf16", "rows", "zc")]
+
+
+@functools.lru_cache(maxsize=1024)
+def _k2_call(b, d, h, w, c8, o, qlvl, out_bf16, plan=None):
+    """The launch's ``_K2Call`` for one shape (checked once per shape):
+    the shape, qlvl, the output type and ``plan`` (by default
+    ``_k2_plan``'s)."""
+    if c8 % 8 or d < 1:
+        raise ValueError(f"s2d patches with {d + 1} planes and {c8} "
+                         f"channels: need 8C channels and at least 2 planes")
+    if not 2 <= qlvl <= 128:
+        raise ValueError(f"qlvl_next {qlvl}: int8 codes need 2..128")
+    p = plan or _k2_plan(b, d, h, w, c8, o, out_bytes=2 if out_bf16 else 4)
+    return _K2Call(b, d, h, w, c8, o, qlvl, int(out_bf16), p.rows, p.zc)
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     from . import build
 
-    lib = build.load("stem_s2d.cu")
-    fn = lib.stem_s2d_launch
+    fn = build.load("stem_s2d.cu").stem_s2d_launch
     if fn.argtypes is None:  # ctypes would pass ints as 32-bit
-        fn.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+        fn.argtypes = [_P] * 5 + [ctypes.c_float, _P, _P,
+                                  ctypes.POINTER(_K2Call), _P]
         fn.restype = _I
     return fn
 
 
 def _launch(x, parities, w_even, w_odd, bias, alpha_next, qlvl_next,
-            out_dtype):
-    dev = x.device
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()
+            out_dtype, w_packed=None, plan=None):
+    """K2 on the card, with ``plan`` (by default ``_k2_plan``'s).  Lean on
+    the host: the shape checked once and passed with the plan as one
+    cached struct; the weights packed at deploy time; parities, bias and
+    alpha taken as they are when they are already on the card in the
+    kernel's types (alpha by value otherwise); so a call can be captured
+    in a CUDA graph."""
     if x.dtype != torch.bfloat16 or x.dim() != 5 or x.numel() == 0:
         raise ValueError(f"K2 needs non-empty 5-d bfloat16 patches, got "
                          f"{x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    index = x.get_device()
     b, d1, h, w, c8 = x.shape
     o = w_even.shape[-1]
-    if c8 % 8 or d1 < 2:
-        raise ValueError(f"s2d patches {tuple(x.shape)}: need 8C channels "
-                         f"and at least 2 planes")
-    for name, wt in (("w_even", w_even), ("w_odd", w_odd)):
-        if (wt.dtype != torch.bfloat16 or wt.device != dev
-                or tuple(wt.shape) != (2, 4 * c8, o)
-                or not wt.is_contiguous()):
-            raise ValueError(f"{name} {wt.dtype} {tuple(wt.shape)} on "
-                             f"{wt.device} does not fit patches "
-                             f"{tuple(x.shape)} -> {o} channels")
-    if tuple(parities.shape) != (b,):
-        raise ValueError(f"parities {tuple(parities.shape)} != ({b},)")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K2 stores float32 or bfloat16, not {out_dtype}")
-    if not 2 <= int(qlvl_next) <= 128:
-        raise ValueError(f"qlvl_next {qlvl_next}: int8 codes need 2..128")
-    f32 = dict(dtype=torch.float32, device=dev)
-    par = parities.to(device=dev, dtype=torch.int32).contiguous()
-    bias_v = bias.to(**f32).contiguous()
-    if tuple(bias_v.shape) != (o,):
-        raise ValueError(f"bias {tuple(bias_v.shape)} != ({o},)")
-    alpha = torch.as_tensor(alpha_next, **f32).reshape(1).contiguous()
-    y = torch.empty((b, d1 - 1, h, w, o), dtype=out_dtype, device=dev)
-    q = torch.empty((b, d1 - 1, h, w, o), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib()(x.data_ptr(), par.data_ptr(), w_even.data_ptr(),
-                    w_odd.data_ptr(), bias_v.data_ptr(), alpha.data_ptr(),
-                    y.data_ptr(), q.data_ptr(), b, d1 - 1, h, w, c8, o,
-                    int(qlvl_next), int(out_dtype == torch.bfloat16),
-                    torch.cuda.current_stream(dev).cuda_stream)
+    call = _k2_call(b, d1 - 1, h, w, c8, o, int(qlvl_next),
+                    out_dtype == torch.bfloat16, plan)
+    if w_packed is None:
+        for name, wt in (("w_even", w_even), ("w_odd", w_odd)):
+            if (wt.dtype != torch.bfloat16 or wt.get_device() != index
+                    or tuple(wt.shape) != (2, 4 * c8, o)):
+                raise ValueError(f"{name} {wt.dtype} {tuple(wt.shape)} on "
+                                 f"{wt.device} does not fit patches "
+                                 f"{tuple(x.shape)} -> {o} channels")
+        w_packed = pack_stem_weights(w_even, w_odd)
+    kp = 8 * (-(-c8 // 16) * 16)
+    # (a packed copy that is not 16-byte aligned the launch refuses)
+    if (w_packed.dtype != torch.bfloat16 or w_packed.shape != (2, o, kp)
+            or w_packed.get_device() != index
+            or not w_packed.is_contiguous()):
+        raise ValueError(f"packed weights {w_packed.dtype} "
+                         f"{tuple(w_packed.shape)} on {w_packed.device}: "
+                         f"pack_stem_weights gives (2, {o}, {kp}) bfloat16 "
+                         f"on {x.device}")
+    if tuple(parities.shape) != (b,):
+        raise ValueError(f"parities {tuple(parities.shape)} != ({b},)")
+    if (parities.dtype != torch.int32 or parities.get_device() != index
+            or not parities.is_contiguous()):
+        parities = parities.to(device=x.device, dtype=torch.int32)
+    bias_v = _vector(bias, o, x, "bias")
+    alpha, alpha_v = _alpha(alpha_next, x)
+    y = x.new_empty((b, d1 - 1, h, w, o), dtype=out_dtype)
+    q = x.new_empty((b, d1 - 1, h, w, o), dtype=torch.int8)
+    rc = _on_device(index, _lib(), x.data_ptr(), parities.data_ptr(),
+                    w_packed.data_ptr(), bias_v.data_ptr(),
+                    None if alpha is None else alpha.data_ptr(), alpha_v,
+                    y.data_ptr(), q.data_ptr(), call)
     if rc != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError_t {rc}")
+        raise RuntimeError(
+            f"K2 launch failed: cudaError_t {rc} ("
+            + ", ".join(f"{f} {getattr(call, f)}" for f, _ in call._fields_)
+            + ")")
     stem_s2d_conv.launches += 1
     return y, q

@@ -352,7 +352,8 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
         p = params[node.name]
         return (stem_conv or stem_s2d_conv)(
             xs, par, p["w_even"], p["w_odd"], p["bias"], p["alpha_next"],
-            node.attrs["qlvl_next"], out_dtype=compute_dtype or torch.float32)
+            node.attrs["qlvl_next"], out_dtype=compute_dtype or torch.float32,
+            w_packed=p.get("kernel_packed"))
     if node.op == "bn":
         p = params[node.name]
         s = state[node.name]

@@ -33,8 +33,9 @@ from ..eval.sliding import (make_volume_inferencer, patch_grid,
 from ..kernels.epilogue import fuse_int8_epilogues
 from ..kernels.qconv3d import pack_weights
 from ..kernels.qmatmul import pack_weights_1x1, to_pallas_inference
-from ..kernels.stem import (extract_pre_s2d_patches, s2d_need_planes,
-                            s2d_stem_weights, s2d_supported, s2d_volume)
+from ..kernels.stem import (extract_pre_s2d_patches, pack_stem_weights,
+                            s2d_need_planes, s2d_stem_weights, s2d_supported,
+                            s2d_volume)
 from ..nnir import Graph
 
 
@@ -205,6 +206,9 @@ def s2d_stem_serving(graph: Graph, variables):
         "bias": bias.to(torch.float32),
         "alpha_next": params[consumer.name]["alpha_act"],
     }
+    # K2's weight layout, made here once
+    params[stem.name]["kernel_packed"] = pack_stem_weights(
+        params[stem.name]["w_even"], params[stem.name]["w_odd"])
     codes_name = stem.name + ".s2d_codes"
     new_nodes = []
     for n in graph.nodes:

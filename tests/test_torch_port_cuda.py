@@ -373,6 +373,184 @@ def test_cuda_k2_rejects_mismatched_shapes(cuda):
         K2.stem_s2d_conv(x.float(), par, we, wo, bias, 1.0, 4)
 
 
+def raw_stem_inputs(b, d, h, w, c, o, parities, device, seed=0):
+    """K2's inputs drawn directly: (b, d + 1, h, w, 8c) random bfloat16
+    patches (plane 0 real data in every patch), the given parities, the
+    s2d weights of a random 3^3 kernel and a bias."""
+    rng = np.random.RandomState(seed + b + d + h + w + c + o)
+    x = torch.from_numpy((rng.randn(b, d + 1, h, w, 8 * c) * 0.8).astype(
+        np.float32)).to(device, torch.bfloat16)
+    par = torch.tensor(parities, dtype=torch.int32, device=device)
+    w3 = rng.randn(3, 3, 3, c, o).astype(np.float32) * 0.2
+    we, wo = (torch.from_numpy(v).to(device, torch.bfloat16)
+              for v in K2.s2d_stem_weights(w3))
+    bias = torch.from_numpy(rng.randn(o).astype(np.float32) * 0.1)
+    return x, par, we, wo, bias.to(device)
+
+
+def k2_plan(rows, zc):
+    """A K2 tiling by hand (the launch reads rows and zc)."""
+    return K2.K2Plan(rows, zc, (0, 0), 256, 0)
+
+
+# (B, D, H, W, C, O, parities, tiling or None for the plan's): planes of
+# 12 x 20 (no band height divides both), C = 1, O = 40, B = 1, D = 1,
+# z chunks of 4 planes over odd patches (chunk boundaries at 4 and 8), and
+# C = 5, 8 and 9 (3 and 4 k-steps per tap, and the run-time count)
+K2_EDGES = {
+    "c5-ksteps3": (1, 3, 6, 10, 5, 16, [1], None),
+    "c8-ksteps4": (1, 3, 6, 10, 8, 8, [0], None),
+    "c9-ksteps-at-run-time": (2, 3, 6, 10, 9, 8, [0, 1], None),
+    "12x20-c1-o40-b2": (2, 9, 12, 20, 1, 40, [1, 0], None),
+    "12x20-c4-o8-b1-odd": (1, 6, 12, 20, 4, 8, [1], None),
+    "12x20-c4-o8-b1-even": (1, 6, 12, 20, 4, 8, [0], None),
+    "d1-5x6-both": (2, 1, 5, 6, 4, 8, [0, 1], None),
+    "zchunks-odd-o32": (2, 11, 12, 20, 4, 32, [1, 1], (4, 4)),
+    "rows3-o20": (2, 5, 7, 9, 1, 20, [0, 1], (3, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(K2_EDGES))
+def test_cuda_k2_edge_shapes_match_plain(name, out, cuda):
+    b, d, h, w, c, o, parities, tiling = K2_EDGES[name]
+    x, par, we, wo, bias = raw_stem_inputs(b, d, h, w, c, o, parities, cuda)
+    alpha = torch.tensor(0.7, device=cuda)
+    before = K2.stem_s2d_conv.launches
+    if tiling is None:
+        y, q = K2.stem_s2d_conv(x, par, we, wo, bias, alpha, 4,
+                                out_dtype=out)
+    else:
+        y, q = K2._launch(x, par, we, wo, bias, alpha, 4, out,
+                          plan=k2_plan(*tiling))
+    yr, qr = K2.stem_s2d_conv_reference(x, par, we, wo, bias, alpha, 4,
+                                        out_dtype=out)
+    torch.cuda.synchronize()
+    assert K2.stem_s2d_conv.launches == before + 1
+    check_stem(y, q, yr, qr, 0.7, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k2_every_tiling_matches_plain(out, cuda):
+    """Every tiling that K2's plan chooses among gives the same bits (each
+    output's sum runs in the same order whatever block computes it), and
+    they match the plain version."""
+    x, par, we, wo, bias = raw_stem_inputs(2, 9, 12, 20, 4, 40, [1, 0], cuda)
+    wp = K2.pack_stem_weights(we, wo)
+    yr, qr = K2.stem_s2d_conv_reference(x, par, we, wo, bias, 0.7, 4,
+                                        out_dtype=out)
+    plans = [p for _, p in K2._k2_candidates(2, 9, 12, 20, 32, 40)]
+    assert len(plans) >= 8
+    first = None
+    for plan in plans:
+        got = K2._launch(x, par, we, wo, bias, 0.7, 4, out, wp, plan=plan)
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+            check_stem(*got, yr, qr, 0.7, 4)
+        for g, f in zip(got, first):
+            assert torch.equal(g, f), plan
+
+
+def _bf16_parts(v):
+    """float32 values v -> three bfloat16 arrays whose sum is v exactly, in
+    any order (each part a piece of v's significand)."""
+    def bf16(a):
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+    hi = bf16(v)
+    mid = bf16((v - hi).astype(np.float32))
+    lo = bf16((v - hi - mid).astype(np.float32))
+    finite = np.isfinite(v)
+    assert (hi[finite].astype(np.float64) + mid[finite] + lo[finite]
+            == v[finite].astype(np.float64)).all()
+    return hi, mid, lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("qlvl,alpha", [(2, 1.1), (3, 1.1), (4, 1.1),
+                                        (4, 0.37), (4, 3e-18), (16, 2.5),
+                                        (128, 0.9), (4, -0.8)])
+def test_cuda_k2_threshold_codes_are_exact(qlvl, alpha, out, cuda):
+    """K2's codes (thresholds at 2-4 levels, the divide otherwise) equal
+    the plain version's divide for stem outputs at, and one float (at
+    bfloat16 output one bfloat16) either side of, every code's tie, at the
+    clip, at +-0, large and random.  The weights make output o of voxel v
+    the exact sum of input channels o, o + 8 and o + 16 of the voxel's
+    plane 1, which hold three bfloat16 parts of the value; the bias puts
+    NaN, +inf and -inf on three more channels: NaN gives code 0, +inf the
+    top code (alpha > 0), -inf (relu'd to 0) code 0."""
+    from efficientq_tpu_torch.quant import act_codes
+
+    rng = np.random.RandomState(qlvl)
+    qmax = np.float32(qlvl - 1)
+    a = np.float32(abs(alpha))
+    ties = ((np.arange(qlvl, dtype=np.float32) + np.float32(0.5)) / qmax
+            * a).astype(np.float32)
+    if out == torch.bfloat16:  # the output's own grid
+        ties = torch.from_numpy(ties).to(torch.bfloat16)
+        bits = ties.view(torch.int16)
+        v = torch.cat([bits, bits + 1, bits - 1]).view(
+            torch.bfloat16).float().numpy()
+    else:
+        v = np.concatenate([np.nextafter(ties, -np.inf), ties,
+                            np.nextafter(ties, np.inf)])
+    edges = np.float32([0.0, -0.0, a, -a, np.nextafter(a, 0), 1e-30, 3e38])
+    v = np.concatenate([v, edges, np.abs(rng.randn(2048) * a)]).astype(
+        np.float32)
+    h, w, o = 32, 48, 8
+    vals = np.resize(v, (h, w, 5))  # outputs 0-4; 5-7 from the bias
+    x = np.zeros((1, 2, h, w, 32), np.float32)
+    for k, part in enumerate(_bf16_parts(vals)):
+        x[0, 1, :, :, 8 * k:8 * k + 5] = part
+    wt = np.zeros((2, 4 * 32, o), np.float32)
+    for c in range(24):  # tap (kd2, kh2, kw2) = (1, 1, 1): plane 1, (h, w)
+        wt[1, 3 * 32 + c, c % 8] = 1.0
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    we = torch.from_numpy(wt).to(cuda, torch.bfloat16)
+    par = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bias = torch.tensor([0.0] * 5 + [float("nan"), float("inf"),
+                                     float("-inf")], device=cuda)
+    at = torch.tensor(alpha, device=cuda)
+    y, q = K2.stem_s2d_conv(xt, par, we, we, bias, at, qlvl, out_dtype=out)
+    yr, qr = K2.stem_s2d_conv_reference(xt, par, we, we, bias, at, qlvl,
+                                        out_dtype=out)
+    torch.cuda.synchronize()
+    assert torch.equal(y[..., :5], yr[..., :5])
+    assert torch.equal(q[..., :5], qr[..., :5])
+    assert torch.equal(q[..., :5], act_codes(y[..., :5], at, qlvl))
+    top = qlvl - 1 if alpha > 0 else 0
+    for ch, code in ((5, 0), (6, top), (7, 0)):
+        assert bool((q[..., ch] == code).all()), (ch, code)
+
+
+@pytest.mark.cuda
+def test_cuda_k2_call_replays_in_a_cuda_graph(cuda):
+    """A lean call (packed weights, alpha, bias and parities on the card)
+    is captured in a CUDA graph, and its replay equals the eager call."""
+    x, par, we, wo, bias = raw_stem_inputs(2, 9, 12, 20, 4, 32, [1, 0], cuda)
+    wp = K2.pack_stem_weights(we, wo)
+    alpha = torch.tensor(0.7, device=cuda)
+    args = (x, par, we, wo, bias, alpha, 4)
+    eager = K2.stem_s2d_conv(*args, out_dtype=torch.bfloat16, w_packed=wp)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K2.stem_s2d_conv(*args, out_dtype=torch.bfloat16, w_packed=wp)
+    for t in out:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, e in zip(out, eager):
+        assert torch.equal(g, e)
+
+
 @pytest.mark.cuda
 def test_cuda_s2d_slice_matches_plain_kernels(cuda):
     """The s2d bf16 serving slice of a small net with K2 and K1 against the

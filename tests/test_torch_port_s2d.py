@@ -290,6 +290,27 @@ def test_serving_rewrites_match_jax(s2d_graphs):
                                               err_msg=f"{node}.{k}")
 
 
+def test_s2d_stem_node_carries_packed_weights(s2d_graphs):
+    """The rewrite packs K2's weights once, at deploy time, and the stem
+    node hands them to the kernel's wrapper."""
+    _, (_, tsg, tsv, tst) = s2d_graphs
+    p = tsv["params"][tst.name]
+    want = stem.pack_stem_weights(p["w_even"], p["w_odd"])
+    assert torch.equal(p["kernel_packed"].view(torch.int16),
+                       want.view(torch.int16))
+    seen = {}
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return stem.stem_s2d_conv_reference(*args, **kw)
+
+    img = torch.from_numpy(_volume(3, (32, 32, 32)))
+    xs, par = stem.extract_s2d_patches(img, [(0, 0, 0)], PATCH)
+    nnir.apply(tsg, tsv, (xs, par), mode="quantized", compute_dtype=BF16,
+               stem_conv=spy)
+    assert seen["w_packed"] is p["kernel_packed"]
+
+
 def test_from_jax_variables_carries_bf16():
     w = np.random.RandomState(0).randn(5, 3).astype(np.float32)
     jw = np.asarray(jnp.asarray(w, jnp.bfloat16))
