@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving paths and its PTQ calibration
+on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -87,10 +88,35 @@ Phases, each printed on its own lines:
    ``nnir.apply(mode="fq")``: 6 K4 launches, finite logits, >= 0.99
    argmax agreement with the plain-K4 forward, the max |logit difference|
    printed.
+7. the calibration slice: the same preset at full width and depth, weights
+   from ``--seed`` with BN state randomised as tests/test_ptq_e2e.py does,
+   calibrated by ``ptq.run_ptq`` (200 ADMM iterations a layer) on one
+   synthetic BraTS volume center-cropped to 128 x 192 x 192 by the
+   calibration crop rule.  Printed beside the card's name and power
+   limit: the FP forward's and the calibration's seconds, each layer's
+   Gram build, ADMM and the rest (CUDA events) and reported loss, and the
+   peak device memory.  Checked: 22 finite layer losses, every
+   weight-quantized kernel on its grid, the quantized forward equal to the
+   sweep's output within 1e-3, the calibrated net's MSE to the FP output
+   below the naive net's (fq at alpha_w = 1 with the calibrated alpha_act,
+   as the JAX test; the net with each kernel projected at its own alpha is
+   printed).  The calibrated net is deployed to int8 and serves phase 2's
+   first volume on the int8 float32 path (14 K1 launches per forward,
+   equal to the plain-K1 run, finite Dice, agreement with the FP net's
+   prediction printed) and on the s2d bf16 path (1 K2 and 14 K1 launches,
+   >= 0.99 agreement with the s2d path on the plain K2 and K1).  Then the
+   tiny fixture of tests/test_ptq_e2e.py is calibrated on the card, and
+   on the CPU unperturbed and under 12 rounding-level (1e-7) perturbations
+   of its Grams, which reach several equally valid outcomes: the card's
+   gaps to the unperturbed run are printed, and its outcome must lie,
+   within the CPU tests' tolerances (codes equal on >= 0.99, layer losses
+   within 1e-2, alpha_act within 1e-5, class voxel counts equal, argmax
+   agreement >= 0.99), at one of the CPU's.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
-path (phases 2 and 4, and paths (b) and (c) of phase 6): wall time,
-device time and the kernels by device time.
+path (phases 2 and 4, and paths (b) and (c) of phase 6) and of one
+``run_ptq`` of phase 7 at 20 ADMM iterations a layer: wall time, device
+time and the kernels by device time.
 
 Then one JSON line describing each kernel of the paths, the card's
 nvidia-smi line, and the result line.  With no CUDA device, or when any
@@ -1279,6 +1305,404 @@ def phase6(seed: int, served, s2d_preds):
     return launches, infer_b, infer_c
 
 
+def _on(variables, device):
+    return {group: {node: {k: v.to(device) for k, v in entries.items()}
+                    for node, entries in variables.get(group, {}).items()}
+            for group in ("params", "state")}
+
+
+def _random_bn_state(variables, seed):
+    """BN statistics drawn as tests/test_ptq_e2e.py draws them, so that
+    folding is not the identity."""
+    rng = np.random.RandomState(seed)
+    for s in variables["state"].values():
+        s["mean"] = torch.from_numpy(
+            rng.randn(*s["mean"].shape).astype(np.float32) * 0.1)
+        s["var"] = torch.from_numpy(
+            (np.abs(rng.randn(*s["var"].shape)) * 0.2 + 0.9)
+            .astype(np.float32))
+    return variables
+
+
+def calibration_crop(seed):
+    """One synthetic BraTS volume (4 modalities), center-cropped by the
+    calibration crop rule (each spatial extent capped at 192 and rounded
+    down to a multiple of 64): (1, 128, 192, 192, 4) float32."""
+    from efficientq_tpu_torch.data.synthetic import make_subject
+
+    img, _ = make_subject(np.random.default_rng(seed + 300), "brats",
+                          VOL_SHAPE)
+    vol = np.stack(list(img.values()), axis=-1)
+    crop = [min(e, 192) // 64 * 64 for e in VOL_SHAPE]
+    lo = [(e - c) // 2 for e, c in zip(VOL_SHAPE, crop)]
+    return np.ascontiguousarray(vol[lo[0]:lo[0] + crop[0],
+                                    lo[1]:lo[1] + crop[1],
+                                    lo[2]:lo[2] + crop[2]][None])
+
+
+def flagship_for_ptq(seed):
+    """The BraTS W4A4 preset at full width and depth, weights from
+    ``seed``, BN state randomised: (graph, variables) on the CPU."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.models import build_uresq, preset_config
+
+    graph = build_uresq(preset_config("brats", quantize=True))
+    return graph, _random_bn_state(nnir.init(graph, seed, device="cpu"),
+                                   seed)
+
+
+def tiny_calibration(device):
+    """run_ptq on the fixture of tests/test_ptq_e2e.py (the tiny W4A4 net,
+    BN state randomised, 40 ADMM iterations) on ``device``."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.models import UResQConfig, build_uresq
+    from efficientq_tpu_torch.ptq import PTQHyperParams, run_ptq
+
+    cfg = UResQConfig(num_mod=2, num_classes=3, depth_config=[1, 1, 1],
+                      width_config=[4, 8, 4], dilation_config=[1, 1, 1],
+                      init_stride=(2, 2, 2), drop_rate=0.0, blk_type="mid",
+                      ds="simple", ds_depth_limit=3, quantize=True, qlvl_w=4,
+                      qlvl_act=4, q_first=(256, -1), q_last=(256, -1))
+    graph = build_uresq(cfg)
+    variables = _random_bn_state(nnir.init(graph, 0, device="cpu"), 0)
+    x = np.random.RandomState(7).randn(1, 16, 16, 16, 2).astype(np.float32)
+    return run_ptq(graph, variables, x, task="lits", init_stride=(2, 2, 2),
+                   hp=PTQHyperParams(admm_iter=40), device=device)
+
+
+def tiny_outcome(result):
+    """What a tiny-fixture calibration decided: per layer its weight codes,
+    reported loss, alpha_w and alpha_act, and the class voxel counts and
+    argmax of the calibrated output, on the CPU."""
+    fg, qv, rep = result
+    out = {"nums": rep.class_voxel_nums,
+           "argmax": rep.output_q[-1].argmax(-1).cpu(), "layers": {}}
+    for name, loss in rep.layer_losses:
+        q = fg.node(name).attrs["qcfg"]
+        p = qv["params"][name]
+        out["layers"][name] = dict(
+            codes=_grid_codes(p["kernel"].cpu(), float(p["alpha_w"]),
+                              q.qlvl_w)[0],
+            loss=loss, alpha_w=float(p["alpha_w"]),
+            alpha_act=float(p["alpha_act"]) if q.q_act else None)
+    return out
+
+
+def outcome_gaps(a, b):
+    """(share of equal weight codes, largest relative gaps {loss, alpha_w,
+    alpha_act}, argmax agreement, class counts equal) of two outcomes."""
+    same = total = 0
+    gaps = {"loss": 0.0, "alpha_w": 0.0, "alpha_act": 0.0}
+    for name, la in a["layers"].items():
+        lb = b["layers"][name]
+        same += int((la["codes"] == lb["codes"]).sum())
+        total += la["codes"].numel()
+        for k in gaps:
+            if la[k] is not None:
+                gaps[k] = max(gaps[k], abs(la[k] / lb[k] - 1))
+    argmax = float((a["argmax"] == b["argmax"]).float().mean())
+    return same / total, gaps, argmax, a["nums"] == b["nums"]
+
+
+def within_cpu_tolerances(share, gaps, argmax, nums_equal):
+    """The tolerances tests/test_torch_port_ptq.py holds the CPU to against
+    JAX."""
+    return (nums_equal and share >= 0.99 and gaps["loss"] <= 1e-2
+            and gaps["alpha_act"] <= 1e-5 and argmax >= 0.99)
+
+
+def perturbed_grams(seed):
+    """A ``compute_gram_stats`` whose A_att and B_att are scaled element
+    by element by 1 + 1e-7 N(0, 1) (A_att kept symmetric): noise at the
+    level of the float32 sums' own rounding."""
+    from efficientq_tpu_torch.ptq import solver
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def grams(*args, **kw):
+        st = solver.compute_gram_stats(*args, **kw)
+
+        def noisy(t):
+            return t * (1 + 1e-7 * torch.randn(t.shape, generator=gen,
+                                               dtype=t.dtype))
+        A = noisy(st.A_att)
+        return st._replace(A_att=(A + A.T) / 2, B_att=noisy(st.B_att))
+    return grams
+
+
+def cpu_rounding_outcomes(draws=12):
+    """The tiny fixture's calibration on the CPU, unperturbed and under
+    ``draws`` rounding-level perturbations of its Grams: ADMM projects
+    onto the grid at every step, so a perturbation that flips one
+    near-tie code sends a layer to another, equally valid, best iterate."""
+    from efficientq_tpu_torch.ptq import admm
+
+    outcomes = [tiny_outcome(tiny_calibration("cpu"))]
+    real = admm.compute_gram_stats
+    try:
+        for seed in range(draws):
+            admm.compute_gram_stats = perturbed_grams(seed)
+            outcomes.append(tiny_outcome(tiny_calibration("cpu")))
+    finally:
+        admm.compute_gram_stats = real
+    return outcomes
+
+
+def tiny_card_against_cpu(dev):
+    """The tiny fixture calibrated on the card and on the CPU: how far
+    cuBLAS/cuSOLVER drift from the CPU's BLAS/LAPACK.  The card's outcome
+    must lie within the CPU tests' tolerances of one of the outcomes the
+    CPU itself reaches under rounding-level perturbations."""
+    card = tiny_outcome(tiny_calibration(dev))
+    cpu = cpu_rounding_outcomes()
+    distinct = []
+    for o in cpu:
+        if not any(outcome_gaps(o, d)[0] == 1.0 for d in distinct):
+            distinct.append(o)
+    share, gaps, argmax, nums = outcome_gaps(card, cpu[0])
+    print(f"[phase7] tiny fixture, card against CPU: weight codes equal on "
+          f"{share:.8f}; largest relative gap: layer loss "
+          f"{gaps['loss']:.3e}, alpha_w {gaps['alpha_w']:.3e}, alpha_act "
+          f"{gaps['alpha_act']:.3e}; class voxel counts equal: {nums}; "
+          f"argmax agreement {argmax:.8f}", flush=True)
+    spread = [outcome_gaps(o, cpu[0]) for o in cpu[1:]]
+    print(f"[phase7] the CPU under {len(cpu) - 1} rounding-level "
+          f"perturbations of its Grams (x (1 + 1e-7 N(0, 1))) reaches "
+          f"{len(distinct)} distinct outcomes: codes equal to the "
+          f"unperturbed run's on {min(s for s, _, _, _ in spread):.8f} at "
+          f"the least, layer loss gaps up to "
+          f"{max(g['loss'] for _, g, _, _ in spread):.3e}, alpha_act gaps "
+          f"up to {max(g['alpha_act'] for _, g, _, _ in spread):.3e}",
+          flush=True)
+    near = max(range(len(cpu)), key=lambda i: outcome_gaps(card, cpu[i])[0])
+    share, gaps, argmax, nums = outcome_gaps(card, cpu[near])
+    print(f"[phase7] nearest CPU outcome (draw {near}; 0 = "
+          f"unperturbed): codes equal on {share:.8f}; largest relative gap:"
+          f" layer loss {gaps['loss']:.3e}, alpha_w {gaps['alpha_w']:.3e}, "
+          f"alpha_act {gaps['alpha_act']:.3e}; argmax agreement "
+          f"{argmax:.8f}", flush=True)
+    check(within_cpu_tolerances(share, gaps, argmax, nums),
+          "tiny fixture: the card's calibration is none of the CPU's "
+          "rounding-level outcomes")
+
+
+def _grid_codes(kernel, alpha, qlvl):
+    """(integer codes, largest distance from the alpha grid) of a
+    weight-quantized kernel."""
+    t = (kernel.double() / alpha + 1.0) * (qlvl - 1) / 2
+    codes = torch.round(t)
+    return codes, float(((t - codes).abs() * alpha * 2 / (qlvl - 1)).max())
+
+
+def phase7(seed: int, smi: str, vol, label, dev):
+    """The calibration slice: run_ptq of the flagship on one calibration
+    crop, checked; the calibrated net served on the int8 float32 path and
+    the s2d bf16 path; the tiny fixture calibrated on the card and on the
+    CPU.  Returns {path: {kernel: launches}}."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.data.labels import split_label_brats
+    from efficientq_tpu_torch.eval.metrics import dice
+    from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
+                                                   patch_grid)
+    from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.kernels import stem
+    from efficientq_tpu_torch.ptq import (PTQHyperParams, fold_bn, run_ptq,
+                                          to_int8_inference)
+    from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
+    from efficientq_tpu_torch.quant import project_by_iter
+
+    graph, variables = flagship_for_ptq(seed)
+    x = calibration_crop(seed)
+    hp = PTQHyperParams()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fg, qv, rep = run_ptq(graph, variables, x, task="brats",
+                          init_stride=(2, 2, 2), hp=hp, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[phase7] on {smi}: run_ptq of the BraTS W4A4 preset (full width "
+          f"and depth) on one {tuple(x.shape[1:4])} x 4 calibration crop, "
+          f"{hp.admm_iter} ADMM iterations a layer: FP forward "
+          f"{rep.fp_forward_seconds:.4f} s, calibration "
+          f"{rep.calibration_seconds:.4f} s, run_ptq {wall:.4f} s (copies "
+          f"and BN folding included); peak device memory "
+          f"{peak / 2**30:.4f} GiB above the {base / 2**30:.4f} GiB held "
+          f"before", flush=True)
+    nodes = fg.qconv_nodes()
+    check(len(rep.layer_losses) == len(nodes) == 22,
+          f"{len(rep.layer_losses)} layer losses for {len(nodes)} qconvs")
+    sums = {"gram": 0.0, "admm": 0.0, "rest": 0.0}
+    worst = 0.0
+    for (name, loss), (_, rel) in zip(rep.layer_losses,
+                                      rep.layer_rel_losses):
+        node = fg.node(name)
+        q, a = node.attrs["qcfg"], node.attrs
+        p = qv["params"][name]
+        secs = rep.layer_seconds[name]
+        for k in sums:
+            sums[k] += secs[k]
+        _, dist = _grid_codes(p["kernel"], float(p["alpha_w"]), q.qlvl_w)
+        worst = max(worst, dist)
+        print(f"[phase7]   {name:45s} {a['kernel_size'][0]}^3 "
+              f"{a['in_ch']:3d}->{a['out_ch']:3d} W{q.qlvl_w}"
+              f"A{q.qlvl_act if q.q_act else '-'}: gram "
+              f"{secs['gram'] * 1e3:9.3f} ms, admm {secs['admm'] * 1e3:9.3f}"
+              f" ms ({secs['admm'] * 1e3 / hp.admm_iter:.3f} a step), rest "
+              f"{secs['rest'] * 1e3:8.3f} ms; loss {loss:.6e} (relative "
+              f"{rel:.6e})", flush=True)
+        check(np.isfinite(loss) and np.isfinite(rel), f"{name}: loss {loss}")
+        check(dist < 1e-4, f"{name}: kernel {dist} off its grid")
+    print(f"[phase7] on {smi}: per-layer sums (CUDA events): gram "
+          f"{sums['gram']:.4f} s, admm {sums['admm']:.4f} s, rest "
+          f"{sums['rest']:.4f} s; every kernel on its grid (largest "
+          f"distance {worst:.3e})", flush=True)
+
+    xd = torch.from_numpy(x).to(dev)
+    with torch.inference_mode():
+        out_q = nnir.apply(fg, qv, xd, mode="quantized")
+    gap = float((out_q - rep.output_q).abs().max())
+    check(torch.allclose(out_q, rep.output_q, atol=1e-3, rtol=1e-3),
+          f"quantized forward vs the sweep's output: max |diff| {gap}")
+    # naive: the folded FP weights quantized on the fly at alpha_w = 1
+    # (mode 'fq') with the calibrated alpha_act, as tests/test_ptq_e2e.py;
+    # and, printed, each folded kernel projected at its own optimal alpha
+    nfg, nfv = fold_bn(graph, variables)
+    for name, p in nfv["params"].items():
+        if "alpha_act" in p:
+            p["alpha_act"] = qv["params"][name]["alpha_act"].cpu()
+    pfv = {"params": {k: dict(v) for k, v in nfv["params"].items()},
+           "state": nfv["state"]}
+    for node in nfg.qconv_nodes():
+        q, p = node.attrs["qcfg"], pfv["params"][node.name]
+        if q.q_weight:
+            a_w, b_w = project_by_iter(p["kernel"].to(dev), q.qlvl_w)
+            p["kernel"], p["alpha_w"] = (a_w * b_w).cpu(), a_w.cpu()
+    with torch.inference_mode():
+        out_naive = nnir.apply(nfg, _on(nfv, dev), xd, mode="fq")
+        out_proj = nnir.apply(nfg, _on(pfv, dev), xd, mode="quantized")
+    fp = rep.output_fp[-1]
+    err = {k: float(torch.mean((o[-1] - fp) ** 2)) for k, o in
+           (("calibrated", out_q), ("naive", out_naive),
+            ("projected", out_proj))}
+    print(f"[phase7] final-head MSE to the FP output: calibrated "
+          f"{err['calibrated']:.6e}, naive (fq at alpha_w = 1) "
+          f"{err['naive']:.6e}, each kernel projected at its optimal alpha "
+          f"{err['projected']:.6e}; quantized forward vs the sweep's output "
+          f"max |diff| {gap:.3e}", flush=True)
+    check(np.isfinite(err["calibrated"])
+          and err["calibrated"] < err["naive"],
+          f"calibrated MSE {err['calibrated']} not below naive "
+          f"{err['naive']}")
+    del out_q, out_naive, out_proj, xd
+    torch.cuda.empty_cache()
+
+    # serving the calibrated net: int8 float32 path, then s2d bf16
+    dg, dv = to_int8_inference(fg, _on(qv, "cpu"))
+    n_k1 = sum(1 for n in dg.nodes if n.attrs.get("pallas"))
+    check(n_k1 == 14, f"calibrated deployment: {n_k1} K1 convs, expected 14")
+    dv = _on(dv, dev)
+    forwards = -(-len(patch_grid(VOL_SHAPE, PATCH, OVERLAP)) // N_BATCH)
+    kw = dict(patch_batch=N_BATCH, heads=slice(-1, None), hard_pred=True,
+              multilabel=True)
+    infer = make_volume_inferencer(dg, mode="quantized", **kw)
+    launches = {}
+    with _Launches() as counted:
+        t0 = time.perf_counter()
+        pred = infer(dv, vol.to(dev), PATCH, OVERLAP)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches["calibrated_int8_f32"] = counted.counts
+    check(counted.counts["K1"] == 14 * forwards,
+          f"calibrated int8 path: {counted.counts} over {forwards} forwards")
+    plain = make_volume_inferencer(
+        dg, mode="quantized", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        **kw)(dv, vol.to(dev), PATCH, OVERLAP)
+    check(torch.equal(plain, pred), "calibrated int8 path: K1 != plain K1")
+    target = split_label_brats(label)
+    d = [dice(pred[0, 0, ..., c].cpu().numpy(), target[c]) for c in range(3)]
+    check(all(np.isfinite(d)), f"calibrated int8 path: Dice {d}")
+    fg_fp, fv_fp = fold_bn(graph, variables)
+    fp_pred = make_volume_inferencer(fg_fp, mode="fp", **kw)(
+        _on(fv_fp, dev), vol.to(dev), PATCH, OVERLAP)
+    agree_fp = float((fp_pred == pred).float().mean())
+    print(f"[phase7] on {smi}: calibrated net served on the int8 float32 "
+          f"path: {secs:.4f} s for one volume, launches {counted.counts} "
+          f"over {forwards} patch-batch forwards; equal to the plain-K1 run;"
+          f" Dice WT/TC/ET vs synthetic labels {[round(v, 6) for v in d]}; "
+          f"agrees with the FP network's prediction on {agree_fp:.8f} of "
+          f"{pred.numel()} voxel-classes", flush=True)
+    del plain, fp_pred
+    torch.cuda.empty_cache()
+
+    s2d_kw = dict(multilabel=True, heads=slice(-1, None), device=dev)
+    s2d = make_s2d_volume_inferencer(dg, dv, **s2d_kw)
+    check(s2d is not None, "calibrated deployment: no eligible s2d stem")
+    host = vol.numpy()
+    with _Launches() as counted:
+        s2d_pred = s2d(None, host, PATCH, OVERLAP)
+    launches["calibrated_s2d_bf16"] = counted.counts
+    check(counted.counts["K1"] == 14 and counted.counts["K2"] == 1,
+          f"calibrated s2d path: launches {counted.counts}")
+    s2d_plain = make_s2d_volume_inferencer(
+        dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        stem_conv=stem.stem_s2d_conv_reference, **s2d_kw)(
+        None, host, PATCH, OVERLAP)
+    agree_s2d = float((s2d_plain == s2d_pred).float().mean())
+    print(f"[phase7] calibrated net on the s2d bf16 path: launches "
+          f"{counted.counts}; agrees with the s2d path on the plain K2 and "
+          f"K1 on {agree_s2d:.8f} of {s2d_pred.numel()} voxel-classes "
+          f"(random weights, phase 4: 0.99214107), with the int8 float32 "
+          f"path on {float((s2d_pred == pred).float().mean()):.8f}",
+          flush=True)
+    check(agree_s2d >= AGREE_PLAIN_S2D, f"calibrated s2d path vs the plain "
+          f"K2 and K1: {agree_s2d} < {AGREE_PLAIN_S2D}")
+    del s2d, s2d_pred, s2d_plain, pred, dv, qv
+    torch.cuda.empty_cache()
+
+    # the tiny fixture on the card and on the CPU
+    tiny_card_against_cpu(dev)
+    return launches
+
+
+def profile_calibration(seed):
+    """torch.profiler over run_ptq of the flagship on the calibration crop,
+    at 20 ADMM iterations a layer (the steps repeat, so their mix is
+    that of 200)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from efficientq_tpu_torch.ptq import PTQHyperParams, run_ptq
+
+    graph, variables = flagship_for_ptq(seed)
+    x = calibration_crop(seed)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_ptq(graph, variables, x, task="brats", init_stride=(2, 2, 2),
+                hp=PTQHyperParams(admm_iter=20), device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.key != "Activity Buffer Request"]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in events) / 1e3
+    print(f"[profile] run_ptq, 20 ADMM iterations a layer: wall {wall:.3f} "
+          f"ms under the profiler, device busy {busy:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy / wall):.4f}), {sum(e.count for e in events)}"
+          f" device events", flush=True)
+    for e in sorted(events, key=dev_us, reverse=True)[:20]:
+        print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}", flush=True)
+
+
 def profile_paths(served, s2d_infer, k3_infer, mixed_infer):
     """torch.profiler over one volume of each serving path."""
     from torch.profiler import ProfilerActivity, profile
@@ -1338,8 +1762,11 @@ def main():
     k1_s2d, k2, s2d_infer, s2d_preds = phase4(args.seed, served)
     p5 = phase5(args.seed)
     paths, k3_infer, mixed_infer = phase6(args.seed, served, s2d_preds)
+    calibrated = phase7(args.seed, smi, served["vols"][0],
+                        served["subjects"][0][1], torch.device("cuda"))
     if args.profile:
         profile_paths(served, s2d_infer, k3_infer, mixed_infer)
+        profile_calibration(args.seed)
     # launches of each kernel on each serving path, counted from 0 around
     # the path's run
     by_path = {"K1": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
@@ -1350,6 +1777,10 @@ def main():
         for kernel, n in counts.items():
             if n:
                 by_path[kernel][names[path]] = n
+    for path, counts in calibrated.items():
+        for kernel, n in counts.items():
+            if n:
+                by_path[kernel][path] = n
 
     def entry(kernel, name, source, replaces, numbers):
         return {"name": name, "route": "cuda", "source": source,

@@ -8,7 +8,9 @@ prediction, and score Dice.  The s2d path (``--serve_stem s2d``) serves the
 same int8 graph at bfloat16 with the init conv as the fused
 space-to-depth stem.  The interior 3^3 int8 convs run on the hand-written
 CUDA kernel K1 (kernels/qconv3d.py, csrc/qconv3d_int8.cu), the s2d stem on
-K2 (kernels/stem.py, csrc/stem_s2d.cu).
+K2 (kernels/stem.py, csrc/stem_s2d.cu).  The PTQ calibration
+(``ptq.run_ptq``: attention pyramid, Gram solver, ADMM) produces the
+quantized weights those paths serve; it runs on cuBLAS and cuSOLVER.
 
 Modules keep the JAX package's paths and function names; layouts are the
 JAX package's (NDHWC activations, DHWIO kernels, flat variable dicts).

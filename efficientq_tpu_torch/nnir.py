@@ -390,7 +390,8 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
           mode: str = "fp", heads: Optional[slice] = None,
           conv3x3_int8: Callable = None, stem_conv: Callable = None,
           int8_matmul: Callable = None, qact_matmul: Callable = None,
-          compute_dtype=None, keep_head_dtype: bool = False) -> torch.Tensor:
+          compute_dtype=None, keep_head_dtype: bool = False,
+          capture: Optional[Sequence[str]] = None):
     """Interpret the graph on ``x`` (NDHWC; for an s2d-stem graph the
     (patches, parities) pair of ``kernels.stem.extract_s2d_patches``).
 
@@ -405,13 +406,17 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     unless ``keep_head_dtype`` (hard-prediction serving keeps them).
 
     Returns the selected head outputs stacked: (num_heads, N, D, H, W, C)
-    (a channels-first head: (num_heads, N, C, D, H, W)).
+    (a channels-first head: (num_heads, N, C, D, H, W)).  With ``capture``
+    (node names) returns (heads, {name: that node's output}): the PTQ
+    sweep's regression targets.  Captured nodes are evaluated even where
+    no selected head reaches them, and outlive their last consumer.
     """
     assert mode in ("fp",) + QUANT_MODES
     outputs = graph.outputs if heads is None else graph.outputs[heads]
     params = variables["params"]
     st = variables.get("state", {})
-    live = live_nodes(graph, outputs)
+    captured = {}
+    live = live_nodes(graph, list(outputs) + list(capture or ()))
     uses = collections.Counter(i for n in graph.nodes if n.name in live
                                for i in n.inputs)
     uses.update(outputs)
@@ -425,6 +430,8 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
                 mode=mode, conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
                 int8_matmul=int8_matmul, qact_matmul=qact_matmul,
                 compute_dtype=compute_dtype)
+            if capture and node.name in capture:
+                captured[node.name] = values[node.name]
             for n in node.inputs:
                 uses[n] -= 1
                 if uses[n] == 0:
@@ -432,6 +439,8 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     outs = [values[o] for o in outputs]
     if compute_dtype is not None and not keep_head_dtype:
         outs = [o.to(torch.float32) for o in outs]
+    if capture is not None:
+        return torch.stack(outs), captured
     return torch.stack(outs)
 
 

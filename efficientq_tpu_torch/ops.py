@@ -94,12 +94,28 @@ def conv3d_ncdhw_out(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.conv3d(ndhwc_to_ncdhw(x), dhwio_to_oidhw(kernel)).contiguous()
 
 
+def _pool(pool, x: torch.Tensor, kernel: IntOr3, stride) -> torch.Tensor:
+    """A VALID 3-D pool of NDHWC ``x``; an extent below its window gives an
+    empty output, as XLA's reduce_window does (torch raises)."""
+    k = triple(kernel)
+    s = triple(stride) if stride is not None else k
+    if any(e < w for e, w in zip(x.shape[1:4], k)):
+        out = [max(0, (e - w) // t + 1)
+               for e, w, t in zip(x.shape[1:4], k, s)]
+        return x.new_empty((x.shape[0], *out, x.shape[-1]))
+    return _ndhwc_out(pool(ndhwc_to_ncdhw(x), k, s))
+
+
 def max_pool3d(x: torch.Tensor, kernel: IntOr3,
                stride: Optional[IntOr3] = None) -> torch.Tensor:
     """Max pooling over D, H, W (VALID, like torch MaxPool3d padding=0)."""
-    k = triple(kernel)
-    s = triple(stride) if stride is not None else k
-    return _ndhwc_out(F.max_pool3d(ndhwc_to_ncdhw(x), k, s))
+    return _pool(F.max_pool3d, x, kernel, stride)
+
+
+def avg_pool3d(x: torch.Tensor, kernel: IntOr3,
+               stride: Optional[IntOr3] = None) -> torch.Tensor:
+    """Mean over each D, H, W window (VALID, no padding)."""
+    return _pool(F.avg_pool3d, x, kernel, stride)
 
 
 def upsample3d(x: torch.Tensor, scale_factor: IntOr3) -> torch.Tensor:

@@ -1,9 +1,8 @@
 """Quantization math core (PyTorch).
 
 Counterpart of the JAX package's ``quant.py``: the uniform fake-quantizer,
-integer weight packing, and the float64 NumPy oracle of the alternating
-scale search.  The JAX-traced ``project_by_iter`` / ``project_by_iter_rows``
-belong to the PTQ calibration slice and are not here yet.
+integer weight packing, the alternating scale search ``project_by_iter``
+(per tensor and per row) and its float64 NumPy oracle.
 
 Every divisor is made a tensor on the operand's device before dividing: on
 a CUDA tensor PyTorch turns ``x / python_float`` into ``x * (1 / float)``,
@@ -43,7 +42,11 @@ def _promoted(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
-    """``v`` as a float32 0-d (or per-channel) tensor on ``like``'s device."""
+    """``v`` as a float32 0-d (or per-channel) tensor on ``like``'s device.
+    A Python number is filled in on the device: copying it from the host
+    would wait for the device's queue to drain."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=torch.float32, device=like.device)
     return torch.as_tensor(v, dtype=torch.float32, device=like.device)
 
 
@@ -76,6 +79,68 @@ def act_codes(x, alpha_act, num_lvl):
     a = _scalar(alpha_act, x)
     return torch.round(torch.clamp(_promoted(x) / a, 0.0, 1.0)
                        * (num_lvl - 1)).to(torch.int8)
+
+
+def _project(v, num_lvl, lo, hi, tol, max_iter, block, rows):
+    """The alternating (scale, code) search on float32 ``v``: one scale, or
+    one per row of a 2-D ``v`` (each row converging on its own).
+
+    The loop of the JAX version stops when |a - a_prev| <= tol or after
+    ``max_iter`` steps.  Here each scale carries a "done" flag on the
+    device that freezes it once that test holds, the steps run in blocks
+    of ``block`` and the host reads the flags once per block: the same
+    result as stepping one at a time, with one host sync per block instead
+    of one per step."""
+    if max_iter is None:
+        max_iter = int(num_lvl) * 100
+    if rows:
+        def dot(p, q):
+            return (p * q).sum(dim=-1, keepdim=True)
+        a = v.abs().mean(dim=-1, keepdim=True)
+    else:
+        def dot(p, q):
+            return (p * q).sum()
+        a = v.abs().mean()
+    a_prev = torch.full_like(a, -999.0)
+    done = ~((a - a_prev).abs() > tol)
+    steps = 0
+    while steps < max_iter:
+        for _ in range(min(block, max_iter - steps)):
+            b = discretize(v / a, num_lvl, lo, hi)
+            den = dot(b, b)
+            a_new = torch.where(den > 0, dot(b, v) / den, a)
+            a_prev = torch.where(done, a_prev, a)
+            a = torch.where(done, a, a_new)
+            done = done | ~((a - a_prev).abs() > tol)
+            steps += 1
+        if bool(done.all()):
+            break
+    return a, discretize(v / a, num_lvl, lo, hi)
+
+
+def project_by_iter(var, num_lvl, lo=-1.0, hi=1.0, tol=1e-5, max_iter=None,
+                    block=8):
+    """Jointly optimal (scale a, code b) for ``var ~= a * b`` with b on the
+    uniform ``num_lvl``-level grid in [lo, hi], by alternating minimization:
+    b = discretize(var/a), a = <b,var>/<b,b> (kept when <b,b> = 0), from
+    a = mean|var|, until |a - a_prev| <= tol or ``num_lvl*100`` steps.
+
+    Returns (a, b): a float32 0-d scale and the codes in ``var``'s dtype.
+    ``block``: steps between host reads of the convergence flag (1 steps
+    one at a time; the result is the same)."""
+    a, b = _project(var.float(), num_lvl, lo, hi, tol, max_iter, block,
+                    rows=False)
+    return a, b.to(var.dtype)
+
+
+def project_by_iter_rows(var2d, num_lvl, lo=-1.0, hi=1.0, tol=1e-5,
+                         max_iter=None, block=8):
+    """Per-row :func:`project_by_iter`: (a (R,), b (R, K)) with
+    ``var2d ~= a[:, None] * b``, each row converging on its own (the
+    per-output-channel weight scale, ``channel_wise``)."""
+    a, b = _project(var2d.float(), num_lvl, lo, hi, tol, max_iter, block,
+                    rows=True)
+    return a[:, 0], b.to(var2d.dtype)
 
 
 def pack_int_weight(qweight, alpha_w, num_lvl):

@@ -16,6 +16,15 @@ bfloat16, where the two rounded outputs differ).  K4 sums float32 products
 with one FMA per term in k order, the plain version in cuBLAS's order (TF32
 off): within 1e-5 of max|y|.
 
+The PTQ calibration (``ptq/solver.py``, ``quant.project_by_iter``,
+``ptq/engine.py::run_ptq``) runs on cuBLAS and cuSOLVER on the card: its
+float32 Grams within 1e-5 of float64 Grams of the same inputs (TF32 would
+be about 1e-3 off), the projection within rtol 1e-6 of the CPU's, and a
+calibration of a tiny net held against the same calibration on the CPU:
+within the tolerances that tests/test_torch_port_ptq.py holds the CPU to
+against JAX of one of the outcomes the CPU reaches itself under
+rounding-level perturbations.
+
 These tests are marked ``cuda`` and skip without a card.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
 installed:
@@ -26,19 +35,23 @@ The K1 cases are shared with test_torch_port_qconv3d.py and the K3/K4
 cases with test_torch_port_qmatmul.py, which hold the plain versions
 against the JAX package on the CPU.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from efficientq_tpu_torch import nnir
+from efficientq_tpu_torch import nnir, ops
 from efficientq_tpu_torch.data import synthetic
 from efficientq_tpu_torch.eval import sliding
 from efficientq_tpu_torch.kernels import qconv3d as K
 from efficientq_tpu_torch.kernels import qmatmul as KM
 from efficientq_tpu_torch.kernels import stem as K2
 from efficientq_tpu_torch.models import UResQConfig, build_uresq
-from efficientq_tpu_torch.ptq import deploy, fold_bn, to_int8_inference
-from efficientq_tpu_torch.quant import fake_quant_weight
+from efficientq_tpu_torch.ptq import deploy, engine, fold_bn, solver
+from efficientq_tpu_torch.ptq import to_int8_inference
+from efficientq_tpu_torch.quant import fake_quant_weight, project_by_iter
 
 NA = 4  # activation levels (W4A4 preset)
 
@@ -943,3 +956,97 @@ def test_cuda_mixed_k4_slice_matches_plain_k4(cuda):
         None, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 39, 48, 48, 3) and got.dtype == torch.uint8
     assert float((got == ref).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True], ids=["unw", "att"])
+def test_cuda_gram_stats_are_exact_float32(weighted, cuda):
+    """The float32 Grams on the card against float64 Grams of the same
+    inputs on the card: within 1e-5, which TF32's 10-bit mantissa would
+    miss by two orders."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.abs(rng.standard_normal((2, 12, 14, 10, 16)))
+                         .astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((2, 12, 14, 10, 8))
+                         .astype(np.float32)).to(cuda)
+    att = (torch.rand(2, 12, 14, 10, device=cuda) + 0.5 if weighted
+           else None)
+    geo = ((3, 3, 3), (1, 1, 1), (1, 1, 1))
+    with ops.exact_f32():
+        got = solver.compute_gram_stats(x, y, att, *geo,
+                                        max_chunk_elems=1 << 18)
+        want = solver.compute_gram_stats(
+            x.double(), y.double(), None if att is None else att.double(),
+            *geo)
+    for name in ("A_att", "B_att", "A_unw", "B_unw", "yy_att", "yy_unw"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == torch.float32
+        scale = float(w.abs().max())
+        assert float((g.double() - w).abs().max()) <= 1e-5 * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,num_lvl", [(0.0, 4), (-1.0, 4), (-1.0, 256)])
+def test_cuda_project_by_iter_matches_cpu(lo, num_lvl, cuda):
+    v = np.random.default_rng(1).standard_normal((64, 3000)).astype(
+        np.float32)
+    v = np.abs(v) if lo == 0.0 else v * 0.1
+    a_c, b_c = project_by_iter(torch.from_numpy(v), num_lvl, lo, 1.0)
+    a_g, b_g = project_by_iter(torch.from_numpy(v).to(cuda), num_lvl, lo,
+                               1.0)
+    assert a_g.is_cuda and b_g.is_cuda
+    assert abs(float(a_g) / float(a_c) - 1.0) <= 1e-6
+    t = (np.clip(v / float(a_c), lo, 1.0) - lo) * (num_lvl - 1) / (1.0 - lo)
+    free = np.abs(t - np.floor(t) - 0.5) > 1e-5
+    np.testing.assert_array_equal(b_g.cpu().numpy()[free], b_c.numpy()[free])
+
+
+def _chip_smoke():
+    """chip_smoke.py (at the repository's root), loaded by its path: its
+    tiny-fixture calibration and outcome helpers."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_cuda_run_ptq_matches_cpu(cuda):
+    """The tiny fixture of tests/test_ptq_e2e.py calibrated on the card
+    lies within the CPU tests' tolerances (codes equal on >= 0.99, layer
+    losses within 1e-2, alpha_act within 1e-5, argmax >= 0.99, class
+    counts equal) of one of the outcomes the CPU itself reaches when its
+    Grams are perturbed at float32 rounding level (1e-7): ADMM projects
+    onto the grid at every step, so the fixture has several equally valid
+    outcomes (on the CPU alone: layer losses 16 % and alpha_act 9.7 %
+    apart), and the card's rounding picks one of them."""
+    cs = _chip_smoke()
+    fg, qv, rep = cs.tiny_calibration(cuda)
+    assert rep.output_q.is_cuda and qv["params"][fg.qconv_nodes()[0].name][
+        "kernel"].is_cuda
+    card = cs.tiny_outcome((fg, qv, rep))
+    cpu = cs.cpu_rounding_outcomes()
+    best = max(cpu, key=lambda o: cs.outcome_gaps(card, o)[0])
+    assert cs.within_cpu_tolerances(*cs.outcome_gaps(card, best))
+
+
+@pytest.mark.cuda
+def test_cuda_run_ptq_holds_exact_f32(cuda, monkeypatch):
+    """TF32 is off at every layer of the sweep on the card, and the
+    caller's flags come back."""
+    seen = []
+    real = engine.calibrate_layer
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return real(*a, **k)
+
+    monkeypatch.setattr(engine, "calibrate_layer", spy)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    _chip_smoke().tiny_calibration(cuda)
+    assert len(seen) == 10 and all(f == (False, False) for f in seen)
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.allow_tf32
