@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving paths and its PTQ calibration
-on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving paths, its PTQ calibration and
+its ``ptq`` and ``infer`` missions on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -113,10 +113,37 @@ Phases, each printed on its own lines:
    within 1e-2, alpha_act within 1e-5, class voxel counts equal, argmax
    agreement >= 0.99), at one of the CPU's.
 
+8. the missions through the port's CLI (``efficientq_tpu_torch.cli``) at
+   full width, in a temporary directory removed at the end: (a) a
+   synthetic BraTS dataset (4 subjects of 155 x 240 x 240 x 4, npz; train,
+   val, test and true-test splits) and phase 7's flagship (weights from
+   ``--seed``, BN state randomised) pickled as ``{'state_dict': ...}``;
+   (b) the README's command, ``ptq --qlvl_w 4 --qlvl_a 4 --round 1
+   --config config/brats_ptq.yaml --pretrain <ckpt> --data_dir <data>
+   --split_dir <splits> --true_test --save_nii``: every artifact file, 22
+   finite layer losses, finite val and test metrics, an export of NumPy
+   arrays with its 22 grids, no K1 launch (its final test is fake-quant);
+   its seconds split into data, FP forward, calibration, final test and
+   exports, beside the card's name and power limit; (c) ``infer --deploy
+   int8`` on (b)'s ``state_in_int8.pkl`` with ``--save_nii``: 14 K1
+   launches per patch-batch forward, the saved val prediction equal to
+   ``validate_seg`` of the same deployed graph on the plain K1
+   (``np.array_equal``); (d) ``infer --deploy mixed --serve_stem s2d
+   --serve_dtype bf16``: 1 K2 and 14 K1 launches per forward, >= 0.99
+   agreement with the same path on the plain K2 and K1; (e) a sustained
+   stream: ``validate_seg`` over 12 volumes (phase 2's three, repeated)
+   through the port's ``Loader`` on the int8 float32 path and the s2d bf16
+   path, volumes/s over volumes 2-12 beside phases 2 and 4's rates, and
+   the host's time in ``SegMetricMC``.
+
 ``--profile`` adds a torch.profiler probe of one volume of each serving
-path (phases 2 and 4, and paths (b) and (c) of phase 6) and of one
-``run_ptq`` of phase 7 at 20 ADMM iterations a layer: wall time, device
-time and the kernels by device time.
+path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
+``run_ptq`` of phase 7 at 20 ADMM iterations a layer (wall time, device
+time and the kernels by device time), and, last, (phase 8 (f)) of phase
+8's stream on both paths: device busy time (the union of kernels, copies and
+memsets over every stream), idle share, the host-to-device copies' time
+and how much of it ran while a kernel ran on the compute stream, from the
+profiler's Chrome trace.
 
 Then one JSON line describing each kernel of the paths, the card's
 nvidia-smi line, and the result line.  With no CUDA device, or when any
@@ -127,9 +154,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -526,7 +556,7 @@ def phase2(seed: int):
           f"logits {tuple(logits.shape)} not finite")
     return launches, dict(dgraph=dgraph, net=net, vols=vols,
                           subjects=subjects, infer=infer, preds=preds,
-                          folded=folded)
+                          folded=folded, vps={"phase 2": vps})
 
 
 def _bound(nbytes: float, ops: float, peak: float):
@@ -880,6 +910,7 @@ def phase4(seed: int, served):
     check(k1 == 14 * 3 * forwards, f"K1 launched {k1} times, expected "
           f"{14 * 3 * forwards}")
     vps = 2 / (secs[1] + secs[2])
+    served["vps"]["phase 4"] = vps
     print(f"[phase4] seconds per volume {[round(x, 4) for x in secs]}; "
           f"volumes/s over volumes 2-3: {vps:.4f}", flush=True)
 
@@ -1305,12 +1336,6 @@ def phase6(seed: int, served, s2d_preds):
     return launches, infer_b, infer_c
 
 
-def _on(variables, device):
-    return {group: {node: {k: v.to(device) for k, v in entries.items()}
-                    for node, entries in variables.get(group, {}).items()}
-            for group in ("params", "state")}
-
-
 def _random_bn_state(variables, seed):
     """BN statistics drawn as tests/test_ptq_e2e.py draws them, so that
     folding is not the identity."""
@@ -1581,8 +1606,10 @@ def phase7(seed: int, smi: str, vol, label, dev):
             a_w, b_w = project_by_iter(p["kernel"].to(dev), q.qlvl_w)
             p["kernel"], p["alpha_w"] = (a_w * b_w).cpu(), a_w.cpu()
     with torch.inference_mode():
-        out_naive = nnir.apply(nfg, _on(nfv, dev), xd, mode="fq")
-        out_proj = nnir.apply(nfg, _on(pfv, dev), xd, mode="quantized")
+        out_naive = nnir.apply(nfg, nnir.to_device(nfv, dev), xd,
+                               mode="fq")
+        out_proj = nnir.apply(nfg, nnir.to_device(pfv, dev), xd,
+                              mode="quantized")
     fp = rep.output_fp[-1]
     err = {k: float(torch.mean((o[-1] - fp) ** 2)) for k, o in
            (("calibrated", out_q), ("naive", out_naive),
@@ -1600,10 +1627,10 @@ def phase7(seed: int, smi: str, vol, label, dev):
     torch.cuda.empty_cache()
 
     # serving the calibrated net: int8 float32 path, then s2d bf16
-    dg, dv = to_int8_inference(fg, _on(qv, "cpu"))
+    dg, dv = to_int8_inference(fg, nnir.to_device(qv, "cpu"))
     n_k1 = sum(1 for n in dg.nodes if n.attrs.get("pallas"))
     check(n_k1 == 14, f"calibrated deployment: {n_k1} K1 convs, expected 14")
-    dv = _on(dv, dev)
+    dv = nnir.to_device(dv, dev)
     forwards = -(-len(patch_grid(VOL_SHAPE, PATCH, OVERLAP)) // N_BATCH)
     kw = dict(patch_batch=N_BATCH, heads=slice(-1, None), hard_pred=True,
               multilabel=True)
@@ -1626,7 +1653,7 @@ def phase7(seed: int, smi: str, vol, label, dev):
     check(all(np.isfinite(d)), f"calibrated int8 path: Dice {d}")
     fg_fp, fv_fp = fold_bn(graph, variables)
     fp_pred = make_volume_inferencer(fg_fp, mode="fp", **kw)(
-        _on(fv_fp, dev), vol.to(dev), PATCH, OVERLAP)
+        nnir.to_device(fv_fp, dev), vol.to(dev), PATCH, OVERLAP)
     agree_fp = float((fp_pred == pred).float().mean())
     print(f"[phase7] on {smi}: calibrated net served on the int8 float32 "
           f"path: {secs:.4f} s for one volume, launches {counted.counts} "
@@ -1747,11 +1774,433 @@ def profile_paths(served, s2d_infer, k3_infer, mixed_infer):
                   f"{e.key[:90]}", flush=True)
 
 
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the artifact files of the ptq mission, name for name as the JAX mission
+# writes them (efficientq_tpu/cli/missions.py)
+PTQ_FILES = ("cmd.txt", "time_cost.txt", "layer_loss.txt",
+             "layer_loss_curve.npz", "class_voxel_nums.txt", "Qseg0.nii.gz",
+             "FPseg0.nii.gz", "state_in_fp.pkl", "state_in_int8.pkl",
+             "state_in_int8_compress.npz", "ptq/val_seg.txt",
+             "ptq/test_seg.txt")
+STREAM_VOLUMES = 12
+
+
+def _metric_numbers(path):
+    """Every number of a ``*_seg.txt`` metric file."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    return [float(v) for v in re.findall(r"(?<![\w/])-?\d+\.\d+|nan|inf",
+                                         text)]
+
+
+def _seg(path):
+    from efficientq_tpu_torch.utils.nifti import load_nifti
+
+    return np.asarray(load_nifti(path).dataobj)
+
+
+def _mission_args(argv):
+    from efficientq_tpu_torch.cli import entrance
+
+    args = entrance.build_parser().parse_args(argv)
+    return entrance.merge_config(args.config, args)
+
+
+def _deployed_export(args):
+    """The infer mission's serving graph, built as ``cli/missions.py::infer``
+    builds it: (graph, variables on the CPU, data hub, heads)."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.cli import definer
+    from efficientq_tpu_torch.models import build_uresq, torch_io
+    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+
+    hub = definer.get_data_cube(args)[0]
+    cfg, _, n_mo = definer.get_model_config(args)
+    graph = build_uresq(cfg)
+    fg, fv = fold_bn(graph, nnir.init(graph, 0, device="cpu"))
+    fv = torch_io.load_int8_checkpoint(fg, fv, args.pretrain)
+    only = {(3, 3, 3)} if args.deploy == "mixed" else None
+    dg, dv = to_int8_inference(fg, fv, only_kernel_sizes=only)
+    return dg, dv, hub, n_mo
+
+
+def _plain_val(args, infer_maker, out_dir):
+    """validate_seg of the mission's deployed graph over its val split with
+    the inferencer ``infer_maker(graph, variables)``, the final head's
+    predictions saved as the mission saves them: {subject: labels}."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.eval.validate import validate_seg
+
+    dg, dv, hub, n_mo = _deployed_export(args)
+    dv = nnir.to_device(dv, "cuda")
+    validate_seg(dg, dv, hub.valloader, hub.val_sn, n_mo, 3,
+                 patch_size=hub.slide_patch_size, overlap=hub.slide_overlap,
+                 mode="quantized", save_dir=out_dir,
+                 sn_fn_dict=hub.sn_to_fn_map,
+                 merge_label_func=hub.merge_label_func,
+                 multilabel_fusetype=hub.multilabel_fusetype,
+                 infer=infer_maker(dg, dv), device="cuda")
+    return {sn: _seg(os.path.join(out_dir, f"{sn}.nii.gz"))
+            for sn in hub.val_sn}
+
+
+class _ListDataset:
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def _stream(served, serve_stem, refs):
+    """validate_seg over STREAM_VOLUMES volumes (phase 2's three, repeated)
+    through the port's Loader: (volumes/s over volumes 2-N, launches,
+    wall ms, ms in the host's metrics, each volume's agreement with its
+    reference).  The int8 float32 path serves at phase 2's patch batch, the
+    s2d path at its whole-grid rule, as phase 4.  The time a volume is done
+    is when its last head's metrics are.  Volume i's final-head prediction,
+    as the host reads it back, is held against ``refs[i % 3]`` (phase 2's
+    or phase 4's predictions): a readback or a staging buffer that raced
+    the next volume would hand the host another volume's prediction."""
+    from efficientq_tpu_torch.data.datasets import Loader
+    from efficientq_tpu_torch.data.labels import split_label_brats
+    from efficientq_tpu_torch.eval import validate as V
+
+    imgs = [np.ascontiguousarray(np.moveaxis(v[0].numpy(), -1, 0))
+            for v in served["vols"]]
+    labs = [split_label_brats(lab) for _, lab in served["subjects"]]
+    data = _ListDataset([(imgs[i % 3], labs[i % 3])
+                         for i in range(STREAM_VOLUMES)])
+    refs = [np.moveaxis(p[0, 0].cpu().numpy(), -1, 0) for p in refs]
+    dgraph = served["dgraph"]
+    n_mo = len(dgraph.outputs)
+    done, spent, agree = [], [], []
+
+    class Timed(V.SegMetricMC):
+        def evaluate_append_pred(self, pred, *a, **k):
+            t = time.perf_counter()
+            out = super().evaluate_append_pred(pred, *a, **k)
+            done.append(time.perf_counter())
+            spent.append(done[-1] - t)
+            if len(done) % n_mo == 0:  # the final head comes last
+                ref = refs[(len(done) // n_mo - 1) % 3]
+                agree.append(float(np.mean(pred == ref))
+                             if pred.shape == ref.shape else -1.0)
+            return out
+
+    saved = V.SegMetricMC
+    V.SegMetricMC = Timed
+    try:
+        torch.cuda.synchronize()
+        with _Launches() as counted:
+            t0 = time.perf_counter()
+            sm = V.validate_seg(
+                dgraph, served["net"].variables, Loader(data), None, n_mo, 3,
+                patch_size=PATCH, overlap=OVERLAP, mode="quantized",
+                patch_batch=N_BATCH if serve_stem == "direct" else "auto",
+                compute_dtype=torch.bfloat16 if serve_stem == "s2d" else None,
+                serve_stem=serve_stem, device="cuda")
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        V.SegMetricMC = saved
+    finished = done[n_mo - 1::n_mo]
+    check(len(finished) == STREAM_VOLUMES and len(sm[-1]) == STREAM_VOLUMES,
+          f"stream: {len(finished)} volumes done")
+    check(all(np.isfinite(list(sm[-1].get_metric().values()))),
+          "stream: metrics not finite")
+    vps = (STREAM_VOLUMES - 1) / (finished[-1] - finished[0])
+    return vps, counted.counts, wall, sum(spent) * 1e3, agree
+
+
+def _union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(intervals, merged):
+    """Total length of ``intervals`` that lies inside the union
+    ``merged``."""
+    import bisect
+
+    starts = [a for a, _ in merged]
+    total = 0.0
+    for a, b in intervals:
+        i = max(0, bisect.bisect_right(starts, a) - 1)
+        while i < len(merged) and merged[i][0] < b:
+            total += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+            i += 1
+    return total
+
+
+def trace_stats(path, wall_ms):
+    """Device busy time (the union of kernel, copy and memset intervals on
+    every stream), idle share against ``wall_ms``, the host-to-device
+    copies' time, and how much of it ran while a kernel ran on the compute
+    stream (the stream with the most kernel time), from a
+    ``torch.profiler`` Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev, kernels, h2d = [], {}, []
+    for e in events:
+        cat = str(e.get("cat", "")).lower()
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy",
+                                             "gpu_memset"):
+            continue
+        iv = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+        dev.append(iv)
+        if cat == "kernel":
+            kernels.setdefault(e.get("args", {}).get("stream"), []).append(iv)
+        elif "HtoD" in e.get("name", ""):
+            h2d.append(iv)
+    check(bool(kernels), "profile: no kernel ran on the device")
+    compute = max(kernels, key=lambda s: sum(b - a for a, b in kernels[s]))
+    busy = sum(b - a for a, b in _union(dev)) / 1e3
+    copy = sum(b - a for a, b in h2d) / 1e3
+    under = _overlap(h2d, _union(kernels[compute])) / 1e3
+    return dict(busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
+                h2d_ms=copy, h2d_under_kernels_ms=under,
+                h2d_overlap_share=under / copy if copy else 0.0,
+                compute_stream=compute, h2d_copies=len(h2d))
+
+
+def phase8(seed: int, smi: str, served, s2d_preds):
+    """The ptq and infer missions through the port's CLI at full width, on
+    a synthetic BraTS dataset written for the run, then a sustained
+    stream through validate_seg.  Returns {path: {kernel: launches}}."""
+    from efficientq_tpu_torch.cli import entrance
+    from efficientq_tpu_torch.data.synthetic import make_synthetic_dataset
+    from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
+                                                   patch_grid)
+    from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.kernels import stem
+    from efficientq_tpu_torch.models import torch_io
+    from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
+
+    check(os.environ.get("EFFQ_PLATFORM", "").lower() != "cpu",
+          "EFFQ_PLATFORM=cpu would keep the missions off the card")
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="effq_phase8_")
+    cwd = os.getcwd()
+    try:
+        # (a) the data and the "pretrain" checkpoint
+        t0 = time.perf_counter()
+        data_dir, split_dir = make_synthetic_dataset(
+            tmp, task="brats", n_subjects=4, vol_shape=VOL_SHAPE, seed=seed,
+            access_type="npz")
+        graph, variables = flagship_for_ptq(seed)
+        ckpt = os.path.join(tmp, "pretrain.pkl")
+        with open(ckpt, "wb") as f:
+            pickle.dump({"state_dict": torch_io.to_torch_state_dict(
+                graph, variables)}, f)
+        del graph, variables
+        print(f"[phase8] (a) synthetic BraTS dataset (4 subjects, "
+              f"{VOL_SHAPE} x 4 modalities, npz) and the random-weight "
+              f"flagship checkpoint written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        os.chdir(tmp)
+        config = os.path.join(HERE, "config", "brats_ptq.yaml")
+        common = ["--qlvl_w", "4", "--qlvl_a", "4", "--round", "1",
+                  "--config", config, "--data_dir", data_dir,
+                  "--split_dir", split_dir]
+
+        # (b) the README's ptq command
+        t0 = time.perf_counter()
+        with _Launches() as counted:
+            snap, sec = entrance.main(["ptq", *common, "--pretrain", ckpt,
+                                       "--true_test", "--save_nii"])
+        wall = time.perf_counter() - t0
+        launches["mission_ptq"] = counted.counts
+        for name in PTQ_FILES:
+            check(os.path.isfile(os.path.join(snap, name)),
+                  f"ptq mission: {name} missing")
+        for sub in ("ptq/val", "ptq/test", "ptq/true_test"):
+            check(bool(os.listdir(os.path.join(snap, sub))),
+                  f"ptq mission: no NIfTI under {sub}")
+        with open(os.path.join(snap, "layer_loss.txt")) as f:
+            losses = [float(line.rsplit(":", 1)[1])
+                      for line in f.read().splitlines()]
+        check(len(losses) == 22 and all(np.isfinite(losses)),
+              f"ptq mission: {len(losses)} layer losses {losses}")
+        for split in ("val", "test"):
+            nums = _metric_numbers(os.path.join(snap, "ptq",
+                                                f"{split}_seg.txt"))
+            check(bool(nums) and all(np.isfinite(nums)),
+                  f"ptq mission: {split}_seg.txt not finite")
+        with open(os.path.join(snap, "state_in_int8.pkl"), "rb") as f:
+            sd = pickle.load(f)["state_dict"]
+        check(len(sd["__qlvl_overrides__"]) == 22
+              and all(type(v) is np.ndarray for k, v in sd.items()
+                      if k != "__qlvl_overrides__"),
+              "ptq mission: export is not NumPy arrays with the 22 grids")
+        check(counted.counts["K1"] == 0, "ptq mission: the fake-quant final "
+              f"test launched K1 {counted.counts}")
+        print(f"[phase8] (b) on {smi}: ptq mission (config/brats_ptq.yaml, "
+              f"W4A4, full width) {wall:.4f} s: data "
+              f"{sec['data']:.4f} s, FP forward {sec['fp_forward']:.4f} s, "
+              f"calibration {sec['calibration']:.4f} s, final test "
+              f"{sec['final_test']:.4f} s, exports {sec['exports']:.4f} s; "
+              f"every artifact file written, 22 finite layer losses, finite "
+              f"val and test metrics", flush=True)
+
+        # (c) infer --deploy int8 on (b)'s export
+        export = os.path.join(snap, "state_in_int8.pkl")
+        n_patches = len(patch_grid(VOL_SHAPE, PATCH, OVERLAP))
+        forwards = 2 * -(-n_patches // min(n_patches, 8))  # val + test
+        argv = ["infer", *common, "--pretrain", export, "--save_nii"]
+        t0 = time.perf_counter()
+        with _Launches() as counted:
+            snap_c, _ = entrance.main(argv + ["--deploy", "int8",
+                                              "--suffix", "int8"])
+        wall = time.perf_counter() - t0
+        launches["mission_infer_int8"] = counted.counts
+        check(counted.counts["K1"] == 14 * forwards,
+              f"infer int8: launches {counted.counts}, expected "
+              f"{14 * forwards} K1 over {forwards} forwards")
+        args = _mission_args(argv + ["--deploy", "int8"])
+        plain = _plain_val(args, lambda g, v: make_volume_inferencer(
+            g, patch_batch=min(n_patches, 8), mode="quantized",
+            hard_pred=True, multilabel=True,
+            conv3x3_int8=K.qconv3x3_int8_ndhwc_reference),
+            os.path.join(tmp, "plain_int8"))
+        int8_val = {}
+        for sn, want in plain.items():
+            got = _seg(os.path.join(snap_c, "infer", "val", f"{sn}.nii.gz"))
+            check(np.array_equal(got, want), f"infer int8: {sn} differs "
+                  f"from validate_seg on the plain K1")
+            int8_val[sn] = got
+        for split in ("val", "test"):
+            nums = _metric_numbers(os.path.join(snap_c, "infer",
+                                                f"{split}_seg.txt"))
+            check(bool(nums) and all(np.isfinite(nums)),
+                  f"infer int8: {split}_seg.txt not finite")
+        print(f"[phase8] (c) infer --deploy int8: {wall:.4f} s, launches "
+              f"{counted.counts} over {forwards} patch-batch forwards (14 K1 "
+              f"each); the saved val prediction equals validate_seg of the "
+              f"same graph on the plain K1", flush=True)
+
+        # (d) infer --deploy mixed --serve_stem s2d --serve_dtype bf16
+        forwards = 2  # the whole grid of a volume in one forward
+        t0 = time.perf_counter()
+        with _Launches() as counted:
+            snap_d, _ = entrance.main(argv + [
+                "--deploy", "mixed", "--serve_stem", "s2d", "--serve_dtype",
+                "bf16", "--suffix", "s2d"])
+        wall = time.perf_counter() - t0
+        launches["mission_infer_mixed_s2d"] = counted.counts
+        check(counted.counts["K2"] == forwards
+              and counted.counts["K1"] == 14 * forwards,
+              f"infer mixed s2d: launches {counted.counts}, expected 1 K2 "
+              f"and 14 K1 per forward over {forwards}")
+        args = _mission_args(argv + ["--deploy", "mixed"])
+        plain = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
+            g, v, multilabel=True, compute_dtype=torch.bfloat16,
+            device="cuda", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+            stem_conv=stem.stem_s2d_conv_reference),
+            os.path.join(tmp, "plain_s2d"))
+        for sn, want in plain.items():
+            got = _seg(os.path.join(snap_d, "infer", "val", f"{sn}.nii.gz"))
+            agree = float(np.mean(got == want))
+            print(f"[phase8] (d) infer --deploy mixed --serve_stem s2d "
+                  f"--serve_dtype bf16: {wall:.4f} s, launches "
+                  f"{counted.counts} over {forwards} forwards; val {sn} "
+                  f"agrees with the same path on the plain K2 and K1 on "
+                  f"{agree:.8f} of {got.size} voxels, with (c)'s int8 "
+                  f"float32 prediction on "
+                  f"{float(np.mean(got == int8_val[sn])):.8f}", flush=True)
+            check(agree >= AGREE_PLAIN_S2D, f"infer mixed s2d vs the plain "
+                  f"K2 and K1: {agree} < {AGREE_PLAIN_S2D}")
+        del plain
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) a sustained stream through validate_seg and the Loader, each
+    # volume held against its reference: phase 2's int8 float32 predictions
+    # (equal) and phase 4's s2d bf16 ones (AGREE_S2D)
+    rates = {}
+    fw = -(-len(patch_grid(VOL_SHAPE, PATCH, OVERLAP)) // N_BATCH)
+    for path, stem_kind, refs, level in (
+            ("int8_f32", "direct", served["preds"], 1.0),
+            ("s2d_bf16", "s2d", s2d_preds, AGREE_S2D)):
+        host = [p[0, 0].cpu().numpy() for p in refs]
+        cross = max(float(np.mean(host[i] == host[j]))
+                    for i, j in ((0, 1), (0, 2), (1, 2)))
+        check(cross < level, f"stream {path}: the three references agree on "
+              f"{cross}, so a volume served out of order would pass")
+        vps, counts, wall, metrics_ms, agree = _stream(served, stem_kind,
+                                                       refs)
+        rates[path] = vps
+        launches[f"stream_{path}"] = counts
+        check(counts["K1"] == 14 * STREAM_VOLUMES * (
+                  fw if stem_kind == "direct" else 1)
+              and counts["K2"] == (STREAM_VOLUMES if stem_kind == "s2d"
+                                   else 0),
+              f"stream {path}: launches {counts}")
+        check(len(agree) == STREAM_VOLUMES and min(agree) >= level,
+              f"stream {path}: volumes agree with their references on "
+              f"{agree} (< {level})")
+        print(f"[phase8] (e) stream {path}: {wall:.3f} ms for "
+              f"{STREAM_VOLUMES} volumes, of which {metrics_ms:.3f} ms in "
+              f"the host's SegMetricMC; launches {counts}; each volume's "
+              f"final-head prediction agrees with "
+              f"{'phase 2' if stem_kind == 'direct' else 'phase 4'}'s for "
+              f"the same volume on at least {min(agree):.8f} (held: "
+              f"{level}; the references of different volumes agree on at "
+              f"most {cross:.8f})", flush=True)
+    print(f"[phase8] (e) on {smi}: validate_seg over {STREAM_VOLUMES} "
+          f"volumes through the Loader (every head), volumes/s over volumes "
+          f"2-{STREAM_VOLUMES}: int8 float32 path at patch batch {N_BATCH} "
+          f"{rates['int8_f32']:.4f} (phase 2, final head, batch {N_BATCH}: "
+          f"{served['vps']['phase 2']:.4f}), s2d bf16 path, whole grid "
+          f"{rates['s2d_bf16']:.4f} (phase 4: "
+          f"{served['vps']['phase 4']:.4f})", flush=True)
+    return launches
+
+
+def profile_stream(served, s2d_preds):
+    """Phase 8 (f): phase 8's stream under the profiler on both paths:
+    device busy time, idle share, and how much of the host-to-device
+    copies ran while a kernel ran on the compute stream."""
+    from torch.profiler import ProfilerActivity
+
+    for path, stem_kind, refs in (("int8 float32", "direct", served["preds"]),
+                                  ("s2d bf16", "s2d", s2d_preds)):
+        with tempfile.TemporaryDirectory() as d:
+            trace = os.path.join(d, "trace.json")
+            with torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+                _, _, wall, _, _ = _stream(served, stem_kind, refs)
+            prof.export_chrome_trace(trace)
+            st = trace_stats(trace, wall)
+        print(f"[profile] stream of {STREAM_VOLUMES} volumes, {path} path: "
+              f"wall {wall:.3f} ms under the profiler, device busy "
+              f"{st['busy_ms']:.3f} ms (idle share {st['idle_share']:.4f}); "
+              f"host-to-device copies {st['h2d_ms']:.3f} ms "
+              f"({st['h2d_copies']} copies), of which "
+              f"{st['h2d_under_kernels_ms']:.3f} ms "
+              f"({st['h2d_overlap_share']:.4f}) ran while a kernel ran on "
+              f"the compute stream (stream {st['compute_stream']})",
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="profile one volume of each serving path")
+                    help="profile one volume of each serving path, the "
+                    "calibration and phase 8's stream")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
@@ -1764,9 +2213,13 @@ def main():
     paths, k3_infer, mixed_infer = phase6(args.seed, served, s2d_preds)
     calibrated = phase7(args.seed, smi, served["vols"][0],
                         served["subjects"][0][1], torch.device("cuda"))
+    missions = phase8(args.seed, smi, served, s2d_preds)
     if args.profile:
         profile_paths(served, s2d_infer, k3_infer, mixed_infer)
         profile_calibration(args.seed)
+        # last: a profiler session after one that exported a Chrome trace
+        # recorded no host-to-device copies (PERF.md §7)
+        profile_stream(served, s2d_preds)
     # launches of each kernel on each serving path, counted from 0 around
     # the path's run
     by_path = {"K1": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
@@ -1777,7 +2230,7 @@ def main():
         for kernel, n in counts.items():
             if n:
                 by_path[kernel][names[path]] = n
-    for path, counts in calibrated.items():
+    for path, counts in [*calibrated.items(), *missions.items()]:
         for kernel, n in counts.items():
             if n:
                 by_path[kernel][path] = n

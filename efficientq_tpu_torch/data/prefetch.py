@@ -1,0 +1,106 @@
+"""Host -> device upload of a loader's batches.
+
+Counterpart of the JAX package's ``data/prefetch.py::device_feed``, the
+card's version of JAX's asynchronous ``device_put``: each batch is copied
+into a pinned host staging buffer and uploaded on a side stream while the
+caller's stream computes the batch before it.  (``PrefetchLoader``, the
+threaded queue of the train loader, comes with ``train_fp``: ROADMAP
+queue 1 item 6.)
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+
+class _Staging:
+    """A ring of two pinned host buffers, reused and grown to the largest
+    batch.  A slot is written by the host only after the upload that last
+    read it has finished (its event)."""
+
+    def __init__(self):
+        self.bufs = [None, None]
+        self.events = [None, None]
+        self.slot = 0
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        k = self.slot
+        self.slot ^= 1
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        if self.bufs[k] is None or self.bufs[k].numel() < nbytes:
+            self.bufs[k] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                       pin_memory=True)
+        self.last = k
+        return self.bufs[k]
+
+    def uploaded(self, event):
+        self.events[self.last] = event
+
+
+def _side_stream(device) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(device)
+
+
+def device_feed(loader: Iterable, device=None, mesh=None):
+    """Iterate ``loader`` (one NumPy array per item) keeping the next
+    array's host -> device transfer in flight while the caller consumes the
+    current one (double buffering).
+
+    Each array goes to ``device`` (the card unless told ``"cpu"``) as a
+    torch tensor of its dtype and shape.  On a card: the array is copied
+    into one of two pinned staging buffers, then uploaded with
+    ``non_blocking=True`` on a side stream; the caller's current stream
+    waits on the upload's event (the host does not), and ``record_stream``
+    keeps the caching allocator from handing the device copy to the side
+    stream again while the caller's stream may still read it.  On the CPU
+    the array is wrapped as a tensor.
+
+    ``mesh``: batch-axis sharding over a device mesh is ROADMAP queue 1
+    item 9; any value but None raises."""
+    if mesh is not None:
+        raise NotImplementedError("device_feed over a device mesh is ROADMAP "
+                                  "queue 1 item 9")
+    device = torch.device("cuda" if device is None else device)
+    it = iter(loader)
+
+    if device.type != "cuda":
+        def put(a):
+            return torch.as_tensor(np.asarray(a), device=device), None
+    else:
+        stream = _side_stream(device)
+        ring = _Staging()
+
+        def put(a):
+            a = np.ascontiguousarray(a)
+            buf = ring.take(a.nbytes)[:a.nbytes]
+            np.copyto(buf.numpy().view(a.dtype).reshape(a.shape), a)
+            host = buf.view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+            # allocated on the side stream: its blocks return to that
+            # stream's pool, and record_stream (in ready) holds them until
+            # the caller's stream is done with them
+            with torch.cuda.stream(stream):
+                dev = host.to(device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+            ring.uploaded(event)
+            return dev, event
+
+    def ready(tensor, event):
+        if event is not None:
+            cur = torch.cuda.current_stream(device)
+            cur.wait_event(event)
+            tensor.record_stream(cur)
+        return tensor
+
+    try:
+        pending = put(next(it))
+    except StopIteration:
+        return
+    for item in it:
+        nxt = put(item)
+        yield ready(*pending)
+        pending = nxt
+    yield ready(*pending)

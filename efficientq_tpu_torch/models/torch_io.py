@@ -101,6 +101,19 @@ def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
     return {"params": params, "state": state}
 
 
+def load_torch_checkpoint(graph: Graph, variables, path: str, strict=False):
+    """Load a training checkpoint, ``{'state_dict': ...}`` or a bare state
+    dict: torch-serialized (the reference's format) or a plain pickle (the
+    JAX package's ``train_fp`` writes one)."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    except Exception:
+        with open(path, "rb") as f:
+            ckpt = pickle.load(f)
+    sd = ckpt.get("state_dict", ckpt)
+    return load_torch_state_dict(graph, variables, sd, strict)
+
+
 def _read_export_state_dict(path: str):
     # PTQ exports written by this project's ptq mission
     if path.endswith(".npz"):

@@ -147,6 +147,15 @@ class GraphBuilder:
         return Graph(self.nodes, list(outputs), input_name)
 
 
+def to_device(variables: Dict[str, Any], device) -> Dict[str, Any]:
+    """The ``{'params', 'state'}`` dicts with every entry a tensor on
+    ``device`` (the input untouched)."""
+    return {group: {node: {k: torch.as_tensor(v).to(device)
+                           for k, v in entries.items()}
+                    for node, entries in variables.get(group, {}).items()}
+            for group in ("params", "state")}
+
+
 def init(graph: Graph, seed: int = 0, device="cuda"):
     """{'params': ..., 'state': ...} on ``device``, with kaiming-normal conv
     kernels drawn from ``np.random.default_rng(seed)``, zero biases, unit

@@ -241,12 +241,6 @@ def s2d_stem_serving(graph: Graph, variables):
                 "state": variables.get("state", {})}, g2.node(stem.name)
 
 
-def _on(variables, device):
-    return {group: {node: {k: v.to(device) for k, v in entries.items()}
-                    for node, entries in variables.get(group, {}).items()}
-            for group in ("params", "state")}
-
-
 def make_s2d_volume_inferencer(graph: Graph, variables, *,
                                patch_batch="auto", hard_pred: bool = True,
                                multilabel: bool = False,
@@ -292,7 +286,8 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     if stem is None:
         return None
     dev = torch.device(device)
-    v2, v_direct = _on(v2, dev), _on(variables, dev)
+    v2 = nnir.to_device(v2, dev)
+    v_direct = nnir.to_device(variables, dev)
     auto = patch_batch in ("auto", 0, None)
     keep_hd = bool(hard_pred and compute_dtype is not None)
     fallback = make_volume_inferencer(

@@ -94,13 +94,6 @@ def _wait(t: torch.Tensor):
         torch.cuda.synchronize(t.device)
 
 
-def _to(variables, device):
-    return {group: {node: {k: torch.as_tensor(v).to(device)
-                           for k, v in entries.items()}
-                    for node, entries in variables.get(group, {}).items()}
-            for group in ("params", "state")}
-
-
 def run_ptq(graph: Graph, variables, calib_x, *, task: str, init_stride,
             hp: PTQHyperParams = PTQHyperParams(), att_style: str = "p:0.5",
             num_mask_lvls: int = 5, fold: bool = True, verbose: bool = False,
@@ -130,7 +123,7 @@ def run_ptq(graph: Graph, variables, calib_x, *, task: str, init_stride,
         raise NotImplementedError("offset activation grids (act_offset) are "
                                   "ROADMAP queue 1 item 7")
     device = torch.device(device)
-    variables = _to(variables, device)
+    variables = nnir.to_device(variables, device)
     calib_x = torch.as_tensor(calib_x).to(device)
     if fold:
         graph, variables = fold_bn(graph, variables)

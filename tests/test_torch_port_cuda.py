@@ -25,6 +25,12 @@ within the tolerances that tests/test_torch_port_ptq.py holds the CPU to
 against JAX of one of the outcomes the CPU reaches itself under
 rounding-level perturbations.
 
+The serving loop's upload and readback (``data/prefetch.py::device_feed``,
+``eval/validate.py``): the device feed gives the host's batches in order,
+uploads on its side stream rather than behind the caller's, and keeps a
+pinned staging buffer until its upload has run; ``validate_seg``'s
+pipeline gives what serving one volume at a time gives.
+
 These tests are marked ``cuda`` and skip without a card.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
 installed:
@@ -36,6 +42,7 @@ cases with test_torch_port_qmatmul.py, which hold the plain versions
 against the JAX package on the CPU.
 """
 import importlib.util
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1050,3 +1057,124 @@ def test_cuda_run_ptq_holds_exact_f32(cuda, monkeypatch):
     assert len(seen) == 10 and all(f == (False, False) for f in seen)
     assert torch.backends.cuda.matmul.allow_tf32
     assert torch.backends.cudnn.allow_tf32
+
+
+def _batches(n, shape=(2, 4, 40, 48, 56), seed=0):
+    """``n`` host arrays, float32 images and uint8 label maps in turn, so
+    that the staging buffers are reused at two sizes and dtypes."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) if i % 2 == 0 else
+            rng.integers(0, 3, shape[:1] + shape[2:]).astype(np.uint8)
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_device_feed_gives_host_batches_in_order(cuda):
+    """Every array reaches the card equal to the host's, in order,
+    including a larger one than the staging buffers held."""
+    from efficientq_tpu_torch.data.prefetch import device_feed
+
+    batches = _batches(8) + _batches(4, shape=(3, 4, 40, 48, 60), seed=1)
+    got = list(device_feed(batches, device=cuda))
+    assert len(got) == len(batches)
+    for x, a in zip(got, batches):
+        assert x.is_cuda and x.dtype == torch.from_numpy(a).dtype
+        np.testing.assert_array_equal(x.cpu().numpy(), a)
+
+
+def _one_side_stream(monkeypatch, cuda):
+    """The stream every device feed of the test uploads on."""
+    from efficientq_tpu_torch.data import prefetch
+
+    side = torch.cuda.Stream(cuda)
+    monkeypatch.setattr(prefetch, "_side_stream", lambda device: side)
+    return side
+
+
+@pytest.mark.cuda
+def test_cuda_device_feed_copies_on_a_side_stream(cuda, monkeypatch):
+    """The upload runs on the feed's side stream, not behind the caller's:
+    with the caller's stream busy in a sleep kernel, the first batch
+    arrives on the card (read on a third stream) while the caller's stream
+    still runs."""
+    from efficientq_tpu_torch.data.prefetch import device_feed
+
+    batches = _batches(6)
+    other = torch.cuda.Stream(cuda)
+    side = _one_side_stream(monkeypatch, cuda)
+    # warm the pinned and device caches, so that no allocation call can
+    # wait for the sleep below
+    list(device_feed(batches, device=cuda))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3e9))  # about 1.5-2 s on the caller's stream
+    feed = device_feed(batches, device=cuda)
+    x = next(feed)
+    assert side != torch.cuda.current_stream(cuda)
+    time.sleep(0.3)
+    with torch.cuda.stream(other):
+        y = x.clone()
+    other.synchronize()
+    assert not torch.cuda.current_stream(cuda).query()
+    np.testing.assert_array_equal(y.cpu().numpy(), batches[0])
+    torch.cuda.synchronize()
+    list(feed)
+
+
+@pytest.mark.cuda
+def test_cuda_device_feed_keeps_staging_until_uploaded(cuda, monkeypatch):
+    """With the upload stream held back, the host must not refill a
+    staging buffer before the upload that reads it has run: each batch on
+    the card equals its own host batch, not a later one."""
+    from efficientq_tpu_torch.data.prefetch import device_feed
+
+    batches = _batches(10)
+    side = _one_side_stream(monkeypatch, cuda)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(2e9))
+    got = list(device_feed(batches, device=cuda))
+    torch.cuda.synchronize()
+    for x, a in zip(got, batches):
+        np.testing.assert_array_equal(x.cpu().numpy(), a)
+
+
+@pytest.mark.cuda
+def test_cuda_validate_seg_pipeline_equals_one_volume_at_a_time(cuda):
+    """validate_seg's 1-deep pipeline (pinned side-stream upload, readback
+    on a second side stream before the next volume's kernels) gives the
+    predictions and metrics of serving each volume alone, on K1."""
+    from efficientq_tpu_torch.data.datasets import Loader
+    from efficientq_tpu_torch.data.labels import split_label_brats
+    from efficientq_tpu_torch.eval.metrics import SegMetricMC
+    from efficientq_tpu_torch.eval.validate import validate_seg
+
+    dg, net, _, kw = _serve_int8(cuda)
+    kw = dict(kw, heads=None)
+    subjects = [synthetic.make_subject(np.random.default_rng(s), "brats",
+                                       (36, 40, 44)) for s in range(4)]
+    data = [(np.stack(list(img.values())), split_label_brats(lab))
+            for img, lab in subjects]
+    n_mo = len(dg.outputs)
+    got = []
+
+    def recording(*a):
+        out = infer(*a)
+        got.append(out)
+        return out
+
+    infer = sliding.make_volume_inferencer(dg, **kw)
+    before = K.qconv3x3_int8_ndhwc.launches
+    sm = validate_seg(dg, net.variables, Loader(data), None, n_mo, 3,
+                      patch_size=(32, 32, 32), overlap=(8, 8, 8),
+                      mode="quantized", infer=recording, device=cuda)
+    assert K.qconv3x3_int8_ndhwc.launches > before
+    want = [SegMetricMC(3) for _ in range(n_mo)]
+    for (img, lab), pred in zip(data, got):
+        x = torch.from_numpy(np.moveaxis(img, 0, -1)[None]).to(cuda)
+        one = infer(net.variables, x, (32, 32, 32), (8, 8, 8))
+        assert torch.equal(one, pred)
+        for i in range(-n_mo, 0):
+            want[i].evaluate_append_pred(
+                np.moveaxis(one[i, 0].cpu().numpy(), -1, 0), lab, True)
+    assert len(got) == 4
+    for a, b in zip(sm, want):
+        assert a.get_metric() == b.get_metric()
