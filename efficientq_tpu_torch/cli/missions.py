@@ -8,18 +8,23 @@ interchange: ``cmd.txt``, ``time_cost.txt``, ``layer_loss.txt``,
 ``FPseg*.nii.gz``, ``state_in_fp.pkl``, ``state_in_int8.pkl``,
 ``state_in_int8_compress.npz`` (with ``__qlvl_overrides__``; pickles of
 NumPy arrays, no torch tensors), and ``{ptq,fp,infer}/{val,test}_seg.txt``
-with ``true_test/``.
+with ``true_test/``; with the PTQ extensions ``calib_select.txt``
+(``--lwq_select``), ``mixed_upgraded.txt`` (``--mixed_frac``),
+``tail_alpha_sweep.txt`` (``--tail_alpha_sweep``) and
+``tune_act_loss.txt`` / ``tune_act_score.txt`` (``--tune_act``).  The port
+also writes ``toolchain.json`` (``utils/toolchain.py``) into each ptq
+snapshot.
 
 Flags of branches that are not ported raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item: ``train_fp`` (item 6); ``--lwq_select``,
-``--mixed_frac``, ``--tail_alpha_sweep``, ``--tune_act``, ``--qat_epochs``,
-``--act_offset`` and ``--lwq_granularity block`` (item 7, ``ptq`` only: the
-JAX ``infer`` ignores them too); ``--artifact``, ``--export_artifact``,
-``--serve_grid column`` and ``--tune_serving force`` (item 8);
-``--dp_devices``, ``--mesh_shape`` and ``--distributed`` (item 9).
+their ROADMAP queue 1 item: ``train_fp`` and ``--qat_epochs`` (item 6,
+FP training, which the quantization-aware fine-tune trains through);
+``--artifact``, ``--export_artifact``, ``--serve_grid column`` and
+``--tune_serving force`` (item 8); ``--dp_devices``, ``--mesh_shape`` and
+``--distributed`` (item 9).
 """
 from __future__ import annotations
 
+import json
 import os
 import os.path as P
 import pickle
@@ -32,8 +37,10 @@ from .. import nnir
 from ..data.transforms import center_crop
 from ..eval.validate import validate_seg
 from ..models import build_uresq, torch_io, validate_spatial_shape
-from ..ptq import run_ptq
+from ..ptq import run_ptq, run_ptq_mixed, tail_sensitive_convs
+from ..ptq.select import select_calibration, to_ndhwc
 from ..quant import pack_int_weight
+from ..utils.toolchain import toolchain_fingerprint
 from . import definer
 
 def select_device(args) -> torch.device:
@@ -67,13 +74,7 @@ _SERVING = [
     ("--distributed", lambda a: a.distributed, 9),
 ]
 _PTQ_EXTENSIONS = [
-    ("--lwq_select", lambda a: a.lwq_select, 7),
-    ("--mixed_frac", lambda a: a.mixed_frac, 7),
-    ("--tail_alpha_sweep", lambda a: a.tail_alpha_sweep, 7),
-    ("--tune_act", lambda a: a.tune_act, 7),
-    ("--qat_epochs", lambda a: a.qat_epochs, 7),
-    ("--act_offset", lambda a: a.act_offset, 7),
-    ("--lwq_granularity block", lambda a: a.lwq_granularity == "block", 7),
+    ("--qat_epochs", lambda a: a.qat_epochs, 6),
 ]
 
 
@@ -119,16 +120,28 @@ def train_fp(args):
 def _calib_crop_shape(args, img):
     """The shared calibration crop rule (ptqer.py:96-105): explicit
     --lwq_patchsz, else each spatial dim capped at 192 and rounded down to
-    a multiple of 64."""
+    a multiple of 64.  An axis under 64 voxels would get an empty crop
+    (the JAX mission calibrates on it and writes NaN losses): it raises,
+    naming the axis."""
     if args.lwq_patchsz:
         return [int(x) for x in args.lwq_patchsz.split(",")]
-    return [min(x, 192) // 64 * 64 for x in img.shape[-3:]]
+    shape = [min(x, 192) // 64 * 64 for x in img.shape[-3:]]
+    for axis, (crop, extent) in enumerate(zip(shape, img.shape[-3:])):
+        if crop == 0:
+            raise ValueError(
+                f"calibration crop: spatial axis {axis} of the volume has "
+                f"{extent} voxels, under 64, so the crop rule "
+                f"min(x, 192) // 64 * 64 gives it 0; pass --lwq_patchsz")
+    return shape
 
 
-def _calib_sequence(args, hub, count):
-    """``count`` sequential center-cropped (img, label) trainseqloader
-    batches after the --lwq_dataid skip (ptqer.py:83-111), with a
-    descriptive error when the train split is too short."""
+def _calib_sequence(args, hub, count, per_volume=False):
+    """``count`` sequential center-cropped (img, label) pairs after the
+    --lwq_dataid skip (ptqer.py:83-111), with a descriptive error when the
+    train split is too short.  An item is one trainseqloader batch (the
+    reference's unit for --lwq_dataid and --lwq_batchsz), or with
+    ``per_volume`` one volume (--lwq_select scores volumes one by one,
+    whatever --test_batch_size is)."""
     hub.trainseqloader.dataset.use_fix_transform()
     it = iter(hub.trainseqloader)
     pairs = []
@@ -138,11 +151,18 @@ def _calib_sequence(args, hub, count):
         while len(pairs) < count:
             img, label = next(it)
             shape = _calib_crop_shape(args, img)
-            pairs.append((center_crop(img, shape), center_crop(label, shape)))
+            img, label = center_crop(img, shape), center_crop(label, shape)
+            if per_volume:
+                for j in range(img.shape[0]):
+                    if len(pairs) < count:
+                        pairs.append((img[j:j + 1], label[j:j + 1]))
+            else:
+                pairs.append((img, label))
     except StopIteration:
+        unit = "volumes" if per_volume else "batches"
         raise ValueError(
             f"calibration needs --lwq_dataid ({args.lwq_dataid}) + {count} "
-            f"sequential batches, but the train split has fewer") from None
+            f"sequential {unit}, but the train split has fewer") from None
     return pairs
 
 
@@ -155,11 +175,54 @@ def get_calibration_data(args, hub):
     return img, label
 
 
+def get_calibration_candidates(args, hub):
+    """K sequential candidate (img, label) volume pairs for --lwq_select,
+    each center-cropped by the same rule as the single-volume path."""
+    pairs = _calib_sequence(args, hub, args.lwq_select, per_volume=True)
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def _tune_scorer(graph, tune_pairs, hub, num_mo, n_class, device):
+    """Quantized-dice scorer on the labeled calibration/train volumes (the
+    validation split is never touched), shared by --tail_alpha_sweep and
+    --tune_act; one eager inferencer for every call.  The score geometry is
+    clamped to the calibration crop, which can be smaller than the task's
+    sliding patch."""
+    from ..eval.sliding import make_volume_inferencer
+    from ..ops import triple
+
+    t_sn = [f"calib{i}" for i in range(len(tune_pairs))]
+    vol_shape = np.asarray(tune_pairs[0][0]).shape[2:5]
+    score_ps = tuple(min(p, v) for p, v in zip(
+        triple(hub.slide_patch_size), vol_shape))
+    score_ov = tuple(o if o < p else p // 2 for o, p in zip(
+        triple(hub.slide_overlap), score_ps))
+    score_infer = make_volume_inferencer(
+        graph, patch_batch=2, mode="quantized", hard_pred=True,
+        multilabel=np.asarray(tune_pairs[0][1]).ndim == 5)
+
+    def tune_score(v):
+        sm = validate_seg(graph, v, tune_pairs, t_sn, num_mo, n_class,
+                          patch_size=score_ps, overlap=score_ov,
+                          mode="quantized", patch_batch=2,
+                          multilabel_fusetype=hub.multilabel_fusetype,
+                          infer=score_infer, device=device)
+        return float(sm[-1].get_metric()["dsc"])
+
+    return tune_score
+
+
 def ptq(args):
     """PTQ mission (ptq_seg.py:7-32 + ptqer.do_ptq:282-387) on
-    ``select_device(args)``.  Returns the snapshot directory and the
-    mission's seconds by part (data, fp_forward, calibration, final_test,
-    exports)."""
+    ``select_device(args)``, with the extensions of the JAX mission:
+    calibration-volume selection (--lwq_select), mixed precision
+    (--mixed_frac), offset activation grids (--act_offset), block
+    granularity, the tail clip sweep (--tail_alpha_sweep) and
+    activation-range tuning (--tune_act).  Returns the snapshot directory
+    and the mission's seconds by part: data, fp_forward and calibration
+    (of the kept calibration), final_test, exports, and where they ran
+    ranking (the mixed ranking pass), candidate<i>_calibration and
+    candidate<i>_scoring, tail_alpha_sweep and tune_act."""
     _refuse(args, _PTQ_EXTENSIONS + _SERVING)
     device = select_device(args)
     seconds = {}
@@ -187,10 +250,20 @@ def ptq(args):
     print("pretrain is :", args.pretrain)
     variables = torch_io.load_torch_checkpoint(graph, variables,
                                                args.pretrain)
-    img, _label = get_calibration_data(args, hub)
-    calib_x = np.ascontiguousarray(np.moveaxis(img, 1, -1))  # NDHWC
-    if args.lwq_verbose:
-        print("Calibration data shape:", img.shape)
+    if args.lwq_select:
+        if args.lwq_batchsz != 1:
+            raise ValueError("--lwq_select is incompatible with "
+                             "--lwq_batchsz > 1 (candidates are single "
+                             "volumes)")
+        if args.lwq_select < 2:
+            raise ValueError("--lwq_select needs at least 2 candidates")
+        cand_imgs, cand_labels = get_calibration_candidates(args, hub)
+        tune_pairs = list(zip(cand_imgs, cand_labels))
+    else:
+        img, _label = get_calibration_data(args, hub)
+        tune_pairs = [(img, _label)]
+        if args.lwq_verbose:
+            print("Calibration data shape:", img.shape)
     seconds["data"] = time.perf_counter() - t0
 
     # optional FP evaluation before quantization (ptqer.py:309-310)
@@ -201,16 +274,121 @@ def ptq(args):
         _final_test(fg, fv, hub, n_mo, nClass, P.join(snap_dir, "fp"), args,
                     device)
 
-    hp = definer.get_lwq_hyperparams(args)
-    fgraph, qvars, report = run_ptq(
-        graph, variables, calib_x, task=args.task,
-        init_stride=definer.parse_triple(args.init_stride), hp=hp,
-        verbose=args.lwq_verbose, granularity=args.lwq_granularity,
-        device=device)
+    ptq_kw = dict(task=args.task,
+                  init_stride=definer.parse_triple(args.init_stride),
+                  hp=definer.get_lwq_hyperparams(args),
+                  verbose=args.lwq_verbose,
+                  granularity=args.lwq_granularity)
+    if args.act_offset:
+        # offset activation grids searched per layer at calibration;
+        # scope 'tail' limits the search to the last ResBlock's convs
+        ptq_kw["act_offset"] = args.act_offset
+        if args.act_offset_scope == "tail":
+            ptq_kw["act_offset_convs"] = set(tail_sensitive_convs(graph))
+            print(f"act_offset: searching k in 0..{args.act_offset} on "
+                  f"{sorted(ptq_kw['act_offset_convs'])}")
+        else:
+            print(f"act_offset: searching k in 0..{args.act_offset} on "
+                  f"every q_act conv")
+    mixed = dict(mixed_frac=args.mixed_frac, mixed_qlvl=args.mixed_qlvl,
+                 mixed_tail=args.mixed_tail == "on")
+    t0 = time.perf_counter()
+    if args.lwq_select:
+        # calibration-volume selection: calibrate on each of K candidates,
+        # keep the best by train-volume dice
+        fgraph, qvars, report, selection = select_calibration(
+            graph, variables, cand_imgs, cand_labels, num_mo=n_mo,
+            n_class=nClass, patch_size=hub.slide_patch_size,
+            overlap=hub.slide_overlap,
+            multilabel_fusetype=hub.multilabel_fusetype, device=device,
+            **mixed, **ptq_kw)
+        calib_x = to_ndhwc(cand_imgs[selection["picked"]])
+        with open(P.join(snap_dir, "calib_select.txt"), "w") as f:
+            for i, sc in enumerate(selection["scores"]):
+                mark = "  <- picked" if i == selection["picked"] else ""
+                f.write(f"candidate {args.lwq_dataid + i}: "
+                        f"train-volume dice {sc:.6f}{mark}\n")
+        print(f"calib_select: picked candidate "
+              f"{args.lwq_dataid + selection['picked']} (train-volume dice "
+              f"{selection['scores'][selection['picked']]:.4f} over "
+              f"{args.lwq_select} candidates)")
+        if "ranking" in selection["seconds"]:
+            seconds["ranking"] = selection["seconds"]["ranking"]
+        for i, (cal, sco) in enumerate(selection["seconds"]["candidates"]):
+            seconds[f"candidate{i}_calibration"] = cal
+            seconds[f"candidate{i}_scoring"] = sco
+    else:
+        calib_x = to_ndhwc(img)
+        if args.mixed_frac:
+            # sensitivity-driven mixed precision: two passes, the worst
+            # layers lifted to --mixed_qlvl
+            fgraph, qvars, report = run_ptq_mixed(
+                graph, variables, calib_x, device=device, **mixed, **ptq_kw)
+        else:
+            fgraph, qvars, report = run_ptq(graph, variables, calib_x,
+                                            device=device, **ptq_kw)
     seconds["fp_forward"] = report.fp_forward_seconds
     seconds["calibration"] = report.calibration_seconds
+    if args.mixed_frac and not args.lwq_select:
+        # the first pass: its FP forward and the ranking calibration
+        seconds["ranking"] = (time.perf_counter() - t0
+                              - report.fp_forward_seconds
+                              - report.calibration_seconds)
+    if report.mixed_upgraded:
+        print(f"mixed precision: {len(report.mixed_upgraded)} layers at "
+              f"qlvl {args.mixed_qlvl}: {', '.join(report.mixed_upgraded)}")
+        with open(P.join(snap_dir, "mixed_upgraded.txt"), "w") as f:
+            f.write("\n".join(report.mixed_upgraded) + "\n")
+
+    if args.tail_alpha_sweep or args.tune_act:
+        tune_score = _tune_scorer(fgraph, tune_pairs, hub, n_mo, nClass,
+                                  device)
+
+    if args.tail_alpha_sweep:
+        # validated clip-range sweep on the tail convs; factor 1.0 is a
+        # candidate, so the sweep cannot lose by its own score
+        from ..ptq.tune import sweep_tail_alpha
+
+        t0 = time.perf_counter()
+        facs = tuple(float(x) for x in args.tail_alpha_factors.split(","))
+        qvars, ainfo = sweep_tail_alpha(fgraph, qvars, tune_score,
+                                        factors=facs)
+        if ainfo["scores"]:
+            print(f"tail_alpha_sweep: kept x{ainfo['best_factor']} "
+                  f"(calib-volume dice {ainfo['best_score']:.4f}) over "
+                  f"{[f for f, _ in ainfo['scores']]} on {ainfo['convs']}")
+            with open(P.join(snap_dir, "tail_alpha_sweep.txt"), "w") as f:
+                for fac, sc in ainfo["scores"]:
+                    mark = ("  <- kept" if fac == ainfo["best_factor"]
+                            else "")
+                    f.write(f"x{fac}: dice {sc:.6f}{mark}\n")
+        seconds["tail_alpha_sweep"] = time.perf_counter() - t0
+
+    if args.tune_act:
+        # joint alpha_act refinement on the calibration volume, validated
+        # by quantized dice on the labeled calibration volume(s): the
+        # best-scoring iterate is kept, iteration 0 included
+        from ..ptq.tune import tune_activation_range
+
+        t0 = time.perf_counter()
+        qvars, tune_losses, tinfo = tune_activation_range(
+            fgraph, qvars, calib_x, report.output_fp,
+            max_iter=args.tune_act, score_fn=tune_score)
+        print(f"tune_act: recon MSE {tune_losses[0]:.6g} -> "
+              f"{tune_losses[-1]:.6g} over {len(tune_losses)} iters; "
+              f"kept iter {tinfo['best_iter']} "
+              f"(calib-volume dice {tinfo['best_score']:.4f})")
+        with open(P.join(snap_dir, "tune_act_loss.txt"), "w") as f:
+            f.write("\n".join(f"{v:.8g}" for v in tune_losses))
+        with open(P.join(snap_dir, "tune_act_score.txt"), "w") as f:
+            for it, sc in tinfo["scores"]:
+                mark = "  <- kept" if it == tinfo["best_iter"] else ""
+                f.write(f"iter {it}: dice {sc:.6f}{mark}\n")
+        seconds["tune_act"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    with open(P.join(snap_dir, "toolchain.json"), "w") as f:
+        json.dump(toolchain_fingerprint(), f, indent=1)
     print(f"FP forward costs {report.fp_forward_seconds:.3f}s, PTQ costs "
           f"{report.calibration_seconds:.3f}s.")
     with open(P.join(snap_dir, "time_cost.txt"), "w") as f:

@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``models/torch_io.py``.  Graph node names
 mirror the reference's torch module paths, so conversion is mechanical:
 
 - conv node ``X``  <->  ``X.weight`` (OIDHW <-> DHWIO), ``X.bias``,
-  ``X.alpha_w``, ``X.alpha_act``
+  ``X.alpha_w``, ``X.alpha_act``, ``X.act_k`` (an int32 offset-grid shift)
 - bn node ``X``    <->  ``X.weight`` (scale), ``X.bias``, ``X.running_mean``,
   ``X.running_var``
 
@@ -69,10 +69,6 @@ def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
 
     for node in graph.nodes:
         if node.op == "conv":
-            if f"{node.name}.act_k" in sd:
-                raise NotImplementedError(
-                    f"{node.name}: offset activation grids (act_k) are not "
-                    f"ported yet")
             w = take(f"{node.name}.weight")
             if w is not None:
                 params[node.name]["kernel"] = w.permute(2, 3, 4, 1, 0).contiguous()
@@ -86,6 +82,12 @@ def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
                     # reference alphas are 0-d/1-element tensors; ours may
                     # be per-output-channel vectors (channel_wise)
                     params[node.name][alpha] = a.reshape(()) if a.numel() == 1 else a
+            if f"{node.name}.act_k" in sd:
+                # the offset-grid shift (run_ptq act_offset), absent from
+                # reference checkpoints
+                params[node.name]["act_k"] = torch.tensor(
+                    int(np.asarray(sd[f"{node.name}.act_k"]).reshape(())),
+                    dtype=torch.int32)
         elif node.op == "bn":
             for ours, theirs in (("scale", "weight"), ("bias", "bias")):
                 v = take(f"{node.name}.{theirs}")
@@ -168,7 +170,7 @@ def to_torch_state_dict(graph: Graph, variables) -> Dict[str, np.ndarray]:
             p = params[node.name]
             out[f"{node.name}.weight"] = np.transpose(_to_np(p["kernel"]),
                                                       (4, 3, 0, 1, 2))
-            for k in ("bias", "alpha_w", "alpha_act"):
+            for k in ("bias", "alpha_w", "alpha_act", "act_k"):
                 if k in p:
                     out[f"{node.name}.{k}"] = _to_np(p[k])
         elif node.op == "bn":

@@ -42,7 +42,8 @@ from . import ops
 from .kernels.qconv3d import qconv3x3_int8_ndhwc
 from .kernels.qmatmul import fused_int8_matmul, qconv1x1_ndhwc
 from .kernels.stem import stem_s2d_conv
-from .quant import act_codes, fake_quant_act, fake_quant_weight
+from .quant import (act_codes, fake_quant_act, fake_quant_act_k,
+                    fake_quant_weight)
 
 QUANT_MODES = ("quantized", "fq")
 
@@ -263,13 +264,17 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
         # integer path of ptq/deploy.py: int8 codes in, exact integer conv,
         # float32 scale epilogue (float32 at any compute dtype, as in the
         # JAX package)
+        # an offset grid (act_k, a static int) gives signed codes in
+        # [-k, n-1-k]; zero stays on the grid, so the zero padding and the
+        # scale epilogue are unchanged
         qa = (x if a.get("input_quantized")
-              else act_codes(x, p["alpha_act"], qcfg.qlvl_act))
+              else act_codes(x, p["alpha_act"], qcfg.qlvl_act,
+                             a.get("act_k", 0)))
         y = _int8_conv(qa, p["kernel_int8"], a, qcfg) * p["scale"]
         if "bias" in p:
             y = y + p["bias"]
         return y
-    x, kernel = _quantize_operands(x, p, qcfg, mode)
+    x, kernel = _quantize_operands(x, p, a, mode)
     bias = p.get("bias")
     if compute_dtype is not None:
         # low precision: operands cast, the conv emits compute_dtype (one
@@ -281,14 +286,22 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
                       a["dilation"], a["groups"])
 
 
-def _quantize_operands(x, p, qcfg: Optional[QCfg], mode: str):
+def _quantize_operands(x, p, a, mode: str):
     """(x, kernel) of a float conv: the activations fake-quantized with
-    ``q_act`` in both quantized modes, the weights fake-quantized on the fly
-    in 'fq' (after PTQ the stored kernel already holds quantized values)."""
+    ``q_act`` in both quantized modes (on the offset grid ``act_k`` where
+    calibration chose one: the node's static attribute if deployment baked
+    it, else the calibrated parameter), the weights fake-quantized on the
+    fly in 'fq' (after PTQ the stored kernel already holds quantized
+    values)."""
     kernel = p["kernel"]
+    qcfg: Optional[QCfg] = a.get("qcfg")
     if qcfg is not None and mode in QUANT_MODES:
         if qcfg.q_act:
-            x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
+            ak = a.get("act_k", p.get("act_k"))
+            if ak is None:
+                x = fake_quant_act(x, p["alpha_act"], qcfg.qlvl_act)
+            else:
+                x = fake_quant_act_k(x, p["alpha_act"], qcfg.qlvl_act, ak)
         if mode == "fq" and qcfg.q_weight:
             kernel = fake_quant_weight(kernel, p["alpha_w"], qcfg.qlvl_w)
     return x, kernel
@@ -325,7 +338,7 @@ def _eval_conv_cf(node: Node, params, x, mode: str, compute_dtype=None):
     1x1 classifier emits contiguous NCDHW, so the upsample and the stitch
     after it run along W instead of over a 3-channel minor axis."""
     p = params[node.name]
-    x, kernel = _quantize_operands(x, p, node.attrs.get("qcfg"), mode)
+    x, kernel = _quantize_operands(x, p, node.attrs, mode)
     if compute_dtype is not None:
         x, kernel = x.to(compute_dtype), kernel.to(compute_dtype)
     y = ops.conv3d_ncdhw_out(x, kernel)

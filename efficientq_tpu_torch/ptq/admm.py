@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import ops
-from ..quant import project_by_iter, project_by_iter_rows
+from ..quant import fake_quant_act_k, project_by_iter, project_by_iter_rows
 from .solver import (GramStats, compute_gram_stats, flat_to_kernel,
                      kernel_to_flat, make_ranking_mse, make_system,
                      quadratic_mse, solve_proximal)
@@ -260,24 +260,41 @@ def calibrate_layer(x_q: torch.Tensor, y_fp: torch.Tensor,
 
     x_q: NDHWC input activation.  With ``qlvl_act`` the optimal activation
     scale is found and the input fake-quantized first; without, the input
-    is used as it is.  y_fp: NDHWC full-precision target output;
-    kernel/bias: the current FP (BN-folded) parameters; att: optional
-    (N, Do, Ho, Wo) attention weights.
+    is used as it is.  ``act_search=K`` (with ``qlvl_act``) also searches
+    the offset grids k = 0..K (``quant.fake_quant_act_k``).  y_fp: NDHWC
+    full-precision target output; kernel/bias: the current FP (BN-folded)
+    parameters; att: optional (N, Do, Ho, Wo) attention weights.
 
     Returns the quantized kernel (DHWIO, values = alpha_w * grid), bias,
     alpha_w, alpha_act (None without ``qlvl_act``), the layer's quantized
     output, the best unweighted loss, the final reported layer loss
-    (attention-weighted when att is given), the ADMM history and
+    (attention-weighted when att is given), the ADMM history, ``act_k``
+    (the chosen offset as an int32 0-d tensor, 0 without a search) and
     ``seconds``: {"gram", "admm", "rest"} of this call (the activation
     projection counts to "gram").
     """
-    if act_search:
-        raise NotImplementedError(
-            "offset activation grids (act_search) are ROADMAP queue 1 "
-            "item 7")
     clock = _Clock(x_q.device)
     alpha_act = None
-    if qlvl_act is not None:
+    act_k = torch.zeros((), dtype=torch.int32, device=x_q.device)
+    if qlvl_act is not None and act_search:
+        # offset-grid search (quant.fake_quant_act_k): candidate grids
+        # shift k of the qlvl_act levels below zero (k = 0 is the unsigned
+        # grid); the k whose jointly optimal scale reconstructs the input
+        # best wins, the smallest k on a tie.  The errors are summed in
+        # float64: JAX's float32 sums can misrank near-ties.
+        delta = 1.0 / (qlvl_act - 1)
+        errs, alphas = [], []
+        for k in range(min(int(act_search), qlvl_act - 1) + 1):
+            lo = -k * delta
+            a_k, b_k = project_by_iter(x_q, qlvl_act, lo, lo + 1.0)
+            d = (x_q - a_k * b_k).double()
+            errs.append((d * d).sum())
+            alphas.append(a_k)
+        best = torch.argmin(torch.stack(errs))
+        act_k = best.to(torch.int32)
+        alpha_act = torch.stack(alphas)[best]
+        x_q = fake_quant_act_k(x_q, alpha_act, qlvl_act, act_k)
+    elif qlvl_act is not None:
         alpha_act, b_act = project_by_iter(x_q, qlvl_act, 0.0, 1.0)
         x_q = alpha_act * b_act
     stats = compute_gram_stats(x_q, y_fp, att, ksize, stride, padding,
@@ -289,4 +306,4 @@ def calibrate_layer(x_q: torch.Tensor, y_fp: torch.Tensor,
                                has_bias=has_bias, hp=hp, clock=clock)
     clock.mark()
     res["seconds"] = dict(zip(("gram", "admm", "rest"), clock.seconds()))
-    return {**res, "alpha_act": alpha_act}
+    return {**res, "alpha_act": alpha_act, "act_k": act_k}

@@ -44,13 +44,22 @@ def eligible(qcfg) -> bool:
             and qcfg.qlvl_act <= 128 and qcfg.qlvl_w <= 128)
 
 
+def act_k_of(p) -> int:
+    """The offset-grid shift (``act_k``) of a conv's parameters as a Python
+    int; 0 when the conv has none."""
+    v = p.get("act_k")
+    return 0 if v is None else int(v)
+
+
 def to_int8_inference(graph: Graph, variables,
                       only_kernel_sizes: Optional[Collection] = None
                       ) -> Tuple[Graph, Dict]:
     """Returns (graph', variables') with eligible qconvs converted to int8
     codes + a scale epilogue, the int8 3^3 convs flagged for K1 and their
     epilogues fused.  Input variables must hold post-PTQ quantized kernels
-    (values = alpha_w * grid).  The kernels' weight layouts
+    (values = alpha_w * grid); a calibrated offset grid (``act_k``) is
+    baked into every conv's attributes, int8 or not.  The kernels' weight
+    layouts
     (``kernel_packed``) are made here, once: K1's for the flagged 3^3
     convs, K3's for every int8 1x1x1 conv that
     ``to_pallas_inference(include_1x1=True)`` can flag.
@@ -63,6 +72,15 @@ def to_int8_inference(graph: Graph, variables,
     new_nodes = []
     for node in graph.nodes:
         attrs = dict(node.attrs)
+        if node.op == "conv":
+            # the offset-grid shift calibrated for this conv (run_ptq
+            # act_offset), baked as a static int: the int8 path's signed
+            # codes read it, and the kernel flagging, the epilogue fusion
+            # and the s2d rewrite keep such a conv off the fused kernels,
+            # whose act-quant assumes the unsigned grid
+            ak = act_k_of(params.get(node.name, {}))
+            if ak:
+                attrs["act_k"] = ak
         if (node.op == "conv" and eligible(attrs.get("qcfg"))
                 and (only_kernel_sizes is None
                      or tuple(attrs["kernel_size"]) in only_kernel_sizes)):

@@ -73,10 +73,40 @@ def fake_quant_act(x, alpha_act, num_lvl):
     return discretize(_promoted(x) / a, num_lvl, 0.0, 1.0) * a
 
 
-def act_codes(x, alpha_act, num_lvl):
-    """The int8 activation codes ``round(clip(x/a, 0, 1) * (n-1))`` that an
-    int8 conv consumes (the JAX ``qconv3x3_int8_ndhwc`` prologue)."""
+def fake_quant_act_k(x, alpha_act, num_lvl, k):
+    """Offset activation fake-quant: the uniform grid
+    ``(i - k)/(num_lvl-1) * alpha_act``, i in 0..num_lvl-1 (k levels below
+    zero).  Zero stays on the grid, so the int8 conv of the codes ``q - k``
+    needs no correction term; ``k = 0`` is :func:`fake_quant_act` bit for
+    bit.
+
+    As in the JAX version, a Python-int ``k`` (a shift baked into a node's
+    attributes at deployment) puts the grid's ends in float64 before they
+    meet the float32 data, and a tensor ``k`` (a calibrated parameter)
+    computes them in float32."""
     a = _scalar(alpha_act, x)
+    if isinstance(k, torch.Tensor):
+        one = torch.ones((), dtype=torch.float32, device=x.device)
+        lo = -k.to(device=x.device, dtype=torch.float32) * _scalar(
+            1.0 / (num_lvl - 1), x)
+        hi = lo + one
+        delta = (hi - lo) / _scalar(float(num_lvl - 1), x)
+        v = torch.clamp(_promoted(x) / a, lo, hi)
+        q = ste_round((v - lo) / delta)
+        return (q * delta + lo) * a
+    lo = -int(k) * (1.0 / (num_lvl - 1))
+    return discretize(_promoted(x) / a, num_lvl, lo, lo + 1.0) * a
+
+
+def act_codes(x, alpha_act, num_lvl, k: int = 0):
+    """The int8 activation codes ``round(clip(x/a, 0, 1) * (n-1))`` that an
+    int8 conv consumes (the JAX ``qconv3x3_int8_ndhwc`` prologue); with an
+    offset grid ``k`` the signed codes ``clip(round(x/a * (n-1)), -k,
+    n-1-k)`` (the JAX package's int8 conv of an ``act_k`` layer)."""
+    a = _scalar(alpha_act, x)
+    if k:
+        return torch.clamp(torch.round(_promoted(x) / a * (num_lvl - 1)),
+                           -k, num_lvl - 1 - k).to(torch.int8)
     return torch.round(torch.clamp(_promoted(x) / a, 0.0, 1.0)
                        * (num_lvl - 1)).to(torch.int8)
 

@@ -25,6 +25,10 @@ within the tolerances that tests/test_torch_port_ptq.py holds the CPU to
 against JAX of one of the outcomes the CPU reaches itself under
 rounding-level perturbations.
 
+K1 also at the LiTS preset's 512-channel shapes and at the 16-level grids
+of the mixed-precision recipe, and a deployment with offset activation
+grids (``act_k``) against its quantized forward.
+
 The serving loop's upload and readback (``data/prefetch.py::device_feed``,
 ``eval/validate.py``): the device feed gives the host's batches in order,
 uploads on its side stream rather than behind the caller's, and keeps a
@@ -110,19 +114,22 @@ def matmul_case(m, k, n, dtype, per_channel, with_bias, seed=0):
 
 
 def make_case(seed, c, dil=1, quant=False, res=False, relu=False, pool=False,
-              odd=False, xq=False, per_channel=False, n=2, shape=None, o=6):
+              odd=False, xq=False, per_channel=False, n=2, shape=None, o=6,
+              qlvl=NA, quant_qlvl=8):
     """NumPy inputs of one K1 call (by default N=2, 6^3 or 5x6x7 volume,
-    O=6)."""
+    O=6, the W4A4 preset's 4 activation levels and an 8-level next-conv
+    quantizer)."""
     rng = np.random.RandomState(seed)
     d, h, w = shape or ((5 if odd else 6), 6, (7 if odd else 6))
     x = (np.abs(rng.randn(n, d, h, w, c)) * 0.8).astype(np.float32)
     alpha = np.float32(0.9)
     if xq:
-        x = np.round(np.clip(x / alpha, 0, 1) * (NA - 1)).astype(np.int8)
+        x = np.round(np.clip(x / alpha, 0, 1) * (qlvl - 1)).astype(np.int8)
     kw = dict(dilation=dil, residual_relu=relu, pool=pool, x_quantized=xq)
     if quant:
-        kw.update(quant_alpha=np.float32(1.3), quant_qlvl=8)
+        kw.update(quant_alpha=np.float32(1.3), quant_qlvl=quant_qlvl)
     return dict(
+        qlvl=qlvl,
         x=x,
         codes=(2 * rng.randint(0, 4, size=(3, 3, 3, c, o)) - 3).astype(np.int8),
         bias=rng.randn(o).astype(np.float32), alpha=alpha,
@@ -147,7 +154,7 @@ def run_port(case, fn=K.qconv3x3_int8_ndhwc, device="cpu", bf16=False):
         kw["out_dtype"] = torch.bfloat16
         res = None if res is None else res.to(torch.bfloat16)
     out = fn(t(case["x"]), t(case["codes"]), t(case["bias"]), t(case["alpha"]),
-             t(case["scale"]), NA, residual=res, **kw)
+             t(case["scale"]), case.get("qlvl", NA), residual=res, **kw)
     return tuple(
         (o.view(torch.int16) if o.dtype == torch.bfloat16 else o).cpu().numpy()
         for o in (out if isinstance(out, tuple) else (out,)))
@@ -233,6 +240,80 @@ def test_cuda_k1_tiles_match_plain(name, bf16, cuda):
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         np.testing.assert_array_equal(g, r)
+
+
+# K1 at the LiTS preset's widest shapes and the mixed recipe's 16-level
+# grids (run on the card only): C = O = 512 at the bottleneck's extents of
+# a 128 x 128 x 64 patch (4^3) and of the 192 x 128 x 64 calibration crop
+# (6 x 4 x 4), 256 -> 512 and 512 -> 256, 16-level act-quant prologues and
+# next-act-quant epilogues (a 16-level conv feeding a 4-level one and the
+# other way round), at the LiTS path's batch of 8 patches
+LITS_CASES = {
+    "c512-o512-n8-4cube-a16-quant16": dict(
+        c=512, o=512, n=8, shape=(4, 4, 4), qlvl=16, quant=True,
+        quant_qlvl=16),
+    "c512-o512-n8-4cube-a4-res-relu": dict(
+        c=512, o=512, n=8, shape=(4, 4, 4), res=True, relu=True),
+    "c512-o512-n1-6x4x4-a16-xq-res": dict(
+        c=512, o=512, n=1, shape=(6, 4, 4), qlvl=16, xq=True, res=True),
+    "c256-o512-n8-4cube-a16-quant4": dict(
+        c=256, o=512, n=8, shape=(4, 4, 4), qlvl=16, quant=True,
+        quant_qlvl=4),
+    "c512-o256-n8-8cube-a4-quant16": dict(
+        c=512, o=256, n=8, shape=(8, 8, 8), quant=True, quant_qlvl=16),
+    "c256-o256-n8-8cube-a16-pool": dict(
+        c=256, o=256, n=8, shape=(8, 8, 8), qlvl=16, pool=True),
+    "c32-o32-n8-64cube-a16-quant16": dict(
+        c=32, o=32, n=8, shape=(64, 64, 64), qlvl=16, quant=True,
+        quant_qlvl=16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(LITS_CASES))
+def test_cuda_k1_lits_shapes_match_plain(name, bf16, cuda):
+    case = make_case(200 + sorted(LITS_CASES).index(name),
+                     **LITS_CASES[name])
+    before = K.qconv3x3_int8_ndhwc.launches
+    got = run_port(case, device=cuda, bf16=bf16)
+    ref = run_port(case, K.qconv3x3_int8_ndhwc_reference, device=cuda,
+                   bf16=bf16)
+    assert K.qconv3x3_int8_ndhwc.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.cuda
+def test_cuda_act_k_deployment_matches_quantized_forward(cuda):
+    """Offset activation grids (``act_k``) on three convs of the small net:
+    deployed to int8 on the card, those convs stay off K1 and its fused
+    epilogues (signed codes on the integer conv), every other interior 3^3
+    conv runs on K1, and the forward computes the undeployed quantized
+    forward (within 2e-4, the CPU test's level)."""
+    fg, fv = small_net(1, 0.8)
+    names = [n.name for n in fg.qconv_nodes()
+             if n.attrs["qcfg"].q_act and n.attrs["qcfg"].q_weight
+             and n.attrs["kernel_size"] == (3, 3, 3)]
+    chosen = {names[1]: 1, names[2]: 2, names[-1]: 3}
+    for name, k in chosen.items():
+        fv["params"][name]["act_k"] = torch.tensor(k, dtype=torch.int32)
+    dg, dv = to_int8_inference(fg, fv)
+    for name in chosen:
+        a = dg.node(name).attrs
+        assert a["act_k"] == chosen[name] and a.get("int8")
+        assert not a.get("pallas") and not a.get("input_quantized")
+    x = torch.from_numpy(np.abs(np.random.RandomState(2).randn(
+        2, 32, 32, 32, 4)).astype(np.float32)).to(cuda)
+    ref = nnir.apply(fg, nnir.to_device(fv, cuda), x, mode="quantized")
+    flagged = sum(1 for n in dg.nodes if n.attrs.get("pallas"))
+    assert flagged > 0
+    before = K.qconv3x3_int8_ndhwc.launches
+    got = nnir.apply(dg, nnir.to_device(dv, cuda), x, mode="quantized")
+    assert K.qconv3x3_int8_ndhwc.launches - before == flagged
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.cuda

@@ -497,20 +497,48 @@ def test_calibrate_layer_matches_jax(name):
 
 def test_unported_options_raise():
     x = torch.zeros(1, 4, 4, 4, 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        admm.calibrate_layer(x, x, torch.zeros(3, 3, 3, 2, 2), None, None,
-                             ksize=(3, 3, 3), stride=(1, 1, 1),
-                             padding=(1, 1, 1), dilation=(1, 1, 1), qlvl_w=4,
-                             has_bias=False, hp=PTQHyperParams(), qlvl_act=4,
-                             act_search=2)
     g = build_uresq(UResQConfig(**TINY))
     v = nnir.init(g, 0, device="cpu")
-    for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(granularity="block"), "item 7"),
-                     (dict(block_target="fp"), "item 7"),
-                     (dict(act_offset=1), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_ptq(g, v, x, task="lits", init_stride=2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        run_ptq(g, v, x, task="lits", init_stride=2, device="cpu",
+                mesh=object())
+
+
+def test_calibrate_layer_act_search_runs():
+    """The offset-grid search that raised before this slice: it runs and
+    returns an int32 act_k in 0..K (its parity with JAX:
+    tests/test_torch_port_ptq_ext.py)."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 4, 4, 4, 2)
+                         .astype(np.float32))
+    res = admm.calibrate_layer(x, x, torch.ones(3, 3, 3, 2, 2) * 0.1, None,
+                               None, ksize=(3, 3, 3), stride=(1, 1, 1),
+                               padding=(1, 1, 1), dilation=(1, 1, 1),
+                               qlvl_w=4, has_bias=False,
+                               hp=PTQHyperParams(admm_iter=2), qlvl_act=4,
+                               act_search=2)
+    assert res["act_k"].dtype == torch.int32
+    assert 0 <= int(res["act_k"]) <= 2
+    assert np.isfinite(float(res["loss_reported"]))
+
+
+@pytest.mark.parametrize("kw", [dict(granularity="block"),
+                                dict(granularity="block", block_target="fp"),
+                                dict(act_offset=1)],
+                         ids=["block", "block-fp", "act-offset"])
+def test_run_ptq_options_run(kw):
+    """run_ptq's block granularity (both targets) and offset grids, which
+    raised before this slice, calibrate every layer with finite losses
+    (their parity with JAX: tests/test_torch_port_ptq_ext.py)."""
+    g = build_uresq(UResQConfig(**TINY))
+    v = nnir.init(g, 0, device="cpu")
+    x = np.random.RandomState(1).randn(1, 16, 16, 16, 2).astype(np.float32)
+    fg, qv, rep = run_ptq(g, v, x, task="lits", init_stride=(2, 2, 2),
+                          hp=PTQHyperParams(admm_iter=2), device="cpu", **kw)
+    assert len(rep.layer_losses) == len(fg.qconv_nodes())
+    assert all(np.isfinite(loss) for _, loss in rep.layer_losses)
+    searched = [n for n in fg.qconv_nodes()
+                if "act_k" in qv["params"][n.name]]
+    assert bool(searched) == ("act_offset" in kw)
 
 
 # --- ptq/engine.py::run_ptq ------------------------------------------------
