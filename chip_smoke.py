@@ -2,7 +2,12 @@
 """Smoke run of the PyTorch port's serving paths, its PTQ calibration, its
 ``ptq`` and ``infer`` missions and its PTQ extensions on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--ab]
+
+``--ab`` runs phases 0, 2, 4 and 7 alone (the serving paths' volumes/s
+and the flagship calibration's seconds) and prints no result line: copied
+into two trees and run from each in one call, it compares their serving
+and calibration speed with the same harness.
 
 Phases, each printed on its own lines:
 
@@ -166,8 +171,39 @@ Phases, each printed on its own lines:
    finite layer losses; then ``infer --deploy mixed --serve_stem s2d
    --serve_dtype bf16`` on its export: one K2 launch per forward, K1
    launches of 14 less the offset-grid 3^3 convs per forward, >= 0.99
-   agreement with the same path on the plain K2 and K1.  Phases 8 and 9
-   write their data to one temporary directory, removed at the end.
+   agreement with the same path on the plain K2 and K1.
+10. FP training and the quantization-aware fine-tune at full width: (a)
+   the train step of the flagship preset of ``config/brats_fp.yaml``
+   (weights from ``--seed``, a batch of 4 synthetic 128^3 x 4 patches,
+   loss bhybrid, dropout 0.5) at float32 with TF32 off, float32 with TF32
+   on (the FP step's default), ``--amp`` and ``--remat 4``: the median ms
+   per optimizer step over steps 2-6 (CUDA events), samples/s, peak device
+   memory, and one step's forward, backward and Adam parts; finite losses,
+   BN running stats that moved, the amp loss within 2e-2 of the float32
+   loss; with dropout 0, one step on the card (TF32 off) against the
+   CPU's float64 step on the same weights and batch (batch 2 of 64^3 at
+   full width; the CPU's float32 step printed beside it): the loss within
+   rtol 1e-6, the whole gradient within 1e-3 (relative L2) and each leaf
+   within 1e-2 of its largest entry; at dropout 0.5 with deterministic cuDNN the remat step
+   against the plain one: the loss and BN state equal, gradients within
+   1e-5 of each leaf's largest entry; (b) ``train_fp --round 2 --config
+   <brats_fp.yaml with max_epoch 4> --data_dir <phase 8's set> --split_dir
+   <its 4 subjects as train, 1 as val, 1 as test> --max_epoch 4
+   --test_interval 2`` (the YAML wins over the command line, so the copy
+   carries the 4): ``description.txt``, ``loss.txt``, ``seg_metric.txt``,
+   ``state_0004.pkl``, ``state_FP.npz`` and finite
+   ``seg_0004/{val,test}_seg.txt``, its seconds by part and the host's
+   share of the train loop; (c) ``ptq --qlvl_w 4 --qlvl_a 4 --round 1
+   --config config/brats_ptq.yaml --pretrain <(b)'s state_0004.pkl>
+   --qat_epochs 1 --loss bhybrid --no_test`` (the FP preset's loss: the
+   default CE cannot take BraTS's multi-label targets):
+   ``qat/qat_loss.txt`` with its epoch-0 and epoch-1 lines and one kept
+   mark, 22 finite layer losses, every weight-quantized kernel of the
+   export on its grid; its seconds with the fine-tune apart; (d) ``infer
+   --deploy int8`` on (c)'s export: 14 K1 launches per patch-batch
+   forward, the saved val prediction equal to ``validate_seg`` of the same
+   deployed graph on the plain K1.  Phases 8 to 10 write their data to one
+   temporary directory, removed at the end.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
 path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
@@ -2647,6 +2683,361 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
     return launches
 
 
+FP_CONFIG = os.path.join(HERE, "config", "brats_fp.yaml")
+TRAIN_BATCH, TRAIN_PATCH = 4, 128  # the preset's batch and patch
+CHECK_BATCH, CHECK_PATCH = 2, 64  # the card-against-CPU step's
+TRAIN_STEPS = 6  # timed steps per variant; the median is of steps 2-6
+
+
+def _train_batch(seed, n, size):
+    """``n`` synthetic BraTS patches of size^3 x 4 modalities and their
+    multi-label targets, as (N, C, D, H, W) float32 arrays."""
+    from efficientq_tpu_torch.data import synthetic
+    from efficientq_tpu_torch.data.labels import split_label_brats
+
+    gen = np.random.default_rng(seed)
+    subjects = [synthetic.make_subject(gen, "brats", (size,) * 3)
+                for _ in range(n)]
+    x = np.stack([np.stack(list(img.values())) for img, _ in subjects])
+    y = np.stack([split_label_brats(lab) for _, lab in subjects])
+    return x, y
+
+
+def _flagship_trainer(graph, variables, args, n_mo, root, device="cuda",
+                      **kw):
+    """A Trainer of the FP preset as ``train_fp`` builds it (one step an
+    epoch: the schedule's warmup over that step)."""
+    from types import SimpleNamespace
+
+    from efficientq_tpu_torch.train import Trainer
+
+    return Trainer(graph, variables, SimpleNamespace(trainloader=[None]),
+                   loss_name=args.loss, num_mo=n_mo, n_class=3,
+                   base_lr=args.lr, max_epoch=TRAIN_STEPS,
+                   snapshot_root=root, multilabel_fusetype=args.merge_type,
+                   device=device, **kw)
+
+
+def _grads(trainer):
+    return {k: t.grad.detach().float().cpu() for k, t in
+            trainer._leaves.items()}
+
+
+def _grad_report(got, want):
+    """(max over leaves of max|got - want| / max|want|, the three farthest
+    leaves as text, the whole gradient's relative L2 distance)."""
+    rows = sorted(((float((got[k] - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30), k,
+                    float(w.abs().max()), float((got[k] - w).abs().max()))
+                   for k, w in want.items()), reverse=True)
+    num = sum(float((got[k] - w).double().square().sum())
+              for k, w in want.items())
+    den = sum(float(w.double().square().sum()) for w in want.values())
+    return (rows[0][0], ", ".join(f"{k} (max {m:.3e}, gap {d:.3e})"
+                                  for _, k, m, d in rows[:3]),
+            (num / den) ** 0.5)
+
+
+def phase10(seed: int, smi: str, work: str, brats):
+    """FP training and the quantization-aware fine-tune at full width: the
+    train step in four variants, then ``train_fp``, ``ptq --qat_epochs
+    1`` and ``infer --deploy int8`` through the CLI on phase 8's BraTS
+    set.  Returns {path: {kernel: launches}}."""
+    phase10_step(seed, smi, work)
+    return phase10_missions(seed, smi, work, brats)
+
+
+def phase10_step(seed: int, smi: str, work: str):
+    """Phase 10 (a): the flagship's train step."""
+    import dataclasses
+
+    from efficientq_tpu_torch import nnir, ops
+    from efficientq_tpu_torch.cli import definer
+    from efficientq_tpu_torch.models import build_uresq
+
+    args = _mission_args(["train_fp", "--round", "1", "--config",
+                          FP_CONFIG])
+    cfg, _, n_mo = definer.get_model_config(args)
+    graph = build_uresq(cfg)
+    variables = nnir.init(graph, seed, device="cpu")
+    root = os.path.join(work, "train_step")
+    x, y = _train_batch(seed, TRAIN_BATCH, TRAIN_PATCH)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    first = {}
+    for name, kw in (("float32, TF32 off", dict(tf32=False)),
+                     ("float32, TF32 on", dict(tf32=True)),
+                     ("--amp", dict(amp=True)),
+                     ("--remat 4", dict(remat=4))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = _flagship_trainer(graph, variables, args, n_mo, root, **kw)
+        ms, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss, _ = tr.train_step(xd, yd)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(np.isfinite(losses)), f"train step {name}: losses {losses}")
+        moved = sum(not torch.equal(tr.variables["state"][n]["mean"].cpu(),
+                                    variables["state"][n]["mean"])
+                    for n in variables["state"])
+        check(moved == len(variables["state"]), f"train step {name}: "
+              f"{moved} of {len(variables['state'])} BN running means moved")
+        med = statistics.median(ms[1:])
+        # one more step in parts: forward and loss, backward, Adam
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with ops.conv_precision(tr.tf32):
+            ev[0].record()
+            total, _, new_state = tr.forward(xd, yd)
+            ev[1].record()
+            total.backward()
+            ev[2].record()
+        tr.update(new_state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        first[name] = losses[0]
+        print(f"[phase10] (a) on {smi}: train step {name} (batch "
+              f"{TRAIN_BATCH} of {TRAIN_PATCH}^3 x 4, full width): "
+              f"{med:.4f} ms per optimizer step (median of steps 2-"
+              f"{TRAIN_STEPS}; all {[round(v, 4) for v in ms]}), "
+              f"{TRAIN_BATCH * 1000 / med:.4f} samples/s, peak device "
+              f"memory {peak:.4f} GiB; one step's parts: forward and loss "
+              f"{parts[0]:.4f} ms, backward {parts[1]:.4f} ms, clip and "
+              f"Adam {parts[2]:.4f} ms; losses {losses}", flush=True)
+        del tr, total, new_state
+    gap = abs(first["--amp"] - first["float32, TF32 off"]) / abs(
+        first["float32, TF32 off"])
+    check(gap <= 2e-2, f"train step: the amp loss {first['--amp']} is "
+          f"{gap} from the float32 loss {first['float32, TF32 off']}")
+    print(f"[phase10] (a) the first step's loss: float32 "
+          f"{first['float32, TF32 off']:.7f}, TF32 "
+          f"{first['float32, TF32 on']:.7f}, amp {first['--amp']:.7f} "
+          f"({gap:.3e} relative, held: 2e-2), remat "
+          f"{first['--remat 4']:.7f}", flush=True)
+
+    # the card against the CPU, dropout 0, exact float32: both against the
+    # CPU's float64 step, since float32 itself is 1e-4-1e-3 off it here
+    # (batch norm's backward over a few hundred voxels at the bottleneck)
+    g0 = build_uresq(dataclasses.replace(cfg, drop_rate=0.0))
+    v0 = nnir.init(g0, seed, device="cpu")
+    x, y = _train_batch(seed + 1, CHECK_BATCH, CHECK_PATCH)
+    runs = {}
+    for where, device, dtype in (("card", "cuda", torch.float32),
+                                 ("host", "cpu", torch.float32),
+                                 ("host64", "cpu", torch.float64)):
+        v = {grp: {n: {k: t.to(dtype) for k, t in e.items()}
+                   for n, e in v0[grp].items()} for grp in ("params", "state")}
+        tr = _flagship_trainer(g0, v, args, n_mo, root, device=device,
+                               tf32=False)
+        loss, _ = tr.train_step(torch.from_numpy(x).to(device, dtype),
+                                torch.from_numpy(y).to(device, dtype))
+        runs[where] = (float(loss), _grads(tr))
+        del tr
+    ref = runs["host64"]
+    lgap = abs(runs["card"][0] - ref[0]) / abs(ref[0])
+    ggap, worst, l2 = _grad_report(runs["card"][1], ref[1])
+    l2_host = _grad_report(runs["host"][1], ref[1])[2]
+    l2_pair = _grad_report(runs["card"][1], runs["host"][1])[2]
+    print(f"[phase10] (a) one step at dropout 0, batch {CHECK_BATCH} of "
+          f"{CHECK_PATCH}^3, TF32 off, against the CPU's float64 step: "
+          f"loss {runs['card'][0]:.9f} against {ref[0]:.9f} ({lgap:.3e} "
+          f"relative, held: 1e-6); the whole gradient {l2:.3e} apart "
+          f"(relative L2, held: 1e-3), each leaf within {ggap:.3e} of its "
+          f"largest entry (held: 1e-2), farthest: {worst}; the CPU's "
+          f"float32 step: loss {runs['host'][0]:.9f}, gradient {l2_host:.3e} "
+          f"from float64 and {l2_pair:.3e} from the card's", flush=True)
+    check(lgap <= 1e-6 and l2 <= 1e-3 and ggap <= 1e-2, "train step: the "
+          "card's step disagrees with the CPU's float64 step")
+
+    # remat against the plain step, dropout 0.5, deterministic cuDNN
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for remat in (0, 4):
+            tr = _flagship_trainer(graph, variables, args, n_mo, root,
+                                   tf32=False, remat=remat)
+            loss, _ = tr.train_step(torch.from_numpy(x).cuda(),
+                                    torch.from_numpy(y).cuda())
+            runs[remat] = (float(loss), _grads(tr),
+                           {n: s["var"].cpu() for n, s in
+                            tr.variables["state"].items()})
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    ggap, worst, l2 = _grad_report(runs[4][1], runs[0][1])
+    print(f"[phase10] (a) remat against plain: the whole gradient {l2:.3e} "
+          f"apart (relative L2); farthest leaves: {worst}", flush=True)
+    same_state = all(torch.equal(runs[4][2][n], v)
+                     for n, v in runs[0][2].items())
+    print(f"[phase10] (a) --remat 4 against the plain step (dropout 0.5, "
+          f"deterministic cuDNN, batch {CHECK_BATCH} of {CHECK_PATCH}^3): "
+          f"losses {runs[4][0]:.7f} and {runs[0][0]:.7f}, BN state "
+          f"{'equal' if same_state else 'DIFFERENT'}, gradients at most "
+          f"{ggap:.3e} of their leaf's largest entry apart (held: 1e-5)",
+          flush=True)
+    check(runs[4][0] == runs[0][0] and same_state and ggap <= 1e-5,
+          "train step: remat differs from the plain step")
+    torch.cuda.empty_cache()
+
+
+def _train_split(data_dir, root):
+    """Round 2 of a split over phase 8's 4 subjects: all 4 train, 1 val, 1
+    test."""
+    sns = sorted(f[:-4] for f in os.listdir(os.path.join(data_dir, "seg")))
+    rdir = os.path.join(root, "split", "round2")
+    os.makedirs(rdir)
+    for name, lst in (("train.txt", sns), ("val.txt", sns[2:3]),
+                      ("test.txt", sns[3:4])):
+        with open(os.path.join(rdir, name), "w") as f:
+            f.write("\n".join(lst) + "\n")
+    return os.path.dirname(rdir)
+
+
+def phase10_missions(seed: int, smi: str, work: str, brats):
+    """Phase 10 (b)-(d): train_fp, ptq --qat_epochs 1 on its checkpoint,
+    and infer --deploy int8 on the fine-tuned export."""
+    import re
+
+    from efficientq_tpu_torch.cli import entrance
+    from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
+                                                   patch_grid)
+    from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.quant import fake_quant_weight
+
+    launches = {}
+    root = os.path.join(work, "training")
+    os.makedirs(root)
+    data_dir = brats["data_dir"]
+    cwd = os.getcwd()
+    try:
+        # (b) train_fp as a user types it
+        split_dir = _train_split(data_dir, root)
+        config = os.path.join(root, "brats_fp.yaml")
+        with open(FP_CONFIG) as f:
+            text = f.read()
+        check("max_epoch: 500" in text, "config/brats_fp.yaml: no "
+              "max_epoch: 500 line to shorten")
+        with open(config, "w") as f:
+            f.write(text.replace("max_epoch: 500", "max_epoch: 4"))
+        os.chdir(root)
+        t0 = time.perf_counter()
+        with _Launches() as counted:
+            snap, sec = entrance.main([
+                "train_fp", "--round", "2", "--config", config, "--data_dir",
+                data_dir, "--split_dir", split_dir, "--max_epoch", "4",
+                "--test_interval", "2"])
+        wall = time.perf_counter() - t0
+        launches["train_fp"] = counted.counts
+        for name in ("description.txt", "loss.txt", "seg_metric.txt",
+                     "state_0004.pkl", "state_FP.npz"):
+            check(os.path.isfile(os.path.join(snap, name)),
+                  f"train_fp: {name} missing")
+        losses = [float(ln.split(",")[1]) for ln in
+                  open(os.path.join(snap, "loss.txt")).read().splitlines()]
+        check(bool(losses) and all(np.isfinite(losses)),
+              f"train_fp: loss.txt {losses}")
+        csv = open(os.path.join(snap, "seg_metric.txt")).read().splitlines()
+        check(len(csv) == 3, f"train_fp: seg_metric.txt has {len(csv)} "
+              f"lines, expected the validations of epochs 1, 2 and 4")
+        for split in ("val", "test"):
+            nums = _metric_numbers(os.path.join(snap, "seg_0004",
+                                                f"{split}_seg.txt"))
+            check(bool(nums) and all(np.isfinite(nums)),
+                  f"train_fp: seg_0004/{split}_seg.txt not finite")
+        host = sec["train_data"] / (sec["train_data"] + sec["steps"])
+        parts = ", ".join(f"{k} {v:.4f} s" for k, v in sec.items())
+        print(f"[phase10] (b) on {smi}: train_fp --config brats_fp.yaml "
+              f"(max_epoch 4) --round 2 (4 train subjects of {VOL_SHAPE}, "
+              f"batch 4, balance crops of 128^3) --test_interval 2: "
+              f"{wall:.4f} s: {parts}; the train loop waited for batches "
+              f"{host:.4f} of its time (train_data / (train_data + steps)); "
+              f"loss.txt {losses}; the files and finite seg_0004 metrics "
+              f"written", flush=True)
+
+        # (c) ptq --qat_epochs 1 on (b)'s checkpoint
+        ckpt = os.path.join(snap, "state_0004.pkl")
+        common = ["--qlvl_w", "4", "--qlvl_a", "4", "--round", "1",
+                  "--config", os.path.join(HERE, "config", "brats_ptq.yaml"),
+                  "--data_dir", data_dir, "--split_dir", brats["split_dir"]]
+        t0 = time.perf_counter()
+        with _Launches() as counted:
+            snap_c, sec = entrance.main([
+                "ptq", *common, "--pretrain", ckpt, "--qat_epochs", "1",
+                "--loss", "bhybrid", "--no_test"])
+        wall = time.perf_counter() - t0
+        launches["ptq_qat"] = counted.counts
+        lines = open(os.path.join(snap_c, "qat", "qat_loss.txt")) \
+            .read().splitlines()
+        pat = re.compile(r"^epoch (0 \(pure PTQ\):|1: loss \S+) val_dice "
+                         r"\d+\.\d{6}(  <- kept)?$")
+        check(len(lines) == 2 and all(pat.match(ln) for ln in lines)
+              and sum(ln.endswith("<- kept") for ln in lines) == 1,
+              f"ptq --qat_epochs 1: qat_loss.txt {lines}")
+        with open(os.path.join(snap_c, "layer_loss.txt")) as f:
+            layer = [float(ln.rsplit(":", 1)[1])
+                     for ln in f.read().splitlines()]
+        check(len(layer) == 22 and all(np.isfinite(layer)),
+              f"ptq --qat_epochs 1: layer losses {layer}")
+        with open(os.path.join(snap_c, "state_in_fp.pkl"), "rb") as f:
+            sd = pickle.load(f)["state_dict"]
+        off = 0
+        for name, (qlvl_w, _) in sd["__qlvl_overrides__"].items():
+            if qlvl_w > 0:
+                w = torch.from_numpy(sd[f"{name}.weight"])
+                a = torch.as_tensor(sd[f"{name}.alpha_w"])
+                off += int((fake_quant_weight(w, a, qlvl_w) != w).sum())
+        check(off == 0, f"ptq --qat_epochs 1: {off} exported weights off "
+              f"their grids")
+        parts = ", ".join(f"{k} {v:.4f} s" for k, v in sec.items())
+        print(f"[phase10] (c) ptq --config brats_ptq.yaml --qat_epochs 1 "
+              f"--loss bhybrid --no_test on (b)'s state_0004.pkl: "
+              f"{wall:.4f} s: {parts}; qat_loss.txt: {' | '.join(lines)}; "
+              f"22 finite layer losses; every exported kernel on its grid",
+              flush=True)
+
+        # (d) infer --deploy int8 on the fine-tuned export
+        export = os.path.join(snap_c, "state_in_int8.pkl")
+        n_patches = len(patch_grid(VOL_SHAPE, PATCH, OVERLAP))
+        forwards = 2 * -(-n_patches // min(n_patches, 8))  # val + test
+        argv = ["infer", *common, "--pretrain", export, "--save_nii",
+                "--deploy", "int8"]
+        t0 = time.perf_counter()
+        with _Launches() as counted:
+            snap_d, _ = entrance.main(argv + ["--suffix", "qat"])
+        wall = time.perf_counter() - t0
+        launches["qat_infer_int8"] = counted.counts
+        check(counted.counts["K1"] == 14 * forwards,
+              f"infer on the QAT export: launches {counted.counts}, "
+              f"expected {14 * forwards} K1 over {forwards} forwards")
+        plain = _plain_val(_mission_args(argv), lambda g, v:
+                           make_volume_inferencer(
+                               g, patch_batch=min(n_patches, 8),
+                               mode="quantized", hard_pred=True,
+                               multilabel=True,
+                               conv3x3_int8=K.qconv3x3_int8_ndhwc_reference),
+                           os.path.join(root, "plain_int8"))
+        for sn, want in plain.items():
+            got = _seg(os.path.join(snap_d, "infer", "val", f"{sn}.nii.gz"))
+            check(np.array_equal(got, want), f"infer on the QAT export: {sn} "
+                  f"differs from validate_seg on the plain K1")
+        print(f"[phase10] (d) infer --deploy int8 on (c)'s fine-tuned "
+              f"export: {wall:.4f} s, launches {counted.counts} over "
+              f"{forwards} patch-batch forwards (14 K1 each); the saved val "
+              f"prediction equals validate_seg of the same graph on the "
+              f"plain K1", flush=True)
+        del plain
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    return launches
+
+
 def profile_stream(served, s2d_preds):
     """Phase 8 (f): phase 8's stream under the profiler on both paths:
     device busy time, idle share, and how much of the host-to-device
@@ -2680,10 +3071,19 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="profile one volume of each serving path, the "
                     "calibration and phase 8's stream")
+    ap.add_argument("--ab", action="store_true",
+                    help="run phases 0, 2, 4 and 7 alone, with no result "
+                    "line (to compare two trees in one call)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
     smi = setup()
+    if args.ab:
+        _, served = phase2(args.seed)
+        phase4(args.seed, served)
+        phase7(args.seed, smi, served["vols"][0], served["subjects"][0][1],
+               torch.device("cuda"))
+        return
     max_err, ms, plain_ms = phase1(args.seed)
     lits = k1_lits(args.seed)
     k1_f32, served = phase2(args.seed)
@@ -2693,11 +3093,12 @@ def main():
     paths, k3_infer, mixed_infer = phase6(args.seed, served, s2d_preds)
     calibrated = phase7(args.seed, smi, served["vols"][0],
                         served["subjects"][0][1], torch.device("cuda"))
-    # phases 8 and 9 write their datasets here; removed at the end
+    # phases 8 to 10 write their datasets here; removed at the end
     work = tempfile.mkdtemp(prefix="effq_smoke_")
     try:
         missions, brats = phase8(args.seed, smi, served, s2d_preds, work)
         extensions = phase9(args.seed, smi, work, brats)
+        training = phase10(args.seed, smi, work, brats)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if args.profile:
@@ -2717,7 +3118,7 @@ def main():
             if n:
                 by_path[kernel][names[path]] = n
     for path, counts in [*calibrated.items(), *missions.items(),
-                         *extensions.items()]:
+                         *extensions.items(), *training.items()]:
         for kernel, n in counts.items():
             if n:
                 by_path[kernel][path] = n

@@ -11,11 +11,13 @@ CUDA kernel K1 (kernels/qconv3d.py, csrc/qconv3d_int8.cu), the s2d stem on
 K2 (kernels/stem.py, csrc/stem_s2d.cu).  The PTQ calibration
 (``ptq.run_ptq``: attention pyramid, Gram solver, ADMM) produces the
 quantized weights those paths serve; it runs on cuBLAS and cuSOLVER.  The
-CLI, ``python -m efficientq_tpu_torch {ptq,infer} ...`` (``cli/``), runs the
-paper's ``ptq`` mission and the ``infer`` mission on its export with the
-JAX package's flags, config files and artifact files, over the data layer
-(``data/``) and the validation loop (``eval/validate.py``), whose upload
-goes through pinned memory on a side stream.
+CLI, ``python -m efficientq_tpu_torch {train_fp,ptq,infer} ...``
+(``cli/``), runs FP training (``train/``), the paper's ``ptq`` mission
+with its quantization-aware fine-tune (``ptq/qat.py``) and the ``infer``
+mission on its export with the JAX package's flags, config files and
+artifact files, over the data layer (``data/``) and the validation loop
+(``eval/validate.py``), whose upload goes through pinned memory on a side
+stream.
 
 Modules keep the JAX package's paths and function names; layouts are the
 JAX package's (NDHWC activations, DHWIO kernels, flat variable dicts).

@@ -71,6 +71,7 @@ def get_data_cube(args):
         nClass = args.nClass or 4
         patch_size = (128, 128, 128)
         overlap = (16, 16, 16)
+        balance_mask_func = lambda label: label == 3
     elif task == "lits":
         modalities = ("seg", "ct")
         data_dir = args.data_dir or "../data/seg/LiTS/train_crop_npy_256"
@@ -79,6 +80,10 @@ def get_data_cube(args):
         nClass = args.nClass or 3
         patch_size = (128, 128, 64)
         overlap = (16, 16, 16)
+        if merge_label_func:
+            balance_mask_func = lambda label: label[1] > 0
+        else:
+            balance_mask_func = lambda label: label == 2
     else:
         raise ValueError(f"Unknown task: {args.task}")
 
@@ -106,19 +111,25 @@ def get_data_cube(args):
         print(f"note: sliding-window overlap clamped to {overlap} for "
               f"patch {patch_size} (pass --overlap to control)")
 
-    # the train loader's augmentation flags (--crop_type, --da_scaling,
-    # --balance_rate, ...) shape only train_fp's loader: ROADMAP queue 1
-    # item 6
+    scale_bound = None
+    if args.da_scaling:
+        scale_bound = tuple(float(x) for x in args.da_scaling.split(","))
+
     hub = DataHub(
         data_dir, modalities,
         train_split=P.join(split_dir, round_str, "train.txt"),
         val_split=P.join(split_dir, round_str, "val.txt"),
         test_split=P.join(split_dir, round_str, "test.txt"),
         true_test_split=P.join(split_dir, round_str, "true_test.txt"),
-        test_batchsize=args.test_batch_size, access_type=args.access_type,
-        on_disk=args.data_on_disk, sn_fn_file="sn_fn.txt",
-        slide_patch_size=patch_size, slide_overlap=overlap,
-        tfm_lambda=tfm_lambda)
+        train_batchsize=args.batch_size, test_batchsize=args.test_batch_size,
+        access_type=args.access_type,
+        crop_type=args.crop_type, balance_rate=args.balance_rate,
+        balance_mask_func=balance_mask_func, crop_size_img=patch_size,
+        on_disk=args.data_on_disk, random_noise_prob=args.random_noise_p,
+        scale_bound=scale_bound, scale_order=args.scal_order,
+        sn_fn_file="sn_fn.txt", slide_patch_size=patch_size,
+        slide_overlap=overlap, tfm_lambda=tfm_lambda,
+        num_workers=args.num_workers)
 
     # BraTS whole-volume shape restoration for NIfTI export (definer.py:113-123)
     if task == "brats":

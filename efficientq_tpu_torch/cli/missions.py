@@ -15,12 +15,20 @@ with ``true_test/``; with the PTQ extensions ``calib_select.txt``
 also writes ``toolchain.json`` (``utils/toolchain.py``) into each ptq
 snapshot.
 
+The ``train_fp`` mission (the reference's ``src/train_seg.py:27-203``)
+writes the JAX mission's files too: ``description.txt``, ``loss.txt``,
+``seg_metric.txt``, ``state_<epoch>.pkl`` snapshots, ``state_FP.npz`` and
+``seg_<epoch>/{val,test}_seg.txt``; ``ptq --qat_epochs N`` fine-tunes the
+calibrated net under ``<snap>/qat/`` (``qat_loss.txt``) before the export.
+A fresh ``train_fp`` starts from ``nnir.init``'s NumPy-seeded weights, not
+from the JAX package's ``PRNGKey(0)`` ones.
+
 Flags of branches that are not ported raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item: ``train_fp`` and ``--qat_epochs`` (item 6,
-FP training, which the quantization-aware fine-tune trains through);
-``--artifact``, ``--export_artifact``, ``--serve_grid column`` and
-``--tune_serving force`` (item 8); ``--dp_devices``, ``--mesh_shape`` and
-``--distributed`` (item 9).
+their ROADMAP queue 1 item: ``--artifact``, ``--export_artifact``,
+``--serve_grid column`` and ``--tune_serving force`` (item 8);
+``--dp_devices``, ``--mesh_shape``, ``--distributed`` and ``--fsdp``
+(item 9).  ``--ckpt_backend orbax`` raises a ``ValueError``: Orbax is the
+JAX package's checkpoint format, and the port writes pickles.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from ..models import build_uresq, torch_io, validate_spatial_shape
 from ..ptq import run_ptq, run_ptq_mixed, tail_sensitive_convs
 from ..ptq.select import select_calibration, to_ndhwc
 from ..quant import pack_int_weight
+from ..train import Trainer
 from ..utils.toolchain import toolchain_fingerprint
 from . import definer
 
@@ -73,8 +82,11 @@ _SERVING = [
     ("--mesh_shape", lambda a: a.mesh_shape, 9),
     ("--distributed", lambda a: a.distributed, 9),
 ]
-_PTQ_EXTENSIONS = [
-    ("--qat_epochs", lambda a: a.qat_epochs, 6),
+_TRAINING = [
+    ("--dp_devices", lambda a: a.dp_devices, 9),
+    ("--mesh_shape", lambda a: a.mesh_shape, 9),
+    ("--distributed", lambda a: a.distributed, 9),
+    ("--fsdp", lambda a: a.fsdp, 9),
 ]
 
 
@@ -112,9 +124,84 @@ def _final_test(graph, variables, hub, num_mo, n_class, save_dir, args,
                             multilabel_fusetype=hub.multilabel_fusetype, **kw)
 
 
+def _tb_writer(args, snap_root):
+    """The optional TensorBoard sink (train_seg.py:163-169)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir=P.join(
+            os.getcwd(), "results", args.task, "tboard",
+            "round" + str(args.round), P.basename(snap_root)))
+    except Exception:
+        return None
+
+
 def train_fp(args):
-    raise NotImplementedError("train_fp is not ported yet: ROADMAP queue 1 "
-                              "item 6")
+    """FP training mission (train_seg.py:27-203) on ``select_device(args)``:
+    snapshots under exp_fp/ (or the resumed run's directory), warmup over
+    5 epochs with --pretrain and 1 without, online validation every
+    ``test_interval`` epochs, then the final test of ``state_seg_max`` and
+    of ``state_<max_epoch>``.  Returns the snapshot directory and the
+    mission's seconds by part: data (building the hub), train_data
+    (waiting for batches), steps, validation, snapshots and final_test."""
+    _refuse(args, _TRAINING)
+    if args.ckpt_backend != "pickle":
+        raise ValueError(f"--ckpt_backend {args.ckpt_backend}: the port "
+                         f"writes pickle snapshots only (Orbax is the JAX "
+                         f"package's format)")
+    device = select_device(args)
+    t0 = time.perf_counter()
+    hub, data_info, nMod, nClass, patch_size = definer.get_data_cube(args)
+    cfg, model_info, n_mo = definer.get_model_config(args)
+    validate_spatial_shape(patch_size, cfg, "--patch_size")
+    graph = build_uresq(cfg)
+    variables = nnir.init(graph, 0, device="cpu")
+    seconds = {"data": time.perf_counter() - t0}
+
+    if args.resume:
+        # resume into the original experiment directory (train_seg.py:68-69)
+        snap_root = P.dirname(P.abspath(args.resume))
+    else:
+        snap_root = definer.make_snapshot_dir(args, "exp_fp", model_info,
+                                              "FP")
+    warmup_epochs = 5 if args.pretrain else 1
+    test_interval = (args.test_interval
+                     if args.test_interval > args.max_epoch / 20
+                     else max(args.max_epoch // 20, 1))
+    trainer = Trainer(
+        graph, variables, hub, loss_name=args.loss, num_mo=n_mo,
+        n_class=nClass, base_lr=args.lr, max_epoch=args.max_epoch,
+        snapshot_root=snap_root, weight_decay=float(args.weight_decay),
+        warmup_epochs=warmup_epochs, test_interval=test_interval,
+        display_interval=args.disp_interval,
+        multilabel_fusetype=args.merge_type,
+        tb_writer=_tb_writer(args, snap_root), remat=args.remat,
+        amp=args.amp, device=device)
+    if args.resume:
+        trainer.resume(args.resume)
+    elif args.pretrain:
+        trainer.load_pretrain(args.pretrain)
+    trainer.train()
+    print("Training complete.")
+    seconds.update(train_data=trainer.seconds["data"],
+                   steps=trainer.seconds["steps"],
+                   validation=trainer.seconds["validation"],
+                   snapshots=trainer.seconds["snapshots"])
+
+    t0 = time.perf_counter()
+    if not args.no_test:
+        for stem, folder in (("state_seg_max", "seg_max"),
+                             ("state_%04d" % args.max_epoch,
+                              "seg_%04d" % args.max_epoch)):
+            path = P.join(snap_root, stem + ".pkl")
+            if P.isfile(path):
+                trainer.load_pretrain(path)
+                _final_test(graph, trainer.variables, hub, n_mo, nClass,
+                            P.join(snap_root, folder), args, device)
+    seconds["final_test"] = time.perf_counter() - t0
+    print("train_fp seconds: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in seconds.items()))
+    return snap_root, seconds
 
 
 def _calib_crop_shape(args, img):
@@ -222,8 +309,10 @@ def ptq(args):
     and the mission's seconds by part: data, fp_forward and calibration
     (of the kept calibration), final_test, exports, and where they ran
     ranking (the mixed ranking pass), candidate<i>_calibration and
-    candidate<i>_scoring, tail_alpha_sweep and tune_act."""
-    _refuse(args, _PTQ_EXTENSIONS + _SERVING)
+    candidate<i>_scoring, tail_alpha_sweep, tune_act, and qat (the
+    fine-tune of --qat_epochs) with qat_steps (its train loop; the rest is
+    its val scoring)."""
+    _refuse(args, _SERVING)
     device = select_device(args)
     seconds = {}
     t0 = time.perf_counter()
@@ -385,6 +474,29 @@ def ptq(args):
                 mark = "  <- kept" if it == tinfo["best_iter"] else ""
                 f.write(f"iter {it}: dice {sc:.6f}{mark}\n")
         seconds["tune_act"] = time.perf_counter() - t0
+
+    if args.qat_epochs:
+        # the quantization-aware fine-tune of the calibrated net: STE
+        # training under the deployed fake-quant forward, the best val
+        # dice epoch kept (epoch 0, the pure PTQ, included)
+        from ..ptq.qat import run_qat
+
+        t0 = time.perf_counter()
+        qat_dir = P.join(snap_dir, "qat")
+        os.makedirs(qat_dir, exist_ok=True)
+        qvars, qat_log = run_qat(
+            fgraph, qvars, hub, num_mo=n_mo, n_class=nClass,
+            loss_name=args.loss, epochs=args.qat_epochs, lr=args.qat_lr,
+            snapshot_root=qat_dir,
+            multilabel_fusetype=hub.multilabel_fusetype,
+            display_interval=args.disp_interval,
+            weight_decay=float(args.weight_decay), device=device)
+        kd = qat_log["kept_dice"]
+        print(f"qat: kept epoch {qat_log['kept_epoch']}"
+              + (f" (val dice {kd:.4f})" if kd is not None else ""))
+        seconds["qat"] = time.perf_counter() - t0
+        seconds["qat_steps"] = (qat_log["seconds"].get("data", 0.0)
+                                + qat_log["seconds"].get("steps", 0.0))
 
     t0 = time.perf_counter()
     with open(P.join(snap_dir, "toolchain.json"), "w") as f:

@@ -1,33 +1,74 @@
-"""Host -> device upload of a loader's batches.
+"""Host -> device input pipeline: a threaded prefetch queue and the
+upload of a loader's batches.
 
-Counterpart of the JAX package's ``data/prefetch.py::device_feed``, the
-card's version of JAX's asynchronous ``device_put``: each batch is copied
+Counterpart of the JAX package's ``data/prefetch.py``.  ``PrefetchLoader``
+materializes upcoming batches on a background thread (NumPy IO and the
+augmentations release the GIL in their hot paths).  ``device_feed`` is the
+card's version of JAX's asynchronous ``device_put``: each array is copied
 into a pinned host staging buffer and uploaded on a side stream while the
-caller's stream computes the batch before it.  (``PrefetchLoader``, the
-threaded queue of the train loader, comes with ``train_fp``: ROADMAP
-queue 1 item 6.)
+caller's stream computes the batch before it.
 """
 from __future__ import annotations
 
-from typing import Iterable
+import queue
+import threading
+from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
 
-class _Staging:
-    """A ring of two pinned host buffers, reused and grown to the largest
-    batch.  A slot is written by the host only after the upload that last
-    read it has finished (its event)."""
+class PrefetchLoader:
+    """Wraps a loader with a ``depth``-deep background prefetch queue."""
 
-    def __init__(self):
-        self.bufs = [None, None]
-        self.events = [None, None]
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.loader)
+
+    @property
+    def dataset(self):
+        return self.loader.dataset
+
+    def __iter__(self) -> Iterator:
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        sentinel = object()
+        err = []
+
+        def worker():
+            try:
+                for item in self.loader:
+                    q.put(item)
+            except BaseException as e:  # raised again in the consumer
+                err.append(e)
+            finally:
+                q.put(sentinel)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield item
+
+
+class _Staging:
+    """A ring of pinned host buffers (two per array of an item), reused and
+    grown to the largest batch.  A slot is written by the host only after
+    the upload that last read it has finished (its event)."""
+
+    def __init__(self, slots: int = 2):
+        self.bufs = [None] * slots
+        self.events = [None] * slots
         self.slot = 0
 
     def take(self, nbytes: int) -> torch.Tensor:
         k = self.slot
-        self.slot ^= 1
+        self.slot = (k + 1) % len(self.bufs)
         if self.events[k] is not None:
             self.events[k].synchronize()
         if self.bufs[k] is None or self.bufs[k].numel() < nbytes:
@@ -45,13 +86,15 @@ def _side_stream(device) -> "torch.cuda.Stream":
 
 
 def device_feed(loader: Iterable, device=None, mesh=None):
-    """Iterate ``loader`` (one NumPy array per item) keeping the next
-    array's host -> device transfer in flight while the caller consumes the
+    """Iterate ``loader`` (one NumPy array per item, or a tuple of them,
+    as the train loader's (image, label) batches) keeping the next item's
+    host -> device transfer in flight while the caller consumes the
     current one (double buffering).
 
     Each array goes to ``device`` (the card unless told ``"cpu"``) as a
     torch tensor of its dtype and shape.  On a card: the array is copied
-    into one of two pinned staging buffers, then uploaded with
+    into one of the pinned staging buffers (two per array of an item), then
+    uploaded with
     ``non_blocking=True`` on a side stream; the caller's current stream
     waits on the upload's event (the host does not), and ``record_stream``
     keeps the caching allocator from handing the device copy to the side
@@ -65,15 +108,15 @@ def device_feed(loader: Iterable, device=None, mesh=None):
                                   "queue 1 item 9")
     device = torch.device("cuda" if device is None else device)
     it = iter(loader)
+    ring = None
 
     if device.type != "cuda":
-        def put(a):
+        def put_one(a):
             return torch.as_tensor(np.asarray(a), device=device), None
     else:
         stream = _side_stream(device)
-        ring = _Staging()
 
-        def put(a):
+        def put_one(a):
             a = np.ascontiguousarray(a)
             buf = ring.take(a.nbytes)[:a.nbytes]
             np.copyto(buf.numpy().view(a.dtype).reshape(a.shape), a)
@@ -88,12 +131,23 @@ def device_feed(loader: Iterable, device=None, mesh=None):
             ring.uploaded(event)
             return dev, event
 
-    def ready(tensor, event):
+    def put(item):
+        nonlocal ring
+        arrays = item if isinstance(item, tuple) else (item,)
+        if device.type == "cuda" and ring is None:
+            ring = _Staging(2 * len(arrays))
+        return isinstance(item, tuple), [put_one(a) for a in arrays]
+
+    def ready_one(tensor, event):
         if event is not None:
             cur = torch.cuda.current_stream(device)
             cur.wait_event(event)
             tensor.record_stream(cur)
         return tensor
+
+    def ready(is_tuple, uploads):
+        out = tuple(ready_one(*u) for u in uploads)
+        return out if is_tuple else out[0]
 
     try:
         pending = put(next(it))

@@ -103,15 +103,37 @@ def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
     return {"params": params, "state": state}
 
 
+class _Unreadable:
+    """Stands in for an object whose class cannot be imported here."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class PermissiveUnpickler(pickle.Unpickler):
+    """A pickle reader that gives a placeholder for any class whose module
+    is missing: a JAX training snapshot's ``opt_state`` holds optax's state
+    classes, and its ``state_dict`` (NumPy arrays) is all the port reads."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return _Unreadable
+
+
 def load_torch_checkpoint(graph: Graph, variables, path: str, strict=False):
     """Load a training checkpoint, ``{'state_dict': ...}`` or a bare state
     dict: torch-serialized (the reference's format) or a plain pickle (the
-    JAX package's ``train_fp`` writes one)."""
+    training snapshots of either package)."""
     try:
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
     except Exception:
         with open(path, "rb") as f:
-            ckpt = pickle.load(f)
+            ckpt = PermissiveUnpickler(f).load()
     sd = ckpt.get("state_dict", ckpt)
     return load_torch_state_dict(graph, variables, sd, strict)
 

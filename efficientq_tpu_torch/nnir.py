@@ -25,6 +25,19 @@ Modes: 'fp' (plain convs), 'quantized' (fake-quant activations, stored
 post-PTQ weights) and 'fq' (weights fake-quantized on the fly as well);
 int8-deployed nodes run on integer codes in both quantized modes.
 
+``apply(train=True, seed=...)`` is the training forward, the counterpart
+of the JAX package's ``apply(train=True, rng=...)``: batch norm normalizes
+with batch statistics and returns its running-stat update, dropout draws
+its mask from a generator seeded from (``seed``, the node's topological
+index), and ``remat=N`` runs N-node segments under
+``torch.utils.checkpoint``.  A stateful generator would be advanced again
+when a segment is recomputed and draw another mask; a mask that is a pure
+function of (seed, index) is drawn the same in both.  With
+``compute_dtype`` in ``fp`` mode (``--amp``) the convs run at that dtype,
+batch norm takes its statistics and running-stat EMA in float32 and
+re-emits at that dtype, and the heads come back as float32: JAX's casts,
+at JAX's rounding points.
+
 ``GraphModule`` holds a graph and its variables as an ``nn.Module``, so
 ``.to(device)`` moves every tensor of the network at once.
 """
@@ -37,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import ops
 from .kernels.qconv3d import qconv3x3_int8_ndhwc
@@ -397,6 +411,124 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
     raise ValueError(f"unknown op {node.op}")
 
 
+def node_seed(seed: int, index: int) -> int:
+    """The seed of node ``index``'s dropout generator in the forward of
+    step seed ``seed`` (the counterpart of ``jax.random.fold_in``)."""
+    return int(np.random.SeedSequence([int(seed), int(index)])
+               .generate_state(1, np.uint64)[0])
+
+
+def _eval_train_node(node: Node, i: int, params, st, ins, *, seed,
+                     mode: str, compute_dtype):
+    """One node of the training forward, plain or segmented: (output, batch
+    norm state update or None).  ``i`` is the node's topological index,
+    which seeds its dropout mask, so segment boundaries cannot change it."""
+    if node.op == "conv" and compute_dtype is not None and mode == "fp":
+        # mixed-precision training: the conv on compute_dtype operands,
+        # emitting compute_dtype, the bias added in it.  QAT (mode 'fq')
+        # stays float32: a half-width round of the grid arithmetic flips
+        # 2-bit codes
+        p = params[node.name]
+        a = node.attrs
+        y = ops.conv3d(ins[0].to(compute_dtype), p["kernel"].to(compute_dtype),
+                       None, a["stride"], a["padding"], a["dilation"],
+                       a["groups"])
+        if "bias" in p:
+            y = y + p["bias"].to(compute_dtype)
+        return y, None
+    if node.op == "bn":
+        p = params[node.name]
+        s = st[node.name]
+        x = ins[0]
+        if compute_dtype is not None:
+            # batch statistics and the running-stat EMA in float32, the
+            # normalized output re-emitted at compute_dtype
+            x = x.float()
+        out, m, v = ops.batch_norm_train(
+            x, p["scale"], p["bias"], s["mean"], s["var"],
+            node.attrs["momentum"], node.attrs["eps"])
+        if compute_dtype is not None:
+            out = out.to(compute_dtype)
+        return out, {"mean": m.detach(), "var": v.detach()}
+    if node.op == "dropout" and node.attrs["rate"] > 0:
+        if seed is None:
+            raise ValueError("dropout in train mode needs a seed")
+        gen = torch.Generator().manual_seed(node_seed(seed, i))
+        return ops.dropout3d(ins[0], node.attrs["rate"], gen), None
+    return eval_node(node, params, st, ins, mode=mode,
+                     compute_dtype=compute_dtype), None
+
+
+def _segments(graph: Graph, remat: int):
+    """The N-node segments of ``apply(remat=N)`` with their boundary sets,
+    in the JAX version's (first-use) order: [(nodes, inputs, outputs)],
+    each node as (topological index, node)."""
+    indexed = [(i, n) for i, n in enumerate(graph.nodes) if n.op != "input"]
+    segments = [indexed[k:k + remat] for k in range(0, len(indexed), remat)]
+    seg_of = {graph.input_name: -1}
+    for si, seg in enumerate(segments):
+        for _, n in seg:
+            seg_of[n.name] = si
+    seg_in: List[List[str]] = [[] for _ in segments]
+    seg_out: List[List[str]] = [[] for _ in segments]
+    for si, seg in enumerate(segments):
+        for _, n in seg:
+            for src in n.inputs:
+                if seg_of[src] < si and src not in seg_in[si]:
+                    seg_in[si].append(src)
+                    if seg_of[src] >= 0 and src not in seg_out[seg_of[src]]:
+                        seg_out[seg_of[src]].append(src)
+    for o in graph.outputs:
+        if o not in seg_out[seg_of[o]]:
+            seg_out[seg_of[o]].append(o)
+    return list(zip(segments, seg_in, seg_out))
+
+
+def _apply_remat(graph: Graph, variables, x, *, seed, mode: str,
+                 compute_dtype, remat: int, tf32: bool):
+    """The training forward in ``remat``-node segments, each under
+    ``torch.utils.checkpoint``, which keeps only a segment's boundary
+    values for the backward and recomputes its interior there, at the
+    forward's precision whatever the backward's caller holds.  Returns
+    (stacked heads, {bn node: new running stats})."""
+    params = variables["params"]
+    st = variables.get("state", {})
+    new_state: Dict[str, Any] = {}
+    env = {graph.input_name: x}
+    segments = _segments(graph, remat)
+    for si, (seg, in_names, out_names) in enumerate(segments):
+        def seg_fn(*boundary, seg=seg, in_names=in_names,
+                   out_names=out_names):
+            vals = dict(zip(in_names, boundary))
+            updates = {}
+            with ops.conv_precision(tf32):
+                for i, node in seg:
+                    vals[node.name], ns = _eval_train_node(
+                        node, i, params, st, [vals[n] for n in node.inputs],
+                        seed=seed, mode=mode, compute_dtype=compute_dtype)
+                    if ns is not None:
+                        updates[node.name] = ns
+            # the running stats leave as tensors, so the recomputation in
+            # the backward gives them again without keeping them
+            return (tuple(vals[n] for n in out_names),
+                    {k: (u["mean"], u["var"]) for k, u in updates.items()})
+        outs_seg, updates = checkpoint(
+            seg_fn, *[env[n] for n in in_names], use_reentrant=False)
+        env.update(zip(out_names, outs_seg))
+        new_state.update({k: {"mean": m.detach(), "var": v.detach()}
+                          for k, (m, v) in updates.items()})
+        needed = set(graph.outputs)
+        for _, later_in, _ in segments[si + 1:]:
+            needed.update(later_in)
+        for k in list(env):
+            if k not in needed:
+                del env[k]
+    outs = [env[o] for o in graph.outputs]
+    if compute_dtype is not None:
+        outs = [o.float() for o in outs]
+    return torch.stack(outs), new_state
+
+
 def live_nodes(graph: Graph, outputs: Sequence[str]) -> set:
     """Names of the nodes that ``outputs`` reach, walking back from them."""
     live, stack = set(), list(outputs)
@@ -413,7 +545,8 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
           conv3x3_int8: Callable = None, stem_conv: Callable = None,
           int8_matmul: Callable = None, qact_matmul: Callable = None,
           compute_dtype=None, keep_head_dtype: bool = False,
-          capture: Optional[Sequence[str]] = None):
+          capture: Optional[Sequence[str]] = None, train: bool = False,
+          seed: Optional[int] = None, remat: int = 0, tf32: bool = False):
     """Interpret the graph on ``x`` (NDHWC; for an s2d-stem graph the
     (patches, parities) pair of ``kernels.stem.extract_s2d_patches``).
 
@@ -432,26 +565,61 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     (node names) returns (heads, {name: that node's output}): the PTQ
     sweep's regression targets.  Captured nodes are evaluated even where
     no selected head reaches them, and outlive their last consumer.
+
+    ``train=True`` returns (heads, {bn node: {"mean", "var"}}), the
+    running stats after this batch; ``seed`` seeds the dropout masks (see
+    the module docstring).  It takes no kernel hooks.  ``remat=N`` (N > 0,
+    train mode only) runs the graph in N-node segments under
+    ``torch.utils.checkpoint`` (all heads), with the same values as
+    ``remat=0``; it is ignored under ``capture``, as in the JAX package.
+    ``tf32=True`` lets the float32 convs use TF32 (the FP train step's
+    choice); by default they run in exact float32.  A caller that runs the
+    backward holds the same precision around it (``ops.conv_precision``),
+    since the backward's convs run there; a segment recomputed under
+    ``remat`` sets its own.
     """
     assert mode in ("fp",) + QUANT_MODES
+    if remat < 0:
+        raise ValueError(f"remat must be >= 0 (nodes per checkpoint "
+                         f"segment), got {remat}")
+    if remat and not train:
+        raise ValueError("remat applies to the training forward only "
+                         "(train=True)")
+    hooks = (conv3x3_int8, stem_conv, int8_matmul, qact_matmul)
+    if train and any(h is not None for h in hooks):
+        raise ValueError("the training forward takes no kernel hooks")
+    if remat and capture is None:
+        with ops.conv_precision(tf32):
+            return _apply_remat(graph, variables, x, seed=seed, mode=mode,
+                                compute_dtype=compute_dtype,
+                                remat=int(remat), tf32=tf32)
     outputs = graph.outputs if heads is None else graph.outputs[heads]
     params = variables["params"]
     st = variables.get("state", {})
     captured = {}
+    new_state: Dict[str, Any] = {}
     live = live_nodes(graph, list(outputs) + list(capture or ()))
     uses = collections.Counter(i for n in graph.nodes if n.name in live
                                for i in n.inputs)
     uses.update(outputs)
     values = {graph.input_name: x}
-    with ops.exact_f32():
-        for node in graph.nodes:
+    with ops.conv_precision(tf32):
+        for i, node in enumerate(graph.nodes):
             if node.op == "input" or node.name not in live:
                 continue
-            values[node.name] = eval_node(
-                node, params, st, [values[n] for n in node.inputs],
-                mode=mode, conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
-                int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                compute_dtype=compute_dtype)
+            ins = [values[n] for n in node.inputs]
+            if train:
+                values[node.name], ns = _eval_train_node(
+                    node, i, params, st, ins, seed=seed, mode=mode,
+                    compute_dtype=compute_dtype)
+                if ns is not None:
+                    new_state[node.name] = ns
+            else:
+                values[node.name] = eval_node(
+                    node, params, st, ins, mode=mode,
+                    conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
+                    int8_matmul=int8_matmul, qact_matmul=qact_matmul,
+                    compute_dtype=compute_dtype)
             if capture and node.name in capture:
                 captured[node.name] = values[node.name]
             for n in node.inputs:
@@ -463,6 +631,8 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
         outs = [o.to(torch.float32) for o in outs]
     if capture is not None:
         return torch.stack(outs), captured
+    if train:
+        return torch.stack(outs), new_state
     return torch.stack(outs)
 
 

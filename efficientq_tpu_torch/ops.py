@@ -9,7 +9,13 @@ copy.
 
 Float convs run in full float32: ``exact_f32`` turns TF32 off for cuDNN
 convs and cuBLAS matmuls (cuDNN's f32 conv defaults to TF32; the JAX
-reference on the CPU is exact f32).
+reference on the CPU is exact f32).  ``conv_precision(tf32=True)`` allows
+TF32 instead: the FP train step's choice (README), the counterpart of the
+JAX trainer's default precision, which leaves the passes to the backend.
+
+The training ops (``batch_norm_train``, ``dropout3d``) and ``relu`` pass
+gradients as the JAX package's do: ``relu`` is ``maximum(x, 0)``, whose
+gradient at a tie is 0.5 (``torch.clamp_min`` would pass 1).
 """
 from __future__ import annotations
 
@@ -34,18 +40,23 @@ def triple(v: IntOr3) -> Tuple[int, int, int]:
 
 
 @contextlib.contextmanager
-def exact_f32():
-    """Full-float32 convs and matmuls inside the block (TF32 off), restoring
-    the caller's settings on exit."""
+def conv_precision(tf32: bool):
+    """Float32 convs and matmuls inside the block with TF32 allowed or not,
+    restoring the caller's settings on exit."""
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         yield
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def exact_f32():
+    """Full-float32 convs and matmuls inside the block (TF32 off)."""
+    return conv_precision(False)
 
 
 def ndhwc_to_ncdhw(x):
@@ -144,5 +155,42 @@ def batch_norm(x, scale, bias, mean, var, eps: float = 1e-5):
     return (x - mean) * inv * scale + bias
 
 
+def batch_norm_train(x, scale, bias, running_mean, running_var,
+                     momentum: float = 0.1, eps: float = 1e-5):
+    """Training-mode batch norm over N, D, H, W: normalize with the biased
+    batch variance, update the running stats with the unbiased one (torch
+    semantics), in the JAX version's order of operations (the mean, then
+    the mean of squared deviations).  Returns (y, new_running_mean,
+    new_running_var)."""
+    axes = (0, 1, 2, 3)
+    batch_mean = x.mean(dim=axes)
+    batch_var = (x - batch_mean).square().mean(dim=axes)
+    count = x.shape[0] * x.shape[1] * x.shape[2] * x.shape[3]
+    unbiased = batch_var * (count / max(count - 1, 1))
+    y = (x - batch_mean) * torch.rsqrt(batch_var + eps) * scale + bias
+    new_mean = (1.0 - momentum) * running_mean + momentum * batch_mean
+    new_var = (1.0 - momentum) * running_var + momentum * unbiased
+    return y, new_mean, new_var
+
+
+def dropout3d(x: torch.Tensor, rate: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Channelwise (Dropout3d) dropout of NDHWC ``x``: whole (sample,
+    channel) volumes zeroed with probability ``rate``, survivors scaled by
+    1/(1-rate).  The (N, 1, 1, 1, C) keep mask is drawn on the host from
+    ``generator`` (a CPU ``torch.Generator``), so a seed gives the same
+    mask on every device."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0], 1, 1, 1, x.shape[-1]), generator=generator)
+    mask = (u < keep).to(x.device, non_blocking=True)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp_min(x, 0)
+    """``maximum(x, 0)``: the JAX package's relu, value and gradient (0.5
+    at a tie).  The zero is a 0-d CPU tensor, a scalar to a CUDA op, so no
+    fill is launched."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype))

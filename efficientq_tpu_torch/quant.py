@@ -12,6 +12,12 @@ A bfloat16 activation is quantized in float32: JAX promotes
 ``bf16_array / f32_alpha`` to float32, where PyTorch would keep bfloat16
 (a 0-d alpha does not raise the dtype of a dimensioned tensor) and so
 round the quotient, changing codes.
+
+The clips that gradients pass through (``discretize``, the tensor-``k``
+branch of ``fake_quant_act_k``) are ``minimum(maximum(x, lo), hi)`` with
+tensor bounds: each bound passes half the gradient at a tie, as
+``jnp.clip`` does (``torch.clamp`` passes all of it).  Ties are common in
+QAT: after ``run_ptq`` every extreme weight code sits exactly on a bound.
 """
 from __future__ import annotations
 
@@ -50,13 +56,34 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=like.device)
 
 
+def clip(x, lo, hi):
+    """``jnp.clip``: the value of ``torch.clamp``, and half the gradient at
+    each bound on a tie.  ``lo`` and ``hi`` are tensors or numbers.  Where
+    no gradient can flow (number bounds, ``x`` without one: the
+    calibration's projection loop, serving) it is one ``torch.clamp``,
+    with the same values."""
+    numbers = not isinstance(lo, torch.Tensor) and not isinstance(
+        hi, torch.Tensor)
+    if numbers and not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, _bound(lo, x)), _bound(hi, x))
+
+
+def _bound(v, like):
+    """A number as a 0-d CPU tensor: an elementwise op on a CUDA tensor
+    takes it as a scalar, with no fill launched on the device."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.tensor(v, dtype=like.dtype)
+
+
 def discretize(var, num_lvl, lo, hi):
     """Uniform fake-quantization of ``var`` onto ``num_lvl`` levels in
     [lo, hi]; the gradient is straight-through.  Same op order as the JAX
     version: clip, subtract lo, divide by the step, round, rescale."""
     delta = _scalar((hi - lo) / (num_lvl - 1), var)
     lo_t = _scalar(lo, var)
-    var = torch.clamp(var, lo, hi)
+    var = clip(var, lo, hi)
     q = ste_round((var - lo_t) / delta)
     return q * delta + lo_t
 
@@ -91,7 +118,7 @@ def fake_quant_act_k(x, alpha_act, num_lvl, k):
             1.0 / (num_lvl - 1), x)
         hi = lo + one
         delta = (hi - lo) / _scalar(float(num_lvl - 1), x)
-        v = torch.clamp(_promoted(x) / a, lo, hi)
+        v = clip(_promoted(x) / a, lo, hi)
         q = ste_round((v - lo) / delta)
         return (q * delta + lo) * a
     lo = -int(k) * (1.0 / (num_lvl - 1))

@@ -1,6 +1,7 @@
-"""The port's CLI (``python -m efficientq_tpu_torch {ptq,infer}``) against
-the JAX package's (``efficientq_tpu/cli``), on the tiny model of
-tests/test_cli_e2e.py, on the CPU (``EFFQ_PLATFORM=cpu``).
+"""The port's CLI (``python -m efficientq_tpu_torch
+{train_fp,ptq,infer}``) against the JAX package's (``efficientq_tpu/cli``),
+on the tiny model of tests/test_cli_e2e.py, on the CPU
+(``EFFQ_PLATFORM=cpu``).
 
 - Parsing: both parsers accept the same argv lists and give equal
   namespaces; the port's flat YAML reader (the only one it uses) equals
@@ -28,9 +29,13 @@ tests/test_cli_e2e.py, on the CPU (``EFFQ_PLATFORM=cpu``).
   scored iterations; ``infer --deploy int8`` serves the mixed export.
 - Without ``--lwq_patchsz`` a volume axis under 64 voxels raises a
   ``ValueError`` naming the axis, on both calibration paths.
+- ``train_fp`` in both packages from one pretrain pickle, and ``ptq
+  --qat_epochs 1`` in both on the port's training snapshot, within the
+  tolerances their tests state; each package reads the other's training
+  snapshot.
 - Every unported flag raises ``NotImplementedError`` naming its ROADMAP
-  item, and the CLI without a card and without ``EFFQ_PLATFORM=cpu``
-  raises.
+  item (``--ckpt_backend orbax`` a ``ValueError``), and the CLI without a
+  card and without ``EFFQ_PLATFORM=cpu`` raises.
 """
 import glob
 import json
@@ -476,7 +481,6 @@ def test_calibration_crop_under_64_raises(flags, monkeypatch, tmp_path):
 
 
 REFUSED = [
-    ("ptq", ["--qat_epochs", "1"], "item 6"),
     ("ptq", ["--export_artifact"], "item 8"),
     ("ptq", ["--serve_grid", "column"], "item 8"),
     ("ptq", ["--tune_serving", "force"], "item 8"),
@@ -490,7 +494,10 @@ REFUSED = [
     ("infer", ["--dp_devices", "2"], "item 9"),
     ("infer", ["--mesh_shape", "1,2"], "item 9"),
     ("infer", ["--distributed"], "item 9"),
-    ("train_fp", [], "item 6"),
+    ("train_fp", ["--dp_devices", "2"], "item 9"),
+    ("train_fp", ["--mesh_shape", "1,2"], "item 9"),
+    ("train_fp", ["--fsdp"], "item 9"),
+    ("train_fp", ["--distributed"], "item 9"),
 ]
 
 
@@ -505,6 +512,17 @@ def test_unported_flags_raise(mission, flags, item, monkeypatch, tmp_path):
     assert not os.listdir(tmp_path)  # refused before any work
 
 
+def test_orbax_backend_raises(monkeypatch, tmp_path):
+    """``--ckpt_backend orbax`` is the JAX package's format: train_fp
+    refuses it with a ValueError before any work."""
+    monkeypatch.setenv("EFFQ_PLATFORM", "cpu")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match="pickle"):
+        entrance.main(["train_fp", "--task", "lits", *TINY_MODEL,
+                       "--ckpt_backend", "orbax"])
+    assert not os.listdir(tmp_path)
+
+
 def test_cli_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("EFFQ_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -512,6 +530,15 @@ def test_cli_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="EFFQ_PLATFORM=cpu"):
         entrance.main(["ptq", "--task", "lits", "--pretrain", "x.pkl",
                        *QUANT, *TINY_MODEL])
+    assert not os.listdir(tmp_path)
+
+
+def test_train_fp_without_a_card_raises(monkeypatch, tmp_path):
+    monkeypatch.delenv("EFFQ_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="EFFQ_PLATFORM=cpu"):
+        entrance.main(["train_fp", "--task", "lits", *TINY_MODEL])
     assert not os.listdir(tmp_path)
 
 
@@ -563,3 +590,255 @@ def test_load_torch_checkpoint_matches_jax(tmp_path):
                         err_msg=f"{save} {wrap} {node}.{k}")
                     np.testing.assert_array_equal(
                         t.numpy(), v[group][node][k].numpy())
+
+
+# ---------------------------------------------------------------------------
+# train_fp and ptq --qat_epochs
+
+
+def _fp_pretrain(path):
+    """The tiny FP net's weights from a seed, BN state randomised, as a
+    {'state_dict': ...} pickle."""
+    args = jentrance.build_parser().parse_args(
+        ["train_fp", "--task", "lits", *TINY_MODEL])
+    graph = build_uresq(definer.get_model_config(args)[0])
+    v = nnir.init(graph, 3, device="cpu")
+    rng = np.random.RandomState(1)
+    for s in v["state"].values():
+        s["mean"] = torch.from_numpy(
+            rng.randn(*s["mean"].shape).astype(np.float32) * 0.1)
+        s["var"] = torch.from_numpy(
+            (np.abs(rng.randn(*s["var"].shape)) * 0.2 + 0.9)
+            .astype(np.float32))
+    with open(path, "wb") as f:
+        pickle.dump({"state_dict": torch_io.to_torch_state_dict(graph, v)},
+                    f)
+
+
+def _own_train_dataset(get_data_cube):
+    """JAX's get_data_cube with the train loader reading its own shallow
+    copy of the train-seq dataset, as the port's DataHub builds it: in the
+    JAX package the calibration's use_fix_transform would otherwise switch
+    the QAT train loader to whole, uncropped volumes (ROADMAP queue 3)."""
+    import copy
+
+    def wrapped(args):
+        out = get_data_cube(args)
+        loader = out[0].trainloader
+        loader = getattr(loader, "loader", loader)  # inside PrefetchLoader
+        loader.dataset = copy.copy(loader.dataset)
+        return out
+
+    return wrapped
+
+
+@pytest.fixture(scope="module")
+def training_missions(tmp_path_factory):
+    """``train_fp`` in both packages from one pretrain pickle (2 epochs of
+    one batch-2 step, online validation at both)."""
+    root = str(tmp_path_factory.mktemp("port_cli_train"))
+    data_dir, split_dir = make_synthetic_dataset(
+        root, task="lits", n_subjects=4, vol_shape=VOL)
+    ckpt = P.join(root, "fp_pretrain.pkl")
+    _fp_pretrain(ckpt)
+    cwd = os.getcwd()
+    os.chdir(root)
+    out = {}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("EFFQ_PLATFORM", "cpu")
+            train = ["train_fp", "--task", "lits", "--data_dir", data_dir,
+                     "--split_dir", split_dir, "--round", "1",
+                     "--patch_size", "16,16,16", "--access_type", "npy",
+                     *TINY_MODEL, "--pretrain", ckpt, "--batch_size", "2",
+                     "--crop_type", "random", "--loss", "hybrid", "--lr",
+                     "0.01", "--max_epoch", "2", "--test_interval", "2",
+                     "--disp_interval", "1"]
+            out["port_train"] = entrance.main(train + ["--suffix", "p"])[0]
+            out["jax_train"] = jentrance.main(train + ["--suffix", "j"])
+    finally:
+        os.chdir(cwd)
+    out.update(root=root, data_dir=data_dir, split_dir=split_dir)
+    return out
+
+
+@pytest.fixture(scope="module")
+def qat_missions(training_missions):
+    """``ptq --qat_epochs 1`` in both packages on the port's
+    ``state_0002.pkl`` (JAX's ptq reading the port's training snapshot)."""
+    from efficientq_tpu.cli import definer as jdefiner
+
+    t = training_missions
+    cwd = os.getcwd()
+    os.chdir(t["root"])
+    out = {}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("EFFQ_PLATFORM", "cpu")
+            mp.setattr(jdefiner, "get_data_cube",
+                       _own_train_dataset(jdefiner.get_data_cube))
+            qat = ["ptq", *_data_args(t["data_dir"], t["split_dir"]),
+                   "--lwq_patchsz", "32,32,32", "--lwq_iter", "40",
+                   "--qat_epochs", "1", "--qat_lr", "1e-3", "--batch_size",
+                   "2", "--loss", "hybrid", "--no_test"]
+            snapshot = P.join(t["port_train"], "state_0002.pkl")
+            out["port_qat"] = entrance.main(qat + [
+                "--pretrain", snapshot, "--suffix", "pq"])[0]
+            out["jax_qat"] = jentrance.main(qat + [
+                "--pretrain", snapshot, "--suffix", "jq"])
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def test_train_fp_matches_jax(training_missions):
+    """The same files; loss.txt within rtol 1e-5 (measured 6.2e-7); the
+    final snapshot's weights and BN state within 5e-6 (measured 9.5e-7);
+    the final test's metrics within 1e-4 (measured equal)."""
+    port, jax_ = training_missions["port_train"], training_missions["jax_train"]
+    assert _files(port) == _files(jax_)
+    assert {"description.txt", "loss.txt", "seg_metric.txt",
+            "state_0002.pkl", "state_FP.npz", "seg_0002/val_seg.txt",
+            "seg_0002/test_seg.txt"} <= set(_files(port))
+    rows = [[ln.split(",") for ln in _lines(s, "loss.txt")]
+            for s in (port, jax_)]
+    assert [r[0] for r in rows[0]] == [r[0] for r in rows[1]] == ["1", "2"]
+    np.testing.assert_allclose([float(r[1]) for r in rows[0]],
+                               [float(r[1]) for r in rows[1]], rtol=1e-5)
+    sd_p, sd_j = (_state(s, "state_0002.pkl") for s in (port, jax_))
+    assert set(sd_p) == set(sd_j)
+    for k in sd_j:
+        np.testing.assert_allclose(sd_p[k], sd_j[k], atol=5e-6, err_msg=k)
+    for split in ("val", "test"):
+        a, b = (_dsc_rows(P.join(s, "seg_0002", f"{split}_seg.txt"))
+                for s in (port, jax_))
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], atol=1e-4)
+
+
+def test_ptq_qat_matches_jax(qat_missions):
+    """Both packages' ``ptq --qat_epochs 1`` on the port's training
+    snapshot: qat_loss.txt in JAX's format with one kept mark, both val
+    dice within 0.03 and epoch 1's loss within rtol 2e-2, and exports
+    whose kernels are on their grids with codes equal on at least 0.97.
+    Measured: dice 0.0095 and 0.0102 apart, loss 5.4e-3, codes 0.9844.
+    The gap is the calibration's, not the fine-tune's: on this tiny net
+    the two packages' ADMM, chaotic at rounding level (ROADMAP queue 3),
+    give codes equal on 0.9844 from the same weights; the fine-tune step
+    itself is held tightly in tests/test_torch_port_qat.py.  This parity
+    holds only against JAX with its train loader given its own dataset
+    (``_own_train_dataset``): unpatched, JAX's QAT trains on whole volumes
+    (test_qat_train_loader_departs_from_unpatched_jax)."""
+    import re
+
+    port, jax_ = qat_missions["port_qat"], qat_missions["jax_qat"]
+    pat = re.compile(r"^epoch (0 \(pure PTQ\): val_dice|1: loss "
+                     r"\S+ val_dice) (\d+\.\d{6})(  <- kept)?$")
+    got = [[pat.match(ln) for ln in _lines(s, "qat/qat_loss.txt")]
+           for s in (port, jax_)]
+    for ms in got:
+        assert len(ms) == 2 and all(ms)
+        assert sum(bool(m.group(3)) for m in ms) == 1
+    for i in (0, 1):
+        np.testing.assert_allclose(float(got[0][i].group(2)),
+                                   float(got[1][i].group(2)), atol=0.03)
+    loss = [float(_lines(s, "qat/qat_loss.txt")[1].split()[3])
+            for s in (port, jax_)]
+    np.testing.assert_allclose(loss[0], loss[1], rtol=2e-2)
+    sd_p, sd_j = (_state(s, "state_in_int8.pkl") for s in (port, jax_))
+    grids = sd_p["__qlvl_overrides__"]
+    agree = total = 0
+    for name, (qlvl_w, _) in grids.items():
+        key = f"{name}.weight"
+        if qlvl_w <= 0 or sd_p[key].dtype != np.uint8:
+            continue
+        assert int(sd_p[key].max()) <= qlvl_w - 1
+        agree += int((sd_p[key] == sd_j[key]).sum())
+        total += sd_p[key].size
+    assert total and agree / total >= 0.97, agree / total
+    # the fp-valued export is the snapped grid itself
+    fp = _state(port, "state_in_fp.pkl")
+    for name, (qlvl_w, _) in grids.items():
+        if qlvl_w > 0 and f"{name}.alpha_w" in fp:
+            w = fp[f"{name}.weight"] / fp[f"{name}.alpha_w"]
+            codes = (w + 1) * (qlvl_w - 1) / 2
+            np.testing.assert_allclose(codes, np.round(codes), atol=1e-4)
+
+
+def test_qat_train_loader_departs_from_unpatched_jax(training_missions):
+    """The port's deliberate departure from the JAX package: after the
+    calibration switches the train-seq dataset to its fixed transform,
+    unpatched JAX's train loader gives whole volumes, while the port's,
+    and JAX's under ``_own_train_dataset``, keep cropping patches."""
+    from efficientq_tpu.cli import definer as jdefiner
+
+    t = training_missions
+    argv = ["ptq", *_data_args(t["data_dir"], t["split_dir"]),
+            "--batch_size", "2"]
+    shapes = {}
+    for name, parse, cube in (
+            ("port", entrance.build_parser, definer.get_data_cube),
+            ("jax", jentrance.build_parser, jdefiner.get_data_cube),
+            ("jax_own", jentrance.build_parser,
+             _own_train_dataset(jdefiner.get_data_cube))):
+        hub = cube(parse().parse_args(argv))[0]
+        hub.trainseqloader.dataset.use_fix_transform()
+        shapes[name] = tuple(next(iter(hub.trainloader))[0].shape[-3:])
+    assert shapes == {"port": (16, 16, 16), "jax": VOL,
+                      "jax_own": (16, 16, 16)}
+
+
+def test_training_snapshots_interchange(training_missions, tmp_path):
+    """Each package reads the other's training snapshot to the same
+    weights as the writer's own reader; a snapshot whose optimizer state
+    names classes that cannot be imported (JAX's optax state where optax
+    is absent) still loads its state_dict."""
+    from efficientq_tpu.cli import definer as jdefiner
+    from efficientq_tpu.models import build_uresq as jbuild
+
+    args = jentrance.build_parser().parse_args(
+        ["train_fp", "--task", "lits", *TINY_MODEL])
+    graph = build_uresq(definer.get_model_config(args)[0])
+    jg = jbuild(jdefiner.get_model_config(args)[0])
+    for snap in (training_missions["port_train"],
+                 training_missions["jax_train"]):
+        path = P.join(snap, "state_0002.pkl")
+        ours = torch_io.load_torch_checkpoint(
+            graph, nnir.init(graph, 1, device="cpu"), path)
+        theirs = jtorch_io.load_torch_checkpoint(
+            jg, jnnir.init(jg, jax.random.PRNGKey(1)), path)
+        for group in ("params", "state"):
+            for node, entries in ours[group].items():
+                for k, t in entries.items():
+                    np.testing.assert_array_equal(
+                        t.numpy(), np.asarray(theirs[group][node][k]))
+    with open(P.join(training_missions["port_train"], "state_0002.pkl"),
+              "rb") as f:
+        payload = pickle.load(f)
+    # the optimizer state as an object of a module that is gone by the
+    # time the snapshot is read
+    import types
+
+    mod = types.ModuleType("effq_absent_module")
+
+    class Absent:
+        pass
+
+    Absent.__module__, Absent.__qualname__ = mod.__name__, "Absent"
+    mod.Absent = Absent
+    sys.modules[mod.__name__] = mod
+    try:
+        payload["opt_state"] = Absent()
+        path = str(tmp_path / "foreign.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+    finally:
+        del sys.modules[mod.__name__]
+    got = torch_io.load_torch_checkpoint(
+        graph, nnir.init(graph, 1, device="cpu"), path)
+    want = torch_io.load_torch_state_dict(
+        graph, nnir.init(graph, 1, device="cpu"), payload["state_dict"])
+    for node, entries in want["params"].items():
+        for k, t in entries.items():
+            assert torch.equal(got["params"][node][k], t)

@@ -29,6 +29,8 @@ K1 also at the LiTS preset's 512-channel shapes and at the 16-level grids
 of the mixed-precision recipe, and a deployment with offset activation
 grids (``act_k``) against its quantized forward.
 
+Training: one train step on the card in exact float32 against the CPU's,
+remat and the dropout masks on the card, and ``ops.batch_norm_train``.
 The serving loop's upload and readback (``data/prefetch.py::device_feed``,
 ``eval/validate.py``): the device feed gives the host's batches in order,
 uploads on its side stream rather than behind the caller's, and keeps a
@@ -1259,3 +1261,125 @@ def test_cuda_validate_seg_pipeline_equals_one_volume_at_a_time(cuda):
     assert len(got) == 4
     for a, b in zip(sm, want):
         assert a.get_metric() == b.get_metric()
+
+
+# ---------------------------------------------------------------------------
+# training (train/trainer.py, nnir.apply(train=True, remat=), ops)
+
+TRAIN_NET = dict(num_mod=2, num_classes=3, depth_config=[1, 1, 1],
+                 width_config=[8, 16, 8], dilation_config=[1, 1, 1],
+                 init_stride=(2, 2, 2), drop_rate=0.0, blk_type="mid",
+                 ds="simple", ds_depth_limit=3)
+
+
+def _train_batch(seed=0, n=2, size=16):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, 2, size, size, size).astype(np.float32)
+    y = rs.randint(0, 3, (n, size, size, size))
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+def _one_step(device, root, **kw):
+    from types import SimpleNamespace
+
+    from efficientq_tpu_torch.train import Trainer
+
+    g = build_uresq(UResQConfig(**TRAIN_NET))
+    tr = Trainer(g, nnir.init(g, 0, device="cpu"),
+                 SimpleNamespace(trainloader=[None]), loss_name="hybrid",
+                 num_mo=len(g.outputs), n_class=3, base_lr=0.01, max_epoch=1,
+                 snapshot_root=str(root), device=device, **kw)
+    x, y = _train_batch()
+    loss, _ = tr.train_step(x.to(device), y.to(device))
+    grads = {k: t.grad.detach().cpu() for k, t in tr._leaves.items()}
+    state = {n: {k: v.cpu() for k, v in s.items()}
+             for n, s in tr.variables["state"].items()}
+    return float(loss), grads, state
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda, tmp_path):
+    """One train step (forward, loss, backward) on the card in exact
+    float32 against the CPU's on the same weights and batch: the loss
+    within rtol 1e-5, every gradient within 1e-5 + 1e-4 of its leaf's
+    largest entry, the new BN running stats within rtol 1e-5."""
+    cpu = _one_step("cpu", tmp_path / "cpu")
+    card = _one_step(cuda, tmp_path / "card", tf32=False)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
+    for k, g in cpu[1].items():
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(card[1][k].numpy(), g.numpy(), rtol=0,
+                                   atol=1e-5 + 1e-4 * scale, err_msg=k)
+    for n, s in cpu[2].items():
+        for k in s:
+            np.testing.assert_allclose(card[2][n][k].numpy(), s[k].numpy(),
+                                       rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cuda_remat_and_dropout_masks(cuda, monkeypatch):
+    """At dropout 0.5 on the card: remat=3 gives the plain forward's heads
+    bit for bit (the same masks), with deterministic cuDNN; the gradients
+    within 1e-5 of each leaf's largest entry, the smoke's tolerance for
+    the same check: the CUDA backwards of max pooling and trilinear
+    upsampling add with atomics, so the gradients vary from run to run
+    (measured up to 1.15e-6 here, 1.435e-6 in the smoke); and the masks
+    are the CPU's (the heads within 1e-4)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    g = build_uresq(UResQConfig(**dict(TRAIN_NET, drop_rate=0.5)))
+    assert any(n.op == "dropout" for n in g.nodes)
+    x, y = _train_batch(seed=1)
+    runs = {}
+    for name, device, remat in (("plain", cuda, 0), ("remat", cuda, 3),
+                                ("cpu", "cpu", 0)):
+        v = nnir.init(g, 0, device=device)
+        leaves = {f"{n}.{k}": t.requires_grad_()
+                  for n, e in v["params"].items() for k, t in e.items()}
+        out, _ = nnir.apply(g, v, ops.ncdhw_to_ndhwc(x.to(device)),
+                            train=True, seed=5, remat=remat)
+        with ops.exact_f32():
+            out.float().square().mean().backward()
+        runs[name] = (out.detach().cpu(),
+                      {k: t.grad.cpu() for k, t in leaves.items()})
+    assert torch.equal(runs["plain"][0], runs["remat"][0])
+    for k, gp in runs["plain"][1].items():
+        scale = float(gp.abs().max())
+        assert float((runs["remat"][1][k] - gp).abs().max()) <= 1e-5 * scale
+    torch.testing.assert_close(runs["plain"][0], runs["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_tie_gradients_match_cpu(cuda):
+    """``ops.relu`` and ``quant.clip`` on the card, whose numeric bounds
+    reach the CUDA op as 0-d CPU tensors: the CPU's values and gradients,
+    half the gradient at each tie, as ``jnp.maximum`` and ``jnp.clip``."""
+    from efficientq_tpu_torch import quant
+
+    for fn in (ops.relu, lambda t: quant.clip(t, 0.0, 1.0)):
+        out = {}
+        for dev in ("cpu", cuda):
+            t = torch.tensor([-1.0, 0.0, 0.5, 1.0, 2.0], device=dev,
+                             requires_grad=True)
+            y = fn(t)
+            y.sum().backward()
+            out[dev] = (y.detach().cpu(), t.grad.cpu())
+        assert torch.equal(out["cpu"][0], out[cuda][0])
+        assert torch.equal(out["cpu"][1], out[cuda][1])
+        assert 0.5 in out[cuda][1].tolist()
+
+
+@pytest.mark.cuda
+def test_cuda_batch_norm_train_matches_cpu(cuda):
+    rs = np.random.RandomState(2)
+    args = [torch.from_numpy(a) for a in (
+        (rs.randn(2, 8, 9, 10, 16) * 3 + 1).astype(np.float32),
+        rs.rand(16).astype(np.float32) + 0.5,
+        rs.randn(16).astype(np.float32),
+        rs.randn(16).astype(np.float32) * 0.1,
+        rs.rand(16).astype(np.float32) + 0.5)]
+    want = ops.batch_norm_train(*args)
+    got = ops.batch_norm_train(*[a.to(cuda) for a in args])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)

@@ -1,8 +1,8 @@
 """The port's data layer against the JAX package's: transforms (the 3-D
-part the evaluation and calibration loaders run), splits, datasets and
-loaders, ``DataHub``'s evaluation and calibration loaders, ``device_feed``
-on the CPU, the NIfTI reader and writer, and the flat YAML reader of the
-CLI.
+fixed part; the random ones are in tests/test_torch_port_train.py),
+splits, datasets and loaders, ``DataHub``'s loaders, ``device_feed`` and
+``PrefetchLoader`` on the CPU, the NIfTI reader and writer, and the flat
+YAML reader of the CLI.
 
 Everything here is host-side NumPy in both packages, so the comparisons
 are exact: the same files give the same batches bit for bit, and each
@@ -121,16 +121,20 @@ def _hub(module, data_dir, split_dir, **kw):
 @pytest.mark.parametrize("on_disk", [False, True])
 def test_datahub_matches_jax(brats_set, on_disk):
     """The same files give the same batches bit for bit from every loader
-    the missions read (train-seq with the fixed transform, the
+    the missions read (the shuffled train loader with its random flips,
+    from the same seed; train-seq with the fixed transform, the
     calibration's; val, test, true-test), and the same subject lists and
-    sn -> file map.  The train loader is train_fp's (ROADMAP queue 1
-    item 6): the port has none yet."""
+    sn -> file map."""
     ours = _hub(datahub, *brats_set, on_disk=on_disk)
     theirs = _hub(jdatahub, *brats_set, on_disk=on_disk, num_workers=0)
     for attr in ("train_sn", "val_sn", "test_sn", "true_test_sn",
                  "sn_to_fn_map", "slide_patch_size", "slide_overlap"):
         assert getattr(ours, attr) == getattr(theirs, attr), attr
-    assert ours.trainloader is None
+    for _ in range(2):
+        for (a, la), (b, lb) in zip(ours.trainloader, theirs.trainloader,
+                                    strict=True):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(la, lb)
     ours.trainseqloader.dataset.use_fix_transform()
     theirs.trainseqloader.dataset.use_fix_transform()
     for name in ("valloader", "testloader", "true_test_image_loader",
@@ -197,6 +201,28 @@ def test_device_feed_on_cpu_gives_host_batches_in_order():
     assert list(prefetch.device_feed([], device="cpu")) == []
     with pytest.raises(NotImplementedError, match="item 9"):
         next(prefetch.device_feed(batches, mesh=object()))
+
+
+def test_device_feed_and_prefetch_carry_tuples():
+    """The train loader's (image, label) items: device_feed gives them back
+    as tuples of tensors, in order, behind a PrefetchLoader as well; the
+    queue re-raises a loader's error in the consumer."""
+    items = [(np.full((2, 1, 3), i, np.float32), np.arange(i, i + 2))
+             for i in range(5)]
+    feed = prefetch.device_feed(prefetch.PrefetchLoader(items, depth=2),
+                                device="cpu")
+    got = list(feed)
+    assert len(got) == 5
+    for (x, y), (a, b) in zip(got, items):
+        np.testing.assert_array_equal(x.numpy(), a)
+        np.testing.assert_array_equal(y.numpy(), b)
+
+    def broken():
+        yield items[0]
+        raise OSError("disk")
+
+    with pytest.raises(OSError, match="disk"):
+        list(prefetch.PrefetchLoader(broken()))
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int16, np.int32,
