@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch port's serving paths, its PTQ calibration, its
 ``ptq`` and ``infer`` missions and its PTQ extensions on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--ab]
+    python3 chip_smoke.py [--seed N] [--profile] [--ab] [--serving-extras]
 
 ``--ab`` runs phases 0, 2, 4 and 7 alone (the serving paths' volumes/s
 and the flagship calibration's seconds) and prints no result line: copied
 into two trees and run from each in one call, it compares their serving
-and calibration speed with the same harness.
+and calibration speed with the same harness.  ``--serving-extras`` runs
+phases 0, 2, 4, 8 and 11 alone and prints no result line.
 
 Phases, each printed on its own lines:
 
@@ -23,7 +24,8 @@ Phases, each printed on its own lines:
    72, 256, extents below one brick and odd, N = 1 and 3, every brick of
    the tile plan, dilation up to 9, float32 and bfloat16 output): outputs
    must be identical (torch.equal); then the kernel's and the plain
-   version's times (median of 20 launches after 3 warm-up launches);
+   version's times (medians of 20 launches after 3 warm-up launches, and
+   of 5 after 1 for the plain version);
    then K1 at the LiTS preset's 18 interior convs (two per stage of
    64^3 x 32 ... 4^3 x 512 ... 64^3 x 32, N = 8 patches, float32 output)
    on the sub-4-bit recipe's 16-level grid: 16-level act-quant prologue
@@ -58,7 +60,9 @@ Phases, each printed on its own lines:
    calls); K2 at the flagship called as the serving path calls it (alpha
    on the card, weights packed at deploy time), per call in three rounds
    (min / median / max), with its plan (``kernels/stem.py::_k2_plan``).
-4. the s2d bf16 serving slice (``--serve_stem s2d``): the same net and
+4. the s2d bf16 serving slice (``--serve_stem s2d``), run eagerly (the
+   patch forward not captured; phase 11 (a) holds the captured path
+   against it): the same net and
    volumes through ``ptq.deploy.make_s2d_volume_inferencer`` (host
    volume, channels-first tail, K2 stem, K1 at bfloat16, final head,
    multilabel hard prediction, patch batch "auto" = the whole grid of 8).
@@ -144,10 +148,12 @@ Phases, each printed on its own lines:
    (``np.array_equal``); (d) ``infer --deploy mixed --serve_stem s2d
    --serve_dtype bf16``: 1 K2 and 14 K1 launches per forward, >= 0.99
    agreement with the same path on the plain K2 and K1; (e) a sustained
-   stream: ``validate_seg`` over 6 volumes (phase 2's three, repeated)
+   stream: ``validate_seg`` over 4 volumes (phase 2's three, repeated)
    through the port's ``Loader`` on the int8 float32 path and the s2d bf16
-   path, volumes/s over volumes 2-6 beside phases 2 and 4's rates, and
-   the host's time in ``SegMetricMC``.
+   path (each patch forward replayed from CUDA graphs), volumes/s over
+   volumes 2-4 beside phases 2 and 4's rates, and the host's time in
+   ``SegMetricMC``.  Phases 8 to 10 pass ``--tune_serving off``: their
+   patch batches stay ``min(grid, 8)``.
 9. the PTQ extensions through the CLI at full width, beside the
    toolchain's fingerprint (``utils/toolchain.py``): (a) a synthetic LiTS
    set (8 subjects of 256 x 256 x 128, npy, 1 modality; train 4, val 2,
@@ -202,8 +208,34 @@ Phases, each printed on its own lines:
    export on its grid; its seconds with the fine-tune apart; (d) ``infer
    --deploy int8`` on (c)'s export: 14 K1 launches per patch-batch
    forward, the saved val prediction equal to ``validate_seg`` of the same
-   deployed graph on the plain K1.  Phases 8 to 10 write their data to one
-   temporary directory, removed at the end.
+   deployed graph on the plain K1.
+11. the serving extras on the flagship (``eval/sliding.py``,
+   ``eval/autotune.py``, ``export.py``, ``kernels/library.py``): (a) the
+   captured int8 float32 path (``make_captured_volume_inferencer``, each
+   chunk's patch forward replayed from a CUDA graph) over phase 2's three
+   volumes and the captured s2d bf16 path over phase 4's: predictions
+   equal (``torch.equal``) to phases 2 and 4's eager ones, the eager
+   paths' K1 and K2 launches per forward, volumes/s of each path beside
+   its eager one, in turns in this call, and one volume of each int8 path
+   under the profiler (device busy, idle share); (b) the column grid
+   (``serve_grid="column"``: 4 columns of 160 x 128 x 128 in one forward)
+   on phase 2's volumes: K1 equal to the plain K1 at every conv of the
+   column forward, the path equal to the same path on the plain K1, 14 K1
+   launches a volume, its agreement with the patch grid printed, and
+   volumes/s against the captured patch grid in turns; (c) the autotuner
+   (``choose_patch_batch(tune="auto")`` with its cache in the temporary
+   directory): each candidate's time, the choice and the sweep's seconds,
+   then a second call that reads the cache with no launch; (d) ``infer
+   --deploy int8 --export_artifact`` and ``infer --deploy mixed
+   --serve_stem s2d --serve_dtype bf16 --export_artifact`` on phase 8's
+   export, then ``infer --artifact`` on each zip: the int8 artifact's
+   predictions equal to phase 8 (c)'s, the s2d artifact's (a float32 head,
+   as the JAX package's) >= 0.999 with phase 8 (d)'s, the export seconds,
+   the artifact runs' K1 and K2 launches; (e) one batch of 2 patches
+   through the exported ``include_1x1`` int8 graph (K1 and K3 as the
+   registered ``effq::`` operators) equal to its eager forward, 14 K1 and
+   6 K3 launches.  Phases 8 to 11 write their data to one temporary
+   directory, removed at the end.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
 path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
@@ -263,6 +295,9 @@ AGREE_PLAIN_S2D = 0.99
 AGREE_PLAIN_K4 = 0.99
 # phases 3 and 5 time K2, K3 and K4 this many times (the same-card spread)
 ROUNDS = 3
+# phase 1 times the plain K1 (float64 sums, tens of ms a call) over fewer
+# launches than the kernels' 20: cut when phase 11 joined the smoke
+PLAIN_REPS = dict(warmup=1, reps=5)
 # the flagship's six transition 1x1 convs: (name, voxels per 128^3 patch,
 # K, N)
 ONE_BY_ONE = [("TransDown1", 32768, 32, 64), ("TransDown2", 4096, 64, 128),
@@ -478,7 +513,7 @@ def phase1(seed: int):
             tk = _median_ms(lambda: K.qconv3x3_int8_ndhwc(
                 qa, *args[1:], **kw_q))
             tp = _median_ms(lambda: K.qconv3x3_int8_ndhwc_reference(
-                qa, *args[1:], **kw_q))
+                qa, *args[1:], **kw_q), **PLAIN_REPS)
             total_k += tk
             total_p += tp
             print(f"[phase1] stage{i + 1} N={N_BATCH} {s}^3 C=O={c} {name}: "
@@ -577,7 +612,8 @@ def k1_lits(seed: int):
             a = (qa, w, b, one, scale, q)
             tk = _median_ms(lambda: K.qconv3x3_int8_ndhwc(*a, **kwq))
             tp = _median_ms(lambda: K.qconv3x3_int8_ndhwc_reference(*a,
-                                                                    **kwq))
+                                                                    **kwq),
+                            **PLAIN_REPS)
             xl = qa.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
             wl = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
             tl = _median_ms(lambda: F.conv3d(xl, wl, padding=1))
@@ -614,20 +650,15 @@ def k1_lits(seed: int):
                 lits_bound_by=by, lits_max_abs_err=max_err)
 
 
-def build_net(seed: int):
-    """BraTS W4A4 preset, BN folded, post-PTQ weights emulated, exported
-    as an int8 checkpoint, reloaded and deployed.  Returns the deployed
-    graph, its ``GraphModule`` and the reloaded (folded, undeployed) graph
-    and variables on the CPU."""
+def post_ptq_weights(graph, seed: int):
+    """``graph``'s weights from ``seed``, BN folded, post-PTQ weights
+    emulated: each weight-quantized kernel on its grid (alpha = max |w|),
+    every activation range 1.  Returns the folded (graph, variables) on
+    the CPU."""
     from efficientq_tpu_torch import nnir
-    from efficientq_tpu_torch.kernels.build import BUILD_DIR
-    from efficientq_tpu_torch.models import build_uresq, preset_config
-    from efficientq_tpu_torch.models import torch_io
-    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
-    from efficientq_tpu_torch.quant import fake_quant_weight, pack_int_weight
+    from efficientq_tpu_torch.ptq import fold_bn
+    from efficientq_tpu_torch.quant import fake_quant_weight
 
-    cfg = preset_config("brats", quantize=True)
-    graph = build_uresq(cfg)
     fgraph, fvars = fold_bn(graph, nnir.init(graph, seed, device="cpu"))
     for node in fgraph.qconv_nodes():
         qcfg = node.attrs["qcfg"]
@@ -638,6 +669,24 @@ def build_net(seed: int):
             p["alpha_w"] = alpha
         if qcfg.q_act:
             p["alpha_act"] = torch.tensor(1.0)
+    return fgraph, fvars
+
+
+def build_net(seed: int):
+    """BraTS W4A4 preset, BN folded, post-PTQ weights emulated, exported
+    as an int8 checkpoint, reloaded and deployed.  Returns the deployed
+    graph, its ``GraphModule`` and the reloaded (folded, undeployed) graph
+    and variables on the CPU."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.kernels.build import BUILD_DIR
+    from efficientq_tpu_torch.models import build_uresq, preset_config
+    from efficientq_tpu_torch.models import torch_io
+    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+    from efficientq_tpu_torch.quant import pack_int_weight
+
+    cfg = preset_config("brats", quantize=True)
+    graph = build_uresq(cfg)
+    fgraph, fvars = post_ptq_weights(graph, seed)
     # the PTQ export format: packed integer weight codes in an npz
     sd = torch_io.to_torch_state_dict(fgraph, fvars)
     for node in fgraph.qconv_nodes():
@@ -1026,8 +1075,11 @@ def phase3(seed: int):
 
 
 def phase4(seed: int, served):
-    """The s2d bf16 serving slice, checked against the direct bf16 path
-    and the plain kernels; returns (K1 launches, K2 launches, inferencer)."""
+    """The s2d bf16 serving slice, run eagerly (``capture=False``: the
+    baseline of phase 11 (a)'s captured path, and the plain K2 and the
+    printing hooks read the card from the host), checked against the
+    direct bf16 path and the plain kernels; returns (K1 launches, K2
+    launches, inferencer, predictions)."""
     from efficientq_tpu_torch.data.labels import split_label_brats
     from efficientq_tpu_torch.eval.metrics import dice
     from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
@@ -1041,7 +1093,8 @@ def phase4(seed: int, served):
     vols = [v.numpy() for v in served["vols"]]
     starts = patch_grid(VOL_SHAPE, PATCH, OVERLAP)
     forwards = 1  # patch batch "auto": the whole grid in one forward
-    kw = dict(multilabel=True, heads=slice(-1, None), device=dev)
+    kw = dict(multilabel=True, heads=slice(-1, None), device=dev,
+              capture=False)
     infer = make_s2d_volume_inferencer(dgraph, variables, **kw)
     check(infer is not None, "no eligible s2d stem in the deployed graph")
 
@@ -1451,8 +1504,8 @@ def phase6(seed: int, served, s2d_preds):
                                                            OVERLAP),
         host, {"K1": 14, "K2": 1, "K4": 6})
     plain = make_s2d_volume_inferencer(
-        mpg, mv, qact_matmul=KM.fused_qact_matmul_reference, **kw)(
-        None, host[0], PATCH, OVERLAP)
+        mpg, mv, qact_matmul=KM.fused_qact_matmul_reference, capture=False,
+        **kw)(None, host[0], PATCH, OVERLAP)
     agree = float((plain == preds[0]).float().mean())
     print(f"[phase6] (c) volume 1 agrees with the same path on the plain K4 "
           f"on {agree:.8f} of {plain.numel()} voxel-classes", flush=True)
@@ -1468,7 +1521,9 @@ def phase6(seed: int, served, s2d_preds):
               f"{flips} downstream codes flip", flush=True)
         return y
 
-    swapped = make_s2d_volume_inferencer(mpg, mv, qact_matmul=compare, **kw)(
+    # eager: compare reads the card from the host
+    swapped = make_s2d_volume_inferencer(mpg, mv, qact_matmul=compare,
+                                         capture=False, **kw)(
         None, host[0], PATCH, OVERLAP)
     check(torch.equal(swapped, preds[0]), "(c): the comparing run differs")
     no_1x1 = make_s2d_volume_inferencer(mg, mv, **kw)(None, host[0], PATCH,
@@ -1857,7 +1912,7 @@ def phase7(seed: int, smi: str, vol, label, dev):
           f"calibrated s2d path: launches {counted.counts}")
     s2d_plain = make_s2d_volume_inferencer(
         dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        stem_conv=stem.stem_s2d_conv_reference, **s2d_kw)(
+        stem_conv=stem.stem_s2d_conv_reference, capture=False, **s2d_kw)(
         None, host, PATCH, OVERLAP)
     agree_s2d = float((s2d_plain == s2d_pred).float().mean())
     print(f"[phase7] calibrated net on the s2d bf16 path: launches "
@@ -1964,9 +2019,9 @@ PTQ_FILES = ("cmd.txt", "time_cost.txt", "layer_loss.txt",
              "FPseg0.nii.gz", "state_in_fp.pkl", "state_in_int8.pkl",
              "state_in_int8_compress.npz", "ptq/val_seg.txt",
              "ptq/test_seg.txt")
-# the stream's length: 6 volumes since phase 9 joined the smoke (12
-# before), to keep the whole run well inside its time limit
-STREAM_VOLUMES = 6
+# the stream's length: 4 volumes since phase 11 joined the smoke (6 since
+# phase 9 did, 12 before), to keep the whole run well inside its limit
+STREAM_VOLUMES = 4
 
 
 def _metric_numbers(path):
@@ -2202,7 +2257,7 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
         config = os.path.join(HERE, "config", "brats_ptq.yaml")
         common = ["--qlvl_w", "4", "--qlvl_a", "4", "--round", "1",
                   "--config", config, "--data_dir", data_dir,
-                  "--split_dir", split_dir]
+                  "--split_dir", split_dir, "--tune_serving", "off"]
 
         # (b) the README's ptq command
         t0 = time.perf_counter()
@@ -2296,7 +2351,7 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
         plain = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
             g, v, multilabel=True, compute_dtype=torch.bfloat16,
             device="cuda", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-            stem_conv=stem.stem_s2d_conv_reference),
+            stem_conv=stem.stem_s2d_conv_reference, capture=False),
             os.path.join(tmp, "plain_s2d"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_d, "infer", "val", f"{sn}.nii.gz"))
@@ -2355,7 +2410,9 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
           f"{served['vps']['phase 2']:.4f}), s2d bf16 path, whole grid "
           f"{rates['s2d_bf16']:.4f} (phase 4: "
           f"{served['vps']['phase 4']:.4f})", flush=True)
-    return launches, dict(data_dir=data_dir, split_dir=split_dir, ckpt=ckpt)
+    return launches, dict(data_dir=data_dir, split_dir=split_dir, ckpt=ckpt,
+                          export=export, common=common, snap_int8=snap_c,
+                          snap_s2d=snap_d)
 
 
 LITS_VOL = (256, 256, 128)  # the in-plane size of train_crop_npy_256, z last
@@ -2437,7 +2494,7 @@ def phase9_lits(seed: int, smi: str, work: str):
         config = os.path.join(HERE, "config", "lits_ptq_sub4.yaml")
         common = ["--qlvl_w", "4", "--qlvl_a", "4", "--round", "1",
                   "--config", config, "--data_dir", data_dir,
-                  "--split_dir", split_dir]
+                  "--split_dir", split_dir, "--tune_serving", "off"]
 
         # (b) the recipe as a user types it
         torch.cuda.reset_peak_memory_stats()
@@ -2556,7 +2613,8 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
         bcommon = ["--qlvl_w", "4", "--qlvl_a", "4", "--round", "1",
                    "--config", os.path.join(HERE, "config", "brats_ptq.yaml"),
                    "--data_dir", brats["data_dir"],
-                   "--split_dir", brats["split_dir"]]
+                   "--split_dir", brats["split_dir"], "--tune_serving",
+                   "off"]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with _Launches() as counted:
@@ -2630,7 +2688,7 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
         plain = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
             g, v, multilabel=True, compute_dtype=torch.bfloat16,
             device="cuda", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-            stem_conv=stem.stem_s2d_conv_reference),
+            stem_conv=stem.stem_s2d_conv_reference, capture=False),
             os.path.join(work, "brats", "plain_knobs"))
         # K2 sums in float32 on the tensor cores, its plain version in
         # float64: a few bf16 stem outputs round one ulp apart, a code with
@@ -2654,9 +2712,11 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
             apart["qlvl"] = a[6]
             return yp, qp
 
-        swapped = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
-            g, v, multilabel=True, compute_dtype=torch.bfloat16,
-            device="cuda", stem_conv=stem_checked),
+        # eager: stem_checked reads the card from the host
+        swapped = _plain_val(
+            args, lambda g, v: make_s2d_volume_inferencer(
+                g, v, multilabel=True, compute_dtype=torch.bfloat16,
+                device="cuda", stem_conv=stem_checked, capture=False),
             os.path.join(work, "brats", "plain_stem"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_e, "infer", "val", f"{sn}.nii.gz"))
@@ -2931,7 +2991,7 @@ def phase10_missions(seed: int, smi: str, work: str, brats):
             snap, sec = entrance.main([
                 "train_fp", "--round", "2", "--config", config, "--data_dir",
                 data_dir, "--split_dir", split_dir, "--max_epoch", "4",
-                "--test_interval", "2"])
+                "--test_interval", "2", "--tune_serving", "off"])
         wall = time.perf_counter() - t0
         launches["train_fp"] = counted.counts
         for name in ("description.txt", "loss.txt", "seg_metric.txt",
@@ -2964,7 +3024,8 @@ def phase10_missions(seed: int, smi: str, work: str, brats):
         ckpt = os.path.join(snap, "state_0004.pkl")
         common = ["--qlvl_w", "4", "--qlvl_a", "4", "--round", "1",
                   "--config", os.path.join(HERE, "config", "brats_ptq.yaml"),
-                  "--data_dir", data_dir, "--split_dir", brats["split_dir"]]
+                  "--data_dir", data_dir, "--split_dir", brats["split_dir"],
+                  "--tune_serving", "off"]
         t0 = time.perf_counter()
         with _Launches() as counted:
             snap_c, sec = entrance.main([
@@ -3065,6 +3126,399 @@ def profile_stream(served, s2d_preds):
               flush=True)
 
 
+def _device_busy(fn):
+    """(wall ms, device busy ms, idle share, kernels seen) of one call of
+    ``fn`` under torch.profiler: busy is the union of the CUDA events'
+    intervals (kernels, copies, memsets, inside CUDA graphs too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    iv = [(e.time_range.start, e.time_range.end) for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(b - a for a, b in _union(iv)) / 1e3
+    return wall, busy, max(0.0, 1 - busy / wall), len(iv)
+
+
+def _rates(paths, vols, rounds=2):
+    """Volumes/s of each path over ``vols``, timed in turns in one call
+    (a, b, b, a per round), the median of the rounds: {name: vps}."""
+    names = list(paths)
+    got = {k: [] for k in names}
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for v in vols:
+                paths[name](v)
+            torch.cuda.synchronize()
+            got[name].append(len(vols) / (time.perf_counter() - t0))
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+LITS_PATCH, LITS_OVERLAP = (128, 128, 64), (16, 16, 16)  # the LiTS task's
+LITS_STREAM = 6  # phase 11 (g)'s volumes
+LITS_DEPTHS = (64, 256)  # the range of their depths, drawn from --seed
+
+
+def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
+            brats):
+    """The serving extras on the flagship: (a) the captured int8 float32
+    and s2d bf16 paths, (b) the column grid, (c) the autotuner, (d)
+    serving artifacts through the CLI, (e) an exported include_1x1 graph;
+    the captured path under (f) per-set scoring and (g) a LiTS stream of
+    varied depths.  Returns {path: {kernel: launches}}."""
+    from efficientq_tpu_torch import export as X
+    from efficientq_tpu_torch import nnir, ops
+    from efficientq_tpu_torch.cli import entrance
+    from efficientq_tpu_torch.eval import autotune
+    from efficientq_tpu_torch.eval.sliding import (
+        column_grid_plan, make_captured_volume_inferencer,
+        make_volume_inferencer, patch_grid)
+    from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.kernels import qmatmul as KM
+    from efficientq_tpu_torch.models import (build_uresq, min_input_divisor,
+                                             preset_config)
+    from efficientq_tpu_torch.ptq import to_int8_inference
+    from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
+    from efficientq_tpu_torch.ptq.tune import sweep_tail_alpha
+
+    dev = torch.device("cuda")
+    dgraph, variables = served["dgraph"], served["net"].variables
+    vols = [v.to(dev) for v in served["vols"]]
+    host = [v.numpy() for v in served["vols"]]
+    final = slice(-1, None)
+    kw = dict(patch_batch=N_BATCH, mode="quantized", heads=final,
+              hard_pred=True, multilabel=True)
+    n_patches = len(patch_grid(VOL_SHAPE, PATCH, OVERLAP))
+    forwards = -(-n_patches // N_BATCH)
+    launches = {}
+
+    # (a) the captured paths against phases 2 and 4's eager ones
+    cap = make_captured_volume_inferencer(dgraph, **kw)
+    with _Launches() as counted:
+        preds = [cap(variables, v, PATCH, OVERLAP) for v in vols]
+        torch.cuda.synchronize()
+    launches["captured_int8_f32"] = counted.counts
+    check(counted.counts["K1"] == 14 * 3 * forwards,
+          f"(a) captured int8: launches {counted.counts}, expected "
+          f"{14 * 3 * forwards} K1")
+    for i, (got, want) in enumerate(zip(preds, served["preds"])):
+        check(torch.equal(got, want), f"(a) captured int8: volume {i + 1} "
+              f"differs from phase 2's eager prediction")
+    s2d_cap = make_s2d_volume_inferencer(dgraph, variables, multilabel=True,
+                                         heads=final, device=dev)
+    with _Launches() as counted:
+        preds = [s2d_cap(None, v, PATCH, OVERLAP) for v in host]
+        torch.cuda.synchronize()
+    launches["captured_s2d_bf16"] = counted.counts
+    check(counted.counts["K2"] == 3 and counted.counts["K1"] == 42,
+          f"(a) captured s2d: launches {counted.counts}, expected 3 K2 and "
+          f"42 K1 (one forward a volume)")
+    for i, (got, want) in enumerate(zip(preds, s2d_preds)):
+        check(torch.equal(got, want), f"(a) captured s2d: volume {i + 1} "
+              f"differs from phase 4's eager prediction")
+    rates = _rates({
+        "int8 eager": lambda v: served["infer"](variables, v, PATCH,
+                                                OVERLAP),
+        "int8 captured": lambda v: cap(variables, v, PATCH, OVERLAP)},
+        vols[1:])
+    rates.update(_rates({
+        "s2d eager": lambda v: s2d_infer(None, v, PATCH, OVERLAP),
+        "s2d captured": lambda v: s2d_cap(None, v, PATCH, OVERLAP)},
+        host[1:]))
+    idle = {name: _device_busy(lambda: fn(vols[1]))
+            for name, fn in (("int8 eager", lambda v: served["infer"](
+                                  variables, v, PATCH, OVERLAP)),
+                             ("int8 captured", lambda v: cap(
+                                 variables, v, PATCH, OVERLAP)))}
+    print(f"[phase11] (a) on {smi}: the captured int8 float32 path equals "
+          f"phase 2's eager one on 3 volumes (launches "
+          f"{launches['captured_int8_f32']}), the captured s2d bf16 path "
+          f"phase 4's (launches {launches['captured_s2d_bf16']}); "
+          f"volumes/s over volumes 2-3 in turns, median of 2 rounds: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rates.items())
+          + "; one volume under the profiler, device busy of wall (idle "
+          "share, CUDA events seen): "
+          + ", ".join(f"{k} {b:.3f} of {w:.3f} ms ({i:.4f}, {n})"
+                      for k, (w, b, i, n) in idle.items()), flush=True)
+    del preds
+    torch.cuda.empty_cache()
+
+    # (b) the column grid on phase 2's volumes
+    div = min_input_divisor(preset_config("brats", quantize=True))[0]
+    depth, cpatch, cover = column_grid_plan(VOL_SHAPE, PATCH, OVERLAP, div)
+    n_cols = len(patch_grid((depth, *VOL_SHAPE[1:]), cpatch, cover))
+    ckw = dict(kw, patch_batch=n_cols, serve_grid="column", stride_div=div)
+    shapes = set()
+
+    def k1_checked(*a, **k):
+        y = K.qconv3x3_int8_ndhwc(*a, **k)
+        r = K.qconv3x3_int8_ndhwc_reference(*a, **k)
+        for g, w in zip(y if k.get("pool") else (y,),
+                        r if k.get("pool") else (r,)):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"(b) K1 != plain K1 at {tuple(a[0].shape)} -> "
+                  f"{a[1].shape[-1]}")
+        shapes.add((tuple(a[0].shape[1:4]), a[0].shape[-1], a[1].shape[-1]))
+        return y
+
+    checked = make_volume_inferencer(dgraph, conv3x3_int8=k1_checked, **ckw)(
+        variables, vols[0], PATCH, OVERLAP)
+    plain = make_volume_inferencer(
+        dgraph, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, **ckw)(
+        variables, vols[0], PATCH, OVERLAP)
+    col = make_captured_volume_inferencer(dgraph, **ckw)
+    with _Launches() as counted:
+        cpreds = [col(variables, v, PATCH, OVERLAP) for v in vols]
+        torch.cuda.synchronize()
+    launches["column_int8_f32"] = counted.counts
+    check(counted.counts["K1"] == 14 * 3,
+          f"(b) column: launches {counted.counts}, expected 14 K1 a volume "
+          f"(its {n_cols} columns in one forward)")
+    check(torch.equal(checked, plain) and torch.equal(cpreds[0], plain),
+          "(b) the column path differs from the same path on the plain K1")
+    agree = float((cpreds[0] == served["preds"][0]).float().mean())
+    crates = _rates({
+        "patch grid": lambda v: cap(variables, v, PATCH, OVERLAP),
+        "column grid": lambda v: col(variables, v, PATCH, OVERLAP)},
+        vols[1:])
+    print(f"[phase11] (b) on {smi}: column plan D {VOL_SHAPE[0]} -> "
+          f"{depth}, {n_cols} columns of {cpatch} (overlap {cover}) in one "
+          f"forward, {n_cols * depth * cpatch[1] * cpatch[2]} voxels of "
+          f"forward work against the patch grid's "
+          f"{n_patches * PATCH[0] * PATCH[1] * PATCH[2]}; K1 == plain K1 "
+          f"(torch.equal) at every conv of the column forward: "
+          f"{sorted(shapes)}; the column path equals the same path on the "
+          f"plain K1; launches {counted.counts}; volume 1 agrees with the "
+          f"patch grid on {agree:.8f} of {plain.numel()} voxel-classes "
+          f"(printed, not held: other context at the D edges, random "
+          f"weights); captured volumes/s over volumes 2-3 in turns: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in crates.items()),
+          flush=True)
+    del checked, plain, cpreds, col
+    torch.cuda.empty_cache()
+
+    # (c) the autotuner: a sweep, then a hit on its disk cache
+    saved = os.environ.get("EFFQ_TUNE_CACHE")
+    os.environ["EFFQ_TUNE_CACHE"] = os.path.join(work, "tune_phase11.json")
+    try:
+        autotune._MEM_CACHE.clear()
+        t0 = time.perf_counter()
+        pb = autotune.choose_patch_batch(dgraph, variables, vols[0], PATCH,
+                                         OVERLAP, mode="quantized",
+                                         heads=final, tune="auto")
+        sweep = time.perf_counter() - t0
+        autotune._MEM_CACHE.clear()
+        with _Launches() as counted:
+            t0 = time.perf_counter()
+            again = autotune.choose_patch_batch(
+                dgraph, variables, vols[0], PATCH, OVERLAP, mode="quantized",
+                heads=final, tune="auto")
+            hit = time.perf_counter() - t0
+        with open(os.environ["EFFQ_TUNE_CACHE"]) as f:
+            entries = len(json.load(f))
+    finally:
+        if saved is None:
+            os.environ.pop("EFFQ_TUNE_CACHE", None)
+        else:
+            os.environ["EFFQ_TUNE_CACHE"] = saved
+    check(pb in autotune._candidates(n_patches) and again == pb
+          and not any(counted.counts.values()) and entries == 1,
+          f"(c) autotuner: chose {pb}, then {again} with launches "
+          f"{counted.counts}; {entries} cache entries")
+    print(f"[phase11] (c) on {smi}: choose_patch_batch(tune='auto') swept "
+          f"{autotune._candidates(n_patches)} in {sweep:.4f} s and chose "
+          f"{pb}; the second call read the disk cache in {hit:.6f} s with no "
+          f"launch", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) artifacts through the CLI on phase 8's export
+    cwd = os.getcwd()
+    tmp = os.path.join(work, "brats")
+    os.chdir(tmp)
+    try:
+        base = ["infer", *brats["common"], "--save_nii", "--patch_batch",
+                "8"]
+        seconds = {}
+        for name, flags, zipname in (
+                ("int8", ["--deploy", "int8"], "serving_artifact.zip"),
+                ("s2d", ["--deploy", "mixed", "--serve_stem", "s2d",
+                         "--serve_dtype", "bf16"],
+                 "serving_artifact_s2d.zip")):
+            t0 = time.perf_counter()
+            snap, sec = entrance.main(base + flags + [
+                "--pretrain", brats["export"], "--export_artifact",
+                "--suffix", f"export_{name}"])
+            seconds[name] = (sec["export_artifact"],
+                             time.perf_counter() - t0)
+            path = os.path.join(snap, zipname)
+            check(os.path.isfile(path), f"(d) {zipname} not written")
+            with _Launches() as counted:
+                served_snap, _ = entrance.main(base + [
+                    "--artifact", path, "--suffix", f"artifact_{name}"])
+            launches[f"artifact_{name}"] = counted.counts
+            want = {"K1": 28, "K2": 2 if name == "s2d" else 0}
+            check(all(counted.counts[k] == n for k, n in want.items()),
+                  f"(d) artifact {name}: launches {counted.counts}, "
+                  f"expected {want} (one forward a volume, val and test)")
+            ref = brats["snap_int8" if name == "int8" else "snap_s2d"]
+            for split in ("val", "test"):
+                for f in sorted(os.listdir(os.path.join(ref, "infer",
+                                                        split))):
+                    a = _seg(os.path.join(served_snap, "infer", split, f))
+                    b = _seg(os.path.join(ref, "infer", split, f))
+                    same = float(np.mean(a == b))
+                    print(f"[phase11] (d) infer --artifact {zipname}: "
+                          f"{split} {f} agrees with phase 8's "
+                          f"{'(c)' if name == 'int8' else '(d)'} on "
+                          f"{same:.8f} of {a.size} voxels", flush=True)
+                    if name == "int8":
+                        check(np.array_equal(a, b), f"(d) artifact int8: "
+                              f"{split} {f} != phase 8 (c)")
+                    else:
+                        check(same >= AGREE_S2D, f"(d) artifact s2d: "
+                              f"{split} {f} {same} < {AGREE_S2D}")
+    finally:
+        os.chdir(cwd)
+    print(f"[phase11] (d) on {smi}: export seconds (and the whole infer "
+          f"--export_artifact run): "
+          + ", ".join(f"{k} {e:.4f} ({w:.4f})"
+                      for k, (e, w) in seconds.items())
+          + f"; artifact runs' launches int8 {launches['artifact_int8']}, "
+          f"s2d {launches['artifact_s2d']}; the int8 artifact's predictions "
+          f"equal phase 8 (c)'s, the s2d artifact's (float32 head, as the "
+          f"JAX package's) agree with phase 8 (d)'s (bfloat16 head) on >= "
+          f"{AGREE_S2D}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (e) one patch batch of the exported include_1x1 graph (phase 6 (a))
+    pg = KM.to_pallas_inference(dgraph, include_1x1=True)
+    t0 = time.perf_counter()
+    ep, batch = X.export_patch_model(pg, variables, PATCH, 4, patch_batch=2,
+                                     device=dev)
+    secs = time.perf_counter() - t0
+    x = vols[0][:, :PATCH[0], :PATCH[1], :PATCH[2]].expand(
+        2, -1, -1, -1, -1).contiguous()
+    module = ep.module()
+    # as nnir.apply runs it: float32 convs exact (TF32 off)
+    with torch.inference_mode(), ops.exact_f32():
+        with _Launches() as counted:
+            got = module(x)
+            torch.cuda.synchronize()
+        want = nnir.apply(pg, variables, x, mode="quantized", heads=final)
+    launches["export_include_1x1"] = counted.counts
+    check(counted.counts["K1"] == 14 and counted.counts["K3"] == 6
+          and torch.equal(got, want),
+          f"(e) exported include_1x1: launches {counted.counts}, equal "
+          f"{torch.equal(got, want)}")
+    print(f"[phase11] (e) on {smi}: the include_1x1 int8 graph exported "
+          f"(batch {batch}) in {secs:.4f} s; one batch of 2 patches equals "
+          f"its eager forward (torch.equal), launches {counted.counts}",
+          flush=True)
+    del module, ep, got, want, cap, s2d_cap
+    torch.cuda.empty_cache()
+
+    # (f) per-set scoring: the tail clip sweep's five variable sets, each
+    # scored on one calibration-sized crop through one inferencer, as the
+    # ptq mission's tuning scorer does, eager against captured in turns
+    crop = vols[0][:, 13:141, 24:216, 24:216].contiguous()
+    skw = dict(kw, patch_batch=2)
+    n_chunks = -(-len(patch_grid(tuple(crop.shape[1:4]), PATCH,
+                                 OVERLAP)) // 2)
+    per_set = {"eager": [], "captured": []}
+    scores, captures = {}, 0
+    for name in ("eager", "captured", "captured", "eager"):
+        maker = (make_captured_volume_inferencer if name == "captured"
+                 else make_volume_inferencer)
+        score_infer = maker(dgraph, **skw)
+
+        def score(v):  # a number read back, as a dice score is
+            return float(score_infer(v, crop, PATCH, OVERLAP).float().mean())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = sweep_tail_alpha(dgraph, variables, score)
+        check(len(info["scores"]) == 5, f"(f) sweep scored {info['scores']}")
+        per_set[name].append((time.perf_counter() - t0) / 5)
+        scores.setdefault(name, info["scores"])
+        if name == "captured":
+            captures = score_infer.captured.captures
+    check(scores["eager"] == scores["captured"] and captures == 5,
+          f"(f) per-set scoring: eager {scores['eager']}, captured "
+          f"{scores['captured']}, {captures} captures (expected 5)")
+    print(f"[phase11] (f) on {smi}: the tail clip sweep's 5 variable sets "
+          f"each scored on a {tuple(crop.shape[1:4])} crop ({n_chunks} "
+          f"chunks of 2 patches) through one inferencer, equal scores; "
+          f"seconds per set, eager {per_set['eager']}, captured "
+          f"{per_set['captured']} (a pass each, in turns; {captures} "
+          f"captures a captured pass)", flush=True)
+    del crop, score_infer
+    torch.cuda.empty_cache()
+
+    # (g) a LiTS stream of varied depths on the LiTS preset (random
+    # weights): captured against eager
+    lg, lv = to_int8_inference(*post_ptq_weights(
+        build_uresq(preset_config("lits", quantize=True)), seed + 11))
+    lv = nnir.to_device(lv, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    depths = [int(z) for z in np.random.default_rng(seed + 11).integers(
+        LITS_DEPTHS[0], LITS_DEPTHS[1] + 1, LITS_STREAM)]
+    lvols = [torch.randn((1, *LITS_VOL[:2], z, 1), generator=gen,
+                         device=dev) for z in depths]
+    lkw = dict(patch_batch=8, mode="quantized", heads=final, hard_pred=True,
+               multilabel=False)
+    grids = [len(patch_grid(tuple(v.shape[1:4]), LITS_PATCH, LITS_OVERLAP))
+             for v in lvols]
+    eager_l = make_volume_inferencer(lg, **lkw)
+    cap_l = make_captured_volume_inferencer(lg, **lkw)
+    passes = {}
+    for name, fn in (("eager", eager_l), ("captured", cap_l)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _Launches() as counted:
+            preds = [fn(lv, v, LITS_PATCH, LITS_OVERLAP) for v in lvols]
+            torch.cuda.synchronize()
+        # reserved: a graph's private pool is reserved, not allocated
+        passes[name] = (preds, counted.counts,
+                        torch.cuda.max_memory_allocated() / 2 ** 30,
+                        torch.cuda.max_memory_reserved() / 2 ** 30)
+    launches["captured_lits_varied_depth"] = passes["captured"][1]
+    check(passes["captured"][1] == passes["eager"][1]
+          and all(torch.equal(a, b) for a, b in zip(passes["eager"][0],
+                                                    passes["captured"][0]))
+          and cap_l.captured.captures == 1,
+          f"(g) LiTS stream: launches eager {passes['eager'][1]}, captured "
+          f"{passes['captured'][1]}; {cap_l.captured.captures} captures")
+    lrates = _rates({
+        "eager": lambda v: eager_l(lv, v, LITS_PATCH, LITS_OVERLAP),
+        "captured": lambda v: cap_l(lv, v, LITS_PATCH, LITS_OVERLAP)},
+        lvols)
+    print(f"[phase11] (g) on {smi}: a LiTS stream of {LITS_STREAM} volumes "
+          f"{LITS_VOL[:2]} x depths {depths} (seed {seed + 11}; patches "
+          f"{grids}, chunks of 8, ragged last chunks "
+          f"{[g % 8 for g in grids]}) on the LiTS preset's int8 deployment: "
+          f"captured equals eager on every volume, launches "
+          f"{passes['captured'][1]} (the eager pass's), "
+          f"{cap_l.captured.captures} capture in all (the ragged chunks ran "
+          f"eagerly); peak device memory allocated (reserved) eager "
+          f"{passes['eager'][2]:.4f} ({passes['eager'][3]:.4f}) GiB, "
+          f"captured {passes['captured'][2]:.4f} "
+          f"({passes['captured'][3]:.4f}) GiB; volumes/s over the stream in "
+          f"turns, median of 2 rounds: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in lrates.items()),
+          flush=True)
+    del lvols, passes, eager_l, cap_l, lv
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3074,6 +3528,9 @@ def main():
     ap.add_argument("--ab", action="store_true",
                     help="run phases 0, 2, 4 and 7 alone, with no result "
                     "line (to compare two trees in one call)")
+    ap.add_argument("--serving-extras", action="store_true",
+                    help="run phases 0, 2, 4, 8 and 11 alone, with no "
+                    "result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
@@ -3084,21 +3541,39 @@ def main():
         phase7(args.seed, smi, served["vols"][0], served["subjects"][0][1],
                torch.device("cuda"))
         return
+    if args.serving_extras:
+        _, served = phase2(args.seed)
+        _, _, s2d_infer, s2d_preds = phase4(args.seed, served)
+        work = tempfile.mkdtemp(prefix="effq_smoke_")
+        os.environ["EFFQ_TUNE_CACHE"] = os.path.join(work, "tune.json")
+        try:
+            _, brats = phase8(args.seed, smi, served, s2d_preds, work)
+            phase11(args.seed, smi, served, s2d_infer, s2d_preds, work,
+                    brats)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return
     max_err, ms, plain_ms = phase1(args.seed)
     lits = k1_lits(args.seed)
     k1_f32, served = phase2(args.seed)
     p3 = phase3(args.seed)
+    # phase 4 runs the s2d path eagerly: phase 11 (a) holds the captured
+    # path against it
     k1_s2d, k2, s2d_infer, s2d_preds = phase4(args.seed, served)
     p5 = phase5(args.seed)
     paths, k3_infer, mixed_infer = phase6(args.seed, served, s2d_preds)
     calibrated = phase7(args.seed, smi, served["vols"][0],
                         served["subjects"][0][1], torch.device("cuda"))
-    # phases 8 to 10 write their datasets here; removed at the end
+    # phases 8 to 11 write their datasets (and the autotuner its cache)
+    # here; removed at the end
     work = tempfile.mkdtemp(prefix="effq_smoke_")
+    os.environ["EFFQ_TUNE_CACHE"] = os.path.join(work, "tune.json")
     try:
         missions, brats = phase8(args.seed, smi, served, s2d_preds, work)
         extensions = phase9(args.seed, smi, work, brats)
         training = phase10(args.seed, smi, work, brats)
+        extras = phase11(args.seed, smi, served, s2d_infer, s2d_preds, work,
+                         brats)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if args.profile:
@@ -3118,7 +3593,8 @@ def main():
             if n:
                 by_path[kernel][names[path]] = n
     for path, counts in [*calibrated.items(), *missions.items(),
-                         *extensions.items(), *training.items()]:
+                         *extensions.items(), *training.items(),
+                         *extras.items()]:
         for kernel, n in counts.items():
             if n:
                 by_path[kernel][path] = n

@@ -302,9 +302,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--deploy", default="none",
                         choices=("none", "int8", "mixed"),
                         help="infer-mission serving graph (ptq/deploy.py)")
-    # ours: portable serving artifacts (export.py) — the final-head patch
-    # forward with weights baked in, serialized as versioned StableHLO via
-    # jax.export.  The reference's deployment artifact is a weight file
+    # ours: serving artifacts (export.py) — the final-head patch forward
+    # with weights baked in, a torch.export program whose K1-K4 are the
+    # registered effq:: operators.  The reference's deployment artifact is a weight file
     # that needs the full model code + exact flags to serve
     # (src/models/PTQConv.py:128-143); an artifact serves with neither.
     # ours: host-s2d serving — the init conv as the fused space-to-depth
@@ -326,7 +326,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "shallower volumes pad up at serve time)")
     parser.add_argument("--export_artifact", action="store_true",
                         help="ptq/infer: also write serving_artifact.zip "
-                             "(jax.export StableHLO of the final-head "
+                             "(torch.export program of the final-head "
                              "patch forward, weights baked in)")
     parser.add_argument("--artifact", type=str, default=None,
                         help="infer: serve from a serving_artifact.zip — "

@@ -23,12 +23,16 @@ calibrated net under ``<snap>/qat/`` (``qat_loss.txt``) before the export.
 A fresh ``train_fp`` starts from ``nnir.init``'s NumPy-seeded weights, not
 from the JAX package's ``PRNGKey(0)`` ones.
 
-Flags of branches that are not ported raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item: ``--artifact``, ``--export_artifact``,
-``--serve_grid column`` and ``--tune_serving force`` (item 8);
-``--dp_devices``, ``--mesh_shape``, ``--distributed`` and ``--fsdp``
-(item 9).  ``--ckpt_backend orbax`` raises a ``ValueError``: Orbax is the
-JAX package's checkpoint format, and the port writes pickles.
+The serving options are the JAX mission's: ``--serve_grid column``
+(full-depth columns), ``--tune_serving {auto,force,off}`` (the patch-batch
+autotuner, ``eval/autotune.py``), ``--export_artifact`` (with
+``--export_column_depth``; ``serving_artifact.zip`` and, with
+``--serve_stem s2d``, ``serving_artifact_s2d.zip``, ``export.py``) and
+``infer --artifact``.  The multi-device flags raise
+``NotImplementedError`` naming their ROADMAP queue 1 item: ``--dp_devices``,
+``--mesh_shape``, ``--distributed`` and ``--fsdp`` (item 9).
+``--ckpt_backend orbax`` raises a ``ValueError``: Orbax is the JAX
+package's checkpoint format, and the port writes pickles.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ import torch
 from .. import nnir
 from ..data.transforms import center_crop
 from ..eval.validate import validate_seg
-from ..models import build_uresq, torch_io, validate_spatial_shape
+from ..models import (build_uresq, min_input_divisor, torch_io,
+                      validate_spatial_shape)
 from ..ptq import run_ptq, run_ptq_mixed, tail_sensitive_convs
 from ..ptq.select import select_calibration, to_ndhwc
 from ..quant import pack_int_weight
@@ -74,10 +79,6 @@ def _refuse(args, flags):
 
 
 _SERVING = [
-    ("--artifact", lambda a: a.artifact, 8),
-    ("--export_artifact", lambda a: a.export_artifact, 8),
-    ("--serve_grid column", lambda a: a.serve_grid == "column", 8),
-    ("--tune_serving force", lambda a: a.tune_serving == "force", 8),
     ("--dp_devices", lambda a: a.dp_devices, 9),
     ("--mesh_shape", lambda a: a.mesh_shape, 9),
     ("--distributed", lambda a: a.distributed, 9),
@@ -91,16 +92,25 @@ _TRAINING = [
 
 
 def _final_test(graph, variables, hub, num_mo, n_class, save_dir, args,
-                device, mode="fp"):
+                device, mode="fp", artifact=None, stride_div=None):
     """Per-split metric files, then the label-free true-test export
-    (the reference's trainer.py:253-307)."""
+    (the reference's trainer.py:253-307).  With ``artifact`` the forward
+    runs from the serving artifact's program (``export.py``) and
+    graph / variables may be None.  ``stride_div``: the net's D-stride
+    multiple (``min_input_divisor``), which --serve_grid column needs."""
     from ..eval.validate import true_test_inference
 
     os.makedirs(save_dir, exist_ok=True)
+    if args.serve_grid == "column" and stride_div is None:
+        raise ValueError("--serve_grid column is not available for this "
+                         "mission path (no model config to derive the "
+                         "stride multiple from)")
     kw = dict(mode=mode, patch_batch=args.patch_batch or "auto",
               compute_dtype=(torch.bfloat16 if args.serve_dtype == "bf16"
                              else None),
-              serve_stem=args.serve_stem, device=device)
+              serve_stem=args.serve_stem, device=device, artifact=artifact,
+              serve_grid=args.serve_grid, stride_div=stride_div,
+              tune_serving=args.tune_serving)
     for split, loader, sns in (("val", hub.valloader, hub.val_sn),
                                ("test", hub.testloader, hub.test_sn)):
         if loader is None:
@@ -197,7 +207,8 @@ def train_fp(args):
             if P.isfile(path):
                 trainer.load_pretrain(path)
                 _final_test(graph, trainer.variables, hub, n_mo, nClass,
-                            P.join(snap_root, folder), args, device)
+                            P.join(snap_root, folder), args, device,
+                            stride_div=min_input_divisor(cfg)[0])
     seconds["final_test"] = time.perf_counter() - t0
     print("train_fp seconds: " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in seconds.items()))
@@ -272,9 +283,11 @@ def get_calibration_candidates(args, hub):
 def _tune_scorer(graph, tune_pairs, hub, num_mo, n_class, device):
     """Quantized-dice scorer on the labeled calibration/train volumes (the
     validation split is never touched), shared by --tail_alpha_sweep and
-    --tune_act; one eager inferencer for every call.  The score geometry is
-    clamped to the calibration crop, which can be smaller than the task's
-    sliding patch."""
+    --tune_act; one eager inferencer for every call, also on a card: a
+    variable set scores one or two volumes, too few replays to repay a
+    CUDA graph's capture (PERF.md, ``chip_smoke.py`` phase 11 (f)).  The
+    score geometry is clamped to the calibration crop, which can be
+    smaller than the task's sliding patch."""
     from ..eval.sliding import make_volume_inferencer
     from ..ops import triple
 
@@ -361,7 +374,7 @@ def ptq(args):
 
         fg, fv = fold_bn(graph, variables)
         _final_test(fg, fv, hub, n_mo, nClass, P.join(snap_dir, "fp"), args,
-                    device)
+                    device, stride_div=min_input_divisor(cfg)[0])
 
     ptq_kw = dict(task=args.task,
                   init_stride=definer.parse_triple(args.init_stride),
@@ -525,12 +538,18 @@ def ptq(args):
     t0 = time.perf_counter()
     if not args.no_test:
         _final_test(fgraph, qvars, hub, n_mo, nClass, P.join(snap_dir, "ptq"),
-                    args, device, mode="quantized")
+                    args, device, mode="quantized",
+                    stride_div=min_input_divisor(cfg)[0])
     seconds["final_test"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     _save_quantized(fgraph, qvars, snap_dir)
     seconds["exports"] = exports + time.perf_counter() - t0
+    if args.export_artifact:
+        t0 = time.perf_counter()
+        _save_artifact(fgraph, qvars, hub, nMod, nClass, snap_dir, args,
+                       device)
+        seconds["export_artifact"] = time.perf_counter() - t0
     print("ptq seconds: " + ", ".join(f"{k} {v:.4f}"
                                       for k, v in seconds.items()))
     return snap_dir, seconds
@@ -543,19 +562,30 @@ def infer(args):
     int8|mixed`` serves through the int8 deployment rewrite (K1 for the
     interior 3^3 convs), ``--serve_stem s2d`` through the space-to-depth
     stem (K2) at bfloat16.  Model and quantization flags must match the
-    ptq run that produced the export.  Returns the snapshot directory and
-    the seconds of the final test."""
+    ptq run that produced the export.
+
+    ``--artifact serving_artifact.zip`` serves from a serving artifact
+    (``export.py``) instead: no --pretrain and no model or quantization
+    flags, the artifact is the computation.  ``--export_artifact`` writes
+    such an artifact of this run's serving graph (with any --deploy
+    rewrite; its K1-K4 as the registered operators).  Returns the snapshot
+    directory and the seconds of the final test (and of the export)."""
     from ..ptq import apply_qlvl_overrides, fold_bn
 
     _refuse(args, _SERVING)
     device = select_device(args)
     hub, data_info, nMod, nClass, patch_size = definer.get_data_cube(args)
+
+    if args.artifact:
+        return _serve_artifact(args, hub, nMod, nClass, device)
+
     cfg, model_info, n_mo = definer.get_model_config(args)
     validate_spatial_shape(patch_size, cfg, "--patch_size")
     graph = build_uresq(cfg)
     variables = nnir.init(graph, 0, device="cpu")
     if not args.pretrain:
-        raise ValueError("infer requires --pretrain (a PTQ export)")
+        raise ValueError("infer requires --pretrain (a PTQ export) or "
+                         "--artifact (a serving artifact)")
 
     qinfo = definer.qinfo_string(args)
     snap_dir = definer.make_snapshot_dir(args, "exp_infer", model_info,
@@ -579,10 +609,152 @@ def infer(args):
         n_int8 = sum(1 for node in fgraph.nodes if node.attrs.get("int8"))
         print(f"deploy={args.deploy}: {n_int8} convs on the int8 path")
 
+    seconds = {}
+    if args.export_artifact:
+        t0 = time.perf_counter()
+        _save_artifact(fgraph, fvars, hub, nMod, nClass, snap_dir, args,
+                       device)
+        seconds["export_artifact"] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
     _final_test(fgraph, fvars, hub, n_mo, nClass, P.join(snap_dir, "infer"),
-                args, device, mode="quantized")
+                args, device, mode="quantized",
+                stride_div=min_input_divisor(cfg)[0])
+    seconds["final_test"] = time.perf_counter() - t0
+    return snap_dir, seconds
+
+
+def _serve_artifact(args, hub, n_mod, n_class, device):
+    """``infer --artifact``: the artifact's platform, patch and manifest
+    gates, then the final test from its program."""
+    from ..export import load_serving_artifact
+    from ..ops import triple
+
+    art = load_serving_artifact(args.artifact)
+    art.check_platform(device)
+    # the spatial dims are static in the exported program (only the batch
+    # may be symbolic): the serving patch must be the export's.  A column
+    # artifact pins its own D (the export-time column depth); only H and W
+    # must match the task patch
+    column = art.manifest.get("serve_grid") == "column"
+    want = art.patch_size[1:] if column else art.patch_size
+    got = tuple(triple(hub.slide_patch_size))
+    if (got[1:] if column else got) != tuple(want):
+        raise ValueError(f"--patch_size {got} does not match the "
+                         f"artifact's {art.patch_size}")
+    # the manifest knows what it serves: a task, modality or class mismatch
+    # would otherwise surface as a shape error deep in the program (or
+    # score against the wrong task's labels)
+    for key, got in (("task", args.task), ("n_mod", int(n_mod)),
+                     ("n_class", int(n_class))):
+        want = art.manifest.get(key)
+        if want is not None and want != got:
+            raise ValueError(f"artifact was exported for {key}={want!r}; "
+                             f"this run is {key}={got!r} — serve it with "
+                             f"the matching task flags")
+    snap_dir = definer.make_snapshot_dir(args, "exp_infer", "artifact",
+                                         "ARTIFACT")
+    print(f"serving from artifact {args.artifact} (batch={art.batch}, "
+          f"platforms={art.platforms})")
+    t0 = time.perf_counter()
+    _final_test(None, None, hub, 1, n_class, P.join(snap_dir, "infer"), args,
+                device, mode="quantized", artifact=art)
     return snap_dir, {"final_test": time.perf_counter() - t0}
+
+
+def _save_artifact(graph, variables, hub, n_mod, n_class, snap_dir, args,
+                   device):
+    """Serialize the final-head serving forward next to the weight exports
+    (``export.py``): the manifest and the exported program in one zip,
+    exported on ``device``; with ``--serve_stem s2d`` also the s2d
+    artifact beside it."""
+    from .. import export as export_mod
+    from ..eval.sliding import column_grid_plan
+    from ..ops import triple
+
+    pb = args.patch_batch or 0
+    patch_size = tuple(triple(hub.slide_patch_size))
+    overlap = tuple(triple(hub.slide_overlap))
+    column_depth = None
+    if args.serve_grid == "column":
+        # the column's D is the whole (stride-padded) volume depth, which
+        # the data decides, so a column artifact pins it at export
+        # (--export_column_depth, e.g. 155 for BraTS volumes): shallower
+        # volumes pad up at serve time, deeper ones need a new artifact
+        depth = args.export_column_depth or 0
+        if depth <= 0:
+            raise ValueError("--export_artifact with --serve_grid column "
+                             "needs --export_column_depth (the deepest "
+                             "volume this artifact will serve)")
+        cfg, _, _ = definer.get_model_config(args)
+        column_depth, patch_size, overlap = column_grid_plan(
+            (depth,) + patch_size[1:], patch_size, overlap,
+            min_input_divisor(cfg)[0])
+    exported, batch = export_mod.export_patch_model(
+        graph, variables, patch_size, n_mod, mode="quantized",
+        patch_batch=pb if pb > 0 else 4,
+        compute_dtype=torch.bfloat16 if args.serve_dtype == "bf16" else None,
+        device=device)
+    path = P.join(snap_dir, "serving_artifact.zip")
+    export_mod.save_serving_artifact(path, exported, {
+        "task": args.task,
+        "patch_size": list(patch_size),
+        "overlap": list(overlap),
+        "serve_grid": args.serve_grid,
+        **({"column_depth": int(column_depth)}
+           if column_depth is not None else {}),
+        "n_mod": int(n_mod),
+        "n_class": int(n_class),
+        "batch": batch,
+        "deploy": args.deploy,
+        "serve_dtype": args.serve_dtype,
+        "multilabel_fusetype": hub.multilabel_fusetype,
+    })
+    print(f"serving artifact -> {path} (batch={batch}, "
+          f"platforms={[torch.device(device).type]})")
+
+    if args.serve_stem == "s2d" and args.serve_grid == "patch":
+        # the s2d serving mode as an artifact too: the exported program is
+        # the s2d-stem forward with the channels-first tail; the transform
+        # is package code on the serving side, driven by the manifest.  The
+        # direct artifact above stays beside it for odd geometries
+        g_dep, v_dep = graph, variables
+        if not any(n.attrs.get("int8") for n in graph.nodes):
+            # the ptq mission hands over the undeployed graph; the s2d stem
+            # rewrite needs the int8 K1 consumers, so apply the mixed
+            # deployment (int8 with --deploy int8)
+            from ..ptq.deploy import to_int8_inference
+
+            only = None if args.deploy == "int8" else {(3, 3, 3)}
+            g_dep, v_dep = to_int8_inference(graph, variables,
+                                             only_kernel_sizes=only)
+        res = export_mod.export_s2d_model(
+            g_dep, v_dep, patch_size, n_mod,
+            # 8 = the BraTS whole-grid forward; ragged grids zero-pad up
+            patch_batch=pb if pb > 0 else 8, device=device)
+        if res is None:
+            print("serve_stem=s2d artifact skipped: no eligible stem "
+                  "(need --deploy int8|mixed)")
+        else:
+            exported_s, batch_s, stem_attrs = res
+            path_s = P.join(snap_dir, "serving_artifact_s2d.zip")
+            export_mod.save_serving_artifact(path_s, exported_s, {
+                "task": args.task,
+                "patch_size": list(patch_size),
+                "overlap": list(overlap),
+                "serve_stem": "s2d",
+                "channels_first": True,
+                "stem_geometry": stem_attrs,
+                "n_mod": int(n_mod),
+                "n_class": int(n_class),
+                "batch": batch_s,
+                "deploy": args.deploy,
+                "serve_dtype": "bf16",
+                "multilabel_fusetype": hub.multilabel_fusetype,
+            })
+            print(f"s2d serving artifact -> {path_s} (batch={batch_s}, "
+                  f"platforms={[torch.device(device).type]})")
+    return path
 
 
 def _plot_loss_curves(report, snap_dir):

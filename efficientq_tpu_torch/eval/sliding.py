@@ -3,15 +3,22 @@
 Counterpart of the JAX package's ``eval/sliding.py``: the same patch grid
 (the reference's ``l[0 : d-p : p-o] + [d-p]`` rule, duplicate terminal start
 included), the same left-to-right patch sum, and the same visit-count
-normalisation.  It runs eagerly; ``make_volume_inferencer`` takes the place
-of ``make_jitted_volume_inferencer``.
+normalisation.  ``make_volume_inferencer`` runs eagerly;
+``make_captured_volume_inferencer`` takes the place of the JAX package's
+``make_jitted_volume_inferencer`` on a card: it replays each chunk's patch
+forward from a CUDA graph, so the host's per-kernel launch time is paid
+once per capture instead of once per call.  ``column_grid_plan`` and
+``serve_grid="column"`` serve full-depth columns in place of the patch
+grid's cubes.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import nnir, ops
 
@@ -76,9 +83,17 @@ def stitch_patches(preds: torch.Tensor, starts, vol_shape,
                                         slice(k, k + pw))] += preds[idx]
     if not normalize:
         return canvas
-    counter = torch.from_numpy(visit_counter(starts, (pd, ph, pw), vol_shape))
+    counter = _counter(tuple(starts), (pd, ph, pw), tuple(vol_shape),
+                       canvas.device)
     trailing = (1,) * (canvas.dim() - lead - 3)
-    return canvas / counter.to(canvas.device).reshape(*vol_shape, *trailing)
+    return canvas / counter.reshape(*vol_shape, *trailing)
+
+
+@functools.lru_cache(maxsize=8)
+def _counter(starts, patch_size, vol_shape, device) -> torch.Tensor:
+    """``visit_counter`` on ``device``, uploaded once per geometry."""
+    return torch.from_numpy(visit_counter(starts, patch_size,
+                                          vol_shape)).to(device)
 
 
 def sliding_window_inference(model_fn: Callable, image: torch.Tensor,
@@ -123,13 +138,63 @@ def sliding_window_inference(model_fn: Callable, image: torch.Tensor,
                           channels_first=channels_first, normalize=normalize)
 
 
+def column_grid_plan(vol_shape, patch_size, overlap, stride_div):
+    """Full-depth column serving plan: (padded D, column patch, overlap).
+
+    D pads up to the net's stride multiple ``stride_div``
+    (``models.uresq.min_input_divisor``'s D entry) and each column spans
+    it whole, with no D overlap; H and W keep the reference's patch and
+    grid rule.  On a BraTS volume (155 x 240 x 240, 128^3 patches, overlap
+    16) that is 4 columns of 160 x 128 x 128 in place of 8 cubes.  Not for
+    tasks of unbounded depth: a column's activations grow with it."""
+    d = vol_shape[0]
+    pd = -(-d // stride_div) * stride_div
+    patch_size = ops.triple(patch_size)
+    overlap = ops.triple(overlap)
+    return pd, (pd, patch_size[1], patch_size[2]), (0, overlap[1], overlap[2])
+
+
+def _check_grid(serve_grid, stride_div):
+    if serve_grid not in ("patch", "column"):
+        raise ValueError(f"unknown serve_grid {serve_grid!r}")
+    if serve_grid == "column" and not stride_div:
+        raise ValueError("serve_grid='column' needs stride_div "
+                         "(models.uresq.min_input_divisor)")
+
+
+def serve_volume(model_fn: Callable, image: torch.Tensor, patch_size,
+                 overlap, patch_batch: int, *, hard_pred: bool = False,
+                 multilabel: bool = False, serve_grid: str = "patch",
+                 stride_div=None) -> torch.Tensor:
+    """One volume through ``model_fn`` on the patch grid, or with
+    ``serve_grid="column"`` on full-depth columns (``column_grid_plan``:
+    the volume zero-padded in D, the pad cropped off after the stitch),
+    then the hard prediction (see ``make_volume_inferencer``)."""
+    d = image.shape[1]
+    if serve_grid == "column":
+        pd, patch_size, overlap = column_grid_plan(
+            image.shape[1:4], patch_size, overlap, stride_div)
+        if pd != d:
+            image = F.pad(image, (0, 0, 0, 0, 0, 0, 0, pd - d))
+    # hard predictions are invariant to the overlap-average division (a
+    # positive per-voxel count shared by all classes): skip it
+    out = sliding_window_inference(model_fn, image, patch_size, overlap,
+                                   patch_batch, normalize=not hard_pred)
+    out = out[:, :, :d]  # the column pad (a no-op on the patch grid)
+    if hard_pred:
+        out = ((out >= 0) if multilabel
+               else torch.argmax(out, dim=-1)).to(torch.uint8)
+    return out
+
+
 def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
                            mode: str = "fp", heads=None,
                            hard_pred: bool = False, multilabel: bool = False,
                            conv3x3_int8: Callable = None,
                            compute_dtype=None, int8_matmul: Callable = None,
-                           qact_matmul: Callable = None):
-    """Returns infer(variables, image, patch_size, overlap).
+                           qact_matmul: Callable = None,
+                           serve_grid: str = "patch", stride_div=None):
+    """Returns infer(variables, image, patch_size, overlap), eager.
 
     ``heads``: the output heads to compute (e.g. ``slice(-1, None)`` for
     final-head-only serving; the aux heads are then never evaluated).
@@ -141,25 +206,191 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
     ``nnir.eval_node``).  ``compute_dtype``: see
     ``nnir.apply``; with hard predictions the heads stay in it through the
     stitch and the decision (the canvas traffic halves), else the logits
-    come back as float32."""
-    keep_hd = bool(hard_pred and compute_dtype is not None)
+    come back as float32.  ``serve_grid="column"``: full-depth column
+    serving (``column_grid_plan``), which needs ``stride_div``; the
+    predictions cover the original volume."""
+    _check_grid(serve_grid, stride_div)
+    forward = _patch_forward(graph, mode, heads, hard_pred, compute_dtype,
+                             conv3x3_int8, int8_matmul, qact_matmul)
 
     def infer(variables, image, patch_size, overlap):
-        def model_fn(xb):
-            return nnir.apply(graph, variables, xb, mode=mode, heads=heads,
-                              conv3x3_int8=conv3x3_int8,
-                              int8_matmul=int8_matmul,
-                              qact_matmul=qact_matmul,
-                              compute_dtype=compute_dtype,
-                              keep_head_dtype=keep_hd)
-
         with torch.inference_mode():
-            out = sliding_window_inference(model_fn, image, patch_size,
-                                           overlap, patch_batch,
-                                           normalize=not hard_pred)
-            if hard_pred:
-                out = ((out >= 0) if multilabel
-                       else torch.argmax(out, dim=-1)).to(torch.uint8)
-        return out
+            return serve_volume(lambda xb: forward(variables, xb), image,
+                                patch_size, overlap, patch_batch,
+                                hard_pred=hard_pred, multilabel=multilabel,
+                                serve_grid=serve_grid, stride_div=stride_div)
 
     return infer
+
+
+def _patch_forward(graph, mode, heads, hard_pred, compute_dtype,
+                   conv3x3_int8, int8_matmul, qact_matmul):
+    """forward(variables, xb): ``nnir.apply`` of one patch chunk."""
+    keep_hd = bool(hard_pred and compute_dtype is not None)
+
+    def forward(variables, xb):
+        return nnir.apply(graph, variables, xb, mode=mode, heads=heads,
+                          conv3x3_int8=conv3x3_int8, int8_matmul=int8_matmul,
+                          qact_matmul=qact_matmul,
+                          compute_dtype=compute_dtype,
+                          keep_head_dtype=keep_hd)
+
+    return forward
+
+
+def make_captured_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
+                                    mode: str = "fp", heads=None,
+                                    hard_pred: bool = False,
+                                    multilabel: bool = False,
+                                    conv3x3_int8: Callable = None,
+                                    compute_dtype=None,
+                                    int8_matmul: Callable = None,
+                                    qact_matmul: Callable = None,
+                                    serve_grid: str = "patch",
+                                    stride_div=None):
+    """``make_volume_inferencer`` with the patch forward replayed from CUDA
+    graphs (``CapturedForward``): the counterpart of the JAX package's
+    jitted volume inferencer, with the same arguments and results.  The
+    patch extraction and the stitch stay eager; the forward of a full
+    chunk of ``patch_batch`` patches is captured once it comes twice in a
+    row, and a ragged last chunk runs eagerly (``CapturedForward``).  A
+    graph is replayed only on the variable tensors it was captured with,
+    unchanged; a new set, or one changed in place, is captured again.
+    The image must be on a CUDA device (``ValueError`` otherwise: on the
+    CPU use ``make_volume_inferencer``); a capture that fails raises.
+    ``infer.captured`` is the ``CapturedForward``."""
+    _check_grid(serve_grid, stride_div)
+    captured = CapturedForward(_patch_forward(
+        graph, mode, heads, hard_pred, compute_dtype, conv3x3_int8,
+        int8_matmul, qact_matmul))
+
+    def infer(variables, image, patch_size, overlap):
+        if image.device.type != "cuda":
+            raise ValueError(f"a captured inferencer serves CUDA tensors, "
+                             f"got one on {image.device}")
+        captured.use(variables)
+        with torch.inference_mode():
+            return serve_volume(captured, image, patch_size, overlap,
+                                patch_batch, hard_pred=hard_pred,
+                                multilabel=multilabel, serve_grid=serve_grid,
+                                stride_div=stride_div)
+
+    infer.captured = captured
+    return infer
+
+
+def volume_inferencer_for(device, graph: nnir.Graph, **kw):
+    """The captured inferencer on a CUDA ``device``, the eager one
+    elsewhere (the caller asked for the CPU)."""
+    maker = (make_captured_volume_inferencer
+             if torch.device(device).type == "cuda"
+             else make_volume_inferencer)
+    return maker(graph, **kw)
+
+
+def _counted():
+    """The kernel wrappers whose ``launches`` a replay must add to."""
+    from ..kernels.qconv3d import qconv3x3_int8_ndhwc
+    from ..kernels.qmatmul import fused_int8_matmul, fused_qact_matmul
+    from ..kernels.stem import stem_s2d_conv
+
+    return (qconv3x3_int8_ndhwc, stem_s2d_conv, fused_int8_matmul,
+            fused_qact_matmul)
+
+
+def _leaf_key(v):
+    """What identifies one variable leaf for replay: a tensor by object,
+    storage address and version (its in-place writes); anything else by
+    value."""
+    if isinstance(v, torch.Tensor):
+        if v.is_inference():
+            raise ValueError("a captured forward cannot track in-place "
+                             "writes to tensors made under "
+                             "torch.inference_mode; make the variables "
+                             "outside it")
+        return (id(v), v.data_ptr(), v._version)
+    return (type(v).__name__, repr(v))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+class CapturedForward:
+    """``forward(variables, *inputs)`` replayed from one CUDA graph.
+
+    A signature (the inputs' shapes, dtypes and devices) is captured when
+    two calls in a row have it, and replayed while later calls have it; a
+    call of another signature runs eagerly and leaves the graph in place.
+    So a serving loop captures its full chunk of patches once (at the
+    second chunk, or at the second volume of a one-chunk grid) and runs
+    each volume's ragged last chunk eagerly, whatever the volume's depth;
+    a variable set or a column depth that serves a single chunk is never
+    captured.  One graph at a time: capturing another signature drops the
+    old graph and its memory pool first.  ``captures`` counts the
+    captures.
+
+    ``use(variables)`` names the variables of the following calls.  A
+    graph holds the addresses of the tensors it was captured with, so it
+    is replayed only while they are the same tensors with the same
+    versions; otherwise the graph is dropped and the calls start over.
+    The captured tensors are held, so their memory cannot pass to another
+    tensor meanwhile.
+
+    The capture follows an eager call of the same signature, which warmed
+    up the libraries.  Its own increments of the kernel wrappers'
+    ``launches`` are taken back and added again at each replay, so the
+    counts are those of the forwards that ran.  A replay's output is a
+    copy of the graph's static output."""
+
+    def __init__(self, forward: Callable):
+        self.forward = forward
+        # (signature, CUDA graph, static inputs, static output, launches)
+        self.graph = None
+        self.captures = 0
+        self._last = None  # the previous call's signature
+        self._held = None  # (variables, their leaves, their keys)
+
+    def use(self, variables):
+        leaves = _leaves(variables)
+        keys = [_leaf_key(v) for v in leaves]
+        if self._held is None or self._held[2] != keys:
+            self.graph = self._last = None
+            self._held = (variables, leaves, keys)
+
+    def __call__(self, *inputs):
+        if self._held is None:
+            raise ValueError("CapturedForward.use(variables) comes first")
+        sig = tuple((tuple(t.shape), t.dtype, t.device) for t in inputs)
+        last, self._last = self._last, sig
+        if self.graph is None or self.graph[0] != sig:
+            if sig != last:
+                return self.forward(self._held[0], *inputs)
+            self.graph = None  # its pool goes before the next one is made
+            self.graph = self._capture(sig, inputs)
+        _, graph, static_in, static_out, delta = self.graph
+        for s, t in zip(static_in, inputs):
+            s.copy_(t)
+        graph.replay()
+        for fn, n in zip(_counted(), delta):
+            fn.launches += n
+        return static_out.clone()
+
+    def _capture(self, sig, inputs):
+        static_in = [t.clone() for t in inputs]
+        counted = _counted()
+        before = [fn.launches for fn in counted]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                static_out = self.forward(self._held[0], *static_in)
+        finally:
+            delta = [fn.launches - b for fn, b in zip(counted, before)]
+            for fn, b in zip(counted, before):
+                fn.launches = b
+        self.captures += 1
+        return sig, graph, static_in, static_out, delta

@@ -34,35 +34,57 @@ import torch
 from .. import nnir, ops
 from ..data.prefetch import device_feed
 from .metrics import SegMetricMC
-from .sliding import make_volume_inferencer, patch_grid
+from .sliding import column_grid_plan, patch_grid, volume_inferencer_for
 
 
-def _check_unported(serve_grid, artifact, mesh):
-    if serve_grid != "patch":
-        raise NotImplementedError("--serve_grid column is ROADMAP queue 1 "
-                                  "item 8")
-    if artifact is not None:
-        raise NotImplementedError("serving artifacts (--artifact) are "
-                                  "ROADMAP queue 1 item 8")
+def _check_serving(artifact, mesh, serve_grid, stride_div, serve_stem,
+                   num_mo=1):
+    """The JAX package's checks of the serving options, with its messages;
+    a mesh is ROADMAP queue 1 item 9."""
     if mesh is not None:
         raise NotImplementedError("serving over a device mesh is ROADMAP "
                                   "queue 1 item 9")
+    if artifact is not None:
+        if num_mo != 1:
+            raise ValueError("serving artifacts emit the final head only; "
+                             "pass num_mo=1")
+        # the manifest decides the grid (the column plan is pinned at
+        # export); --serve_grid column is legal only for a column artifact
+        if serve_grid == "column" and \
+                artifact.manifest.get("serve_grid") != "column":
+            raise ValueError("--serve_grid column with an artifact "
+                             "exported for the patch grid — re-export "
+                             "with --serve_grid column "
+                             "--export_column_depth N")
+    elif serve_grid == "column" and not stride_div:
+        raise ValueError("serve_grid='column' needs stride_div "
+                         "(models.uresq.min_input_divisor's D entry)")
+    if serve_stem == "s2d" and (artifact is not None
+                                or serve_grid == "column"):
+        raise ValueError("--serve_stem s2d composes with the patch grid on "
+                         "a single device only (not --artifact / "
+                         "--dp_devices / --serve_grid column)")
 
 
-def _patch_batch(patch_batch, x, patch_size, overlap) -> int:
-    """``"auto"`` (or 0 / None): ``min(full grid, 8)`` patches a forward,
-    the JAX autotuner's unmeasured rule (``eval/autotune.py``, ROADMAP
-    queue 1 item 8)."""
-    if patch_batch in ("auto", 0, None):
-        n = len(patch_grid(tuple(x.shape[1:4]), ops.triple(patch_size),
-                           ops.triple(overlap))) * x.shape[0]
-        return min(n, 8)
-    return int(patch_batch)
+def _column_count(x, patch_size, overlap, stride_div) -> int:
+    """Number of full-depth columns of a volume: the column mode's
+    patch_batch (every column in one forward)."""
+    pd, cp, co = column_grid_plan(x.shape[1:4], patch_size, overlap,
+                                  stride_div)
+    return len(patch_grid((pd,) + tuple(x.shape[2:4]), cp, co)) * x.shape[0]
 
 
 def _build_infer(graph, variables, x, patch_size, overlap, *, mode,
                  patch_batch, multilabel, compute_dtype, serve_stem, heads,
-                 device):
+                 device, artifact=None, serve_grid="patch", stride_div=None,
+                 tune_serving="auto"):
+    """The volume inferencer of the first volume ``x``: the artifact's,
+    the s2d stem's or the direct one; captured on a card."""
+    if artifact is not None:
+        return artifact.volume_inferencer(patch_batch=patch_batch,
+                                          hard_pred=True,
+                                          multilabel=multilabel)
+    auto = patch_batch in ("auto", 0, None)
     if serve_stem == "s2d":
         from ..ptq.deploy import make_s2d_volume_inferencer
 
@@ -77,13 +99,25 @@ def _build_infer(graph, variables, x, patch_size, overlap, *, mode,
         print("serve_stem=s2d: no eligible stem on this graph (needs a "
               "3^3-stride-2 init conv feeding an int8 K1 consumer: use "
               "--deploy int8|mixed); falling back to the direct path")
-        pb = 8 if patch_batch in ("auto", 0, None) else int(patch_batch)
+        pb = 8 if auto else int(patch_batch)
+    elif not auto:
+        pb = int(patch_batch)
+    elif serve_grid == "column":
+        # every column in one forward; the patch-grid sweep does not apply
+        pb = _column_count(x, patch_size, overlap, stride_div)
     else:
-        pb = _patch_batch(patch_batch, x, patch_size, overlap)
-    return make_volume_inferencer(graph, patch_batch=pb, mode=mode,
-                                  heads=heads, hard_pred=True,
-                                  multilabel=multilabel,
-                                  compute_dtype=compute_dtype)
+        from .autotune import choose_patch_batch
+
+        pb = choose_patch_batch(graph, variables, x, patch_size, overlap,
+                                mode=mode, heads=heads,
+                                compute_dtype=compute_dtype,
+                                tune=tune_serving)
+    return volume_inferencer_for(device, graph, patch_batch=pb, mode=mode,
+                                 heads=heads, hard_pred=True,
+                                 multilabel=multilabel,
+                                 compute_dtype=compute_dtype,
+                                 serve_grid=serve_grid,
+                                 stride_div=stride_div)
 
 
 def _readback(preds: torch.Tensor, stream):
@@ -162,25 +196,35 @@ def validate_seg(
     infer=None,
     compute_dtype=None,
     serve_grid="patch",
+    stride_div=None,
+    tune_serving="auto",
     serve_stem="direct",
     device="cuda",
 ) -> List[SegMetricMC]:
     """Evaluate on a loader of (N, C, D, H, W) NumPy batches on ``device``
     (the card unless told ``"cpu"``).
 
-    Returns one SegMetricMC per head (index -1 = final output).
-    ``patch_batch="auto"`` serves ``min(full grid, 8)`` patches a forward,
-    the JAX autotuner's unmeasured rule (the measured autotuner,
-    ``eval/autotune.py``, is ROADMAP queue 1 item 8); with ``serve_stem
-    ="s2d"`` it is ``make_s2d_volume_inferencer``'s whole-grid rule with
-    out-of-memory halving.  ``infer``: a prebuilt inferencer
+    Returns one SegMetricMC per head (index -1 = final output).  On a
+    card the patch forward replays from CUDA graphs
+    (``make_captured_volume_inferencer``).  ``patch_batch="auto"`` takes
+    the autotuner's choice (``eval/autotune.py``, ``tune_serving``: a
+    measured sweep on a card, 2 on the CPU, ``min(full grid, 8)`` with
+    ``"off"``); with ``serve_grid="column"`` every column in one forward;
+    with ``serve_stem="s2d"`` ``make_s2d_volume_inferencer``'s whole-grid
+    rule with out-of-memory halving.  ``infer``: a prebuilt inferencer
     (``make_volume_inferencer(..., hard_pred=True, multilabel=...)``).
 
-    Not ported: ``serve_grid="column"`` and ``artifact`` (ROADMAP queue 1
-    item 8), ``mesh`` (item 9); they raise ``NotImplementedError``."""
-    _check_unported(serve_grid, artifact, mesh)
+    ``artifact``: a loaded ``export.ServingArtifact``; the forward runs
+    from its program and ``graph`` / ``variables`` may be None (pass
+    ``num_mo=1``: it emits the final head only).  ``serve_grid="column"``:
+    full-depth columns (``eval.sliding.column_grid_plan``), which needs
+    ``stride_div`` (``models.uresq.min_input_divisor``'s D entry).
+    ``mesh`` (ROADMAP queue 1 item 9) raises ``NotImplementedError``."""
+    _check_serving(artifact, mesh, serve_grid, stride_div, serve_stem,
+                   num_mo)
     device = torch.device(device)
-    variables = nnir.to_device(variables, device)
+    if variables is not None:
+        variables = nnir.to_device(variables, device)
     sm = [SegMetricMC(n_class, sn_list, is_cc=is_cc) for _ in range(num_mo)]
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
@@ -196,7 +240,9 @@ def validate_seg(
                 graph, variables, x, patch_size, overlap, mode=mode,
                 patch_batch=patch_batch, multilabel=state["multilabel"],
                 compute_dtype=compute_dtype, serve_stem=serve_stem,
-                heads=None, device=device)
+                heads=None, device=device, artifact=artifact,
+                serve_grid=serve_grid, stride_div=stride_div,
+                tune_serving=tune_serving)
         return state["infer"](variables, x, tuple(ops.triple(patch_size)),
                               tuple(ops.triple(overlap)))
 
@@ -247,17 +293,29 @@ def inference(graph, variables, loader, sn_list, *, save_dir, patch_size,
               restore_shape_func=None, restore_infokw=None,
               merge_label_func=None, multilabel_fusetype=None,
               patch_batch="auto", artifact=None, compute_dtype=None,
-              serve_grid="patch", serve_stem="direct", device="cuda"):
+              serve_grid="patch", stride_div=None, tune_serving="auto",
+              serve_stem="direct", device="cuda"):
     """Label-free inference and NIfTI export (the reference's
     ``validate.py:266-303``), final head only, with ``validate_seg``'s
-    pipeline."""
-    _check_unported(serve_grid, artifact, None)
+    pipeline and serving options (the JAX package's checks of
+    ``inference``, with its messages)."""
+    if serve_stem == "s2d" and (artifact is not None
+                                or serve_grid == "column"):
+        raise ValueError("--serve_stem s2d composes with the patch grid on "
+                         "a single device only")
     if not save_dir:
         print("No save directory specified for final true test inference!")
         return
+    if serve_grid == "column" and artifact is not None:
+        raise ValueError("--serve_grid column does not compose with "
+                         "--artifact serving")
+    if serve_grid == "column" and not stride_div:
+        raise ValueError("serve_grid='column' needs stride_div "
+                         "(models.uresq.min_input_divisor's D entry)")
     os.makedirs(save_dir, exist_ok=True)
     device = torch.device(device)
-    variables = nnir.to_device(variables, device)
+    if variables is not None:
+        variables = nnir.to_device(variables, device)
     final_head = slice(-1, None)  # the aux heads are never computed
     multilabel = merge_label_func is not None  # per-class sigmoid path
     state = {"infer": None}
@@ -268,7 +326,9 @@ def inference(graph, variables, loader, sn_list, *, save_dir, patch_size,
                 graph, variables, x, patch_size, overlap, mode=mode,
                 patch_batch=patch_batch, multilabel=multilabel,
                 compute_dtype=compute_dtype, serve_stem=serve_stem,
-                heads=final_head, device=device)
+                heads=final_head, device=device, artifact=artifact,
+                serve_grid=serve_grid, stride_div=stride_div,
+                tune_serving=tune_serving)
         return state["infer"](variables, x, tuple(ops.triple(patch_size)),
                               tuple(ops.triple(overlap)))
 
@@ -288,7 +348,8 @@ def inference(graph, variables, loader, sn_list, *, save_dir, patch_size,
 def true_test_inference(graph, variables, data, save_dir, mode="fp",
                         patch_batch="auto", multilabel_fusetype=None,
                         artifact=None, compute_dtype=None,
-                        serve_grid="patch", serve_stem="direct",
+                        serve_grid="patch", stride_div=None,
+                        tune_serving="auto", serve_stem="direct",
                         device="cuda"):
     """Label-free export of the true-test split, the reference's
     ``inference_final`` (suffix '' as its trainer passes it)."""
@@ -306,6 +367,7 @@ def true_test_inference(graph, variables, data, save_dir, mode="fp",
               merge_label_func=data.merge_label_func,
               multilabel_fusetype=multilabel_fusetype, artifact=artifact,
               compute_dtype=compute_dtype, serve_grid=serve_grid,
+              stride_div=stride_div, tune_serving=tune_serving,
               serve_stem=serve_stem, device=device)
 
 

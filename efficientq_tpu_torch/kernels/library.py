@@ -1,0 +1,220 @@
+"""K1-K4 as registered operators (``torch.library.custom_op``), so that an
+exported program (``torch.export``, ``export.py``) can carry them.
+
+    effq::qconv3x3_int8      K1, kernels/qconv3d.py
+    effq::stem_s2d_conv      K2, kernels/stem.py
+    effq::fused_int8_matmul  K3, kernels/qmatmul.py
+    effq::fused_qact_matmul  K4, kernels/qmatmul.py
+
+Each op's CUDA implementation is its kernel's wrapper (which counts the
+launch) and its CPU implementation the plain PyTorch version; a fake
+(meta) implementation gives the outputs' shapes and dtypes, so export can
+trace through them without running them.  An op schema takes tensors,
+numbers and flags only: the wrappers' optional epilogue arguments are
+flattened into tensors, ints and bools, and a thin adapter of the
+wrapper's own signature (``qconv3x3_int8`` ...) calls the op, so
+``nnir.apply``'s kernel hooks take it.  The eager serving path keeps
+calling the wrappers directly (no dispatcher between them and the card).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor
+
+from . import qconv3d, qmatmul, stem
+
+_F32 = torch.float32
+
+
+def _dtype(bf16: bool):
+    return torch.bfloat16 if bf16 else _F32
+
+
+def _scalar(v, like: Tensor) -> Tensor:
+    """A number or tensor as a float32 tensor on ``like``'s device."""
+    if isinstance(v, Tensor):
+        return v.to(device=like.device, dtype=_F32)
+    return torch.full((), float(v), dtype=_F32, device=like.device)
+
+
+# K1 -------------------------------------------------------------------
+
+def _k1_args(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation,
+             residual, quant_alpha, quant_qlvl, x_quantized, residual_relu,
+             pool, out_bf16):
+    """The K1 wrapper's keyword arguments from the operator's."""
+    return dict(x=x, w_codes=w_codes, bias=bias, alpha_act=alpha_act,
+                scale=scale, qlvl_act=qlvl_act, dilation=dilation,
+                residual=residual,
+                quant_alpha=quant_alpha if quant_qlvl else None,
+                quant_qlvl=quant_qlvl, x_quantized=x_quantized,
+                residual_relu=residual_relu, pool=pool,
+                out_dtype=_dtype(out_bf16))
+
+
+def _k1_out(res, pool: bool, y_like: Tensor):
+    if pool:
+        return res[0], res[1]
+    return res, y_like.new_empty((0,))
+
+
+@torch.library.custom_op("effq::qconv3x3_int8", mutates_args=(),
+                         device_types="cuda")
+def _qconv3x3_int8(x: Tensor, w_codes: Tensor, bias: Optional[Tensor],
+                   alpha_act: Tensor, scale: Tensor, qlvl_act: int,
+                   dilation: int, residual: Optional[Tensor],
+                   quant_alpha: Tensor, quant_qlvl: int, x_quantized: bool,
+                   residual_relu: bool, pool: bool,
+                   w_packed: Optional[Tensor], out_bf16: bool
+                   ) -> Tuple[Tensor, Tensor]:
+    res = qconv3d.qconv3x3_int8_ndhwc(
+        w_packed=w_packed,
+        **_k1_args(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation,
+                   residual, quant_alpha, quant_qlvl, x_quantized,
+                   residual_relu, pool, out_bf16))
+    return _k1_out(res, pool, x)
+
+
+@_qconv3x3_int8.register_kernel("cpu")
+def _(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation, residual,
+      quant_alpha, quant_qlvl, x_quantized, residual_relu, pool, w_packed,
+      out_bf16):
+    res = qconv3d.qconv3x3_int8_ndhwc_reference(
+        **_k1_args(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation,
+                   residual, quant_alpha, quant_qlvl, x_quantized,
+                   residual_relu, pool, out_bf16))
+    return _k1_out(res, pool, x)
+
+
+@_qconv3x3_int8.register_fake
+def _(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation, residual,
+      quant_alpha, quant_qlvl, x_quantized, residual_relu, pool, w_packed,
+      out_bf16):
+    n, d, h, w, _ = x.shape
+    o = w_codes.shape[-1]
+    dt = torch.int8 if quant_qlvl else _dtype(out_bf16)
+    y = x.new_empty((n, d, h, w, o), dtype=dt)
+    if pool:
+        return y, x.new_empty((n, d // 2, h // 2, w // 2, o),
+                              dtype=_dtype(out_bf16))
+    return y, x.new_empty((0,), dtype=x.dtype)
+
+
+def qconv3x3_int8(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
+                  dilation: int = 1, residual=None, quant_alpha=None,
+                  quant_qlvl: int = 0, x_quantized: bool = False,
+                  residual_relu: bool = False, pool: bool = False,
+                  w_packed=None, out_dtype=torch.float32):
+    """``effq::qconv3x3_int8`` with the K1 wrapper's signature (the
+    ``conv3x3_int8`` hook of ``nnir.apply``)."""
+    y, pooled = torch.ops.effq.qconv3x3_int8(
+        x, w_codes, bias, _scalar(alpha_act, x), _scalar(scale, x),
+        int(qlvl_act), int(dilation), residual,
+        _scalar(quant_alpha if quant_qlvl else 0.0, x), int(quant_qlvl),
+        bool(x_quantized), bool(residual_relu), bool(pool), w_packed,
+        out_dtype == torch.bfloat16)
+    return (y, pooled) if pool else y
+
+
+# K2 -------------------------------------------------------------------
+
+@torch.library.custom_op("effq::stem_s2d_conv", mutates_args=(),
+                         device_types="cuda")
+def _stem_s2d_conv(x: Tensor, parities: Tensor, w_even: Tensor,
+                   w_odd: Tensor, bias: Tensor, alpha_next: Tensor,
+                   qlvl_next: int, out_bf16: bool,
+                   w_packed: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    return stem.stem_s2d_conv(x, parities, w_even, w_odd, bias, alpha_next,
+                              qlvl_next, _dtype(out_bf16), w_packed)
+
+
+@_stem_s2d_conv.register_kernel("cpu")
+def _(x, parities, w_even, w_odd, bias, alpha_next, qlvl_next, out_bf16,
+      w_packed):
+    return stem.stem_s2d_conv_reference(x, parities, w_even, w_odd, bias,
+                                        alpha_next, qlvl_next,
+                                        _dtype(out_bf16))
+
+
+@_stem_s2d_conv.register_fake
+def _(x, parities, w_even, w_odd, bias, alpha_next, qlvl_next, out_bf16,
+      w_packed):
+    b, d1, h, w, _ = x.shape
+    shape = (b, d1 - 1, h, w, w_even.shape[-1])
+    return (x.new_empty(shape, dtype=_dtype(out_bf16)),
+            x.new_empty(shape, dtype=torch.int8))
+
+
+def stem_s2d_conv(x, parities, w_even, w_odd, bias, alpha_next,
+                  qlvl_next: int, out_dtype=torch.float32, w_packed=None):
+    """``effq::stem_s2d_conv`` with the K2 wrapper's signature (the
+    ``stem_conv`` hook)."""
+    return torch.ops.effq.stem_s2d_conv(
+        x, parities, w_even, w_odd, bias, _scalar(alpha_next, x),
+        int(qlvl_next), out_dtype == torch.bfloat16, w_packed)
+
+
+# K3 -------------------------------------------------------------------
+
+@torch.library.custom_op("effq::fused_int8_matmul", mutates_args=(),
+                         device_types="cuda")
+def _fused_int8_matmul(x: Tensor, w_codes: Tensor, bias: Optional[Tensor],
+                       alpha_act: Tensor, scale: Tensor, qlvl_act: int,
+                       w_packed: Optional[Tensor]) -> Tensor:
+    return qmatmul.fused_int8_matmul(x, w_codes, bias, alpha_act, scale,
+                                     qlvl_act, w_packed)
+
+
+@_fused_int8_matmul.register_kernel("cpu")
+def _(x, w_codes, bias, alpha_act, scale, qlvl_act, w_packed):
+    return qmatmul.fused_int8_matmul_reference(x, w_codes, bias, alpha_act,
+                                               scale, qlvl_act)
+
+
+@_fused_int8_matmul.register_fake
+def _(x, w_codes, bias, alpha_act, scale, qlvl_act, w_packed):
+    return x.new_empty((x.shape[0], w_codes.shape[1]), dtype=_F32)
+
+
+def fused_int8_matmul(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
+                      w_packed=None):
+    """``effq::fused_int8_matmul`` with the K3 wrapper's signature (the
+    ``int8_matmul`` hook)."""
+    return torch.ops.effq.fused_int8_matmul(
+        x, w_codes, bias, _scalar(alpha_act, x), _scalar(scale, x),
+        int(qlvl_act), w_packed)
+
+
+# K4 -------------------------------------------------------------------
+
+@torch.library.custom_op("effq::fused_qact_matmul", mutates_args=(),
+                         device_types="cuda")
+def _fused_qact_matmul(x: Tensor, w: Tensor, bias: Optional[Tensor],
+                       alpha_act: Tensor, qlvl_act: int) -> Tensor:
+    return qmatmul.fused_qact_matmul(x, w, bias, alpha_act, qlvl_act)
+
+
+@_fused_qact_matmul.register_kernel("cpu")
+def _(x, w, bias, alpha_act, qlvl_act):
+    return qmatmul.fused_qact_matmul_reference(x, w, bias, alpha_act,
+                                               qlvl_act)
+
+
+@_fused_qact_matmul.register_fake
+def _(x, w, bias, alpha_act, qlvl_act):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=_F32)
+
+
+def fused_qact_matmul(x, w, bias, alpha_act, qlvl_act: int):
+    """``effq::fused_qact_matmul`` with the K4 wrapper's signature (the
+    ``qact_matmul`` hook)."""
+    return torch.ops.effq.fused_qact_matmul(x, w, bias,
+                                            _scalar(alpha_act, x),
+                                            int(qlvl_act))
+
+
+# the kernel hooks of nnir.apply, op-backed
+HOOKS = dict(conv3x3_int8=qconv3x3_int8, stem_conv=stem_s2d_conv,
+             int8_matmul=fused_int8_matmul, qact_matmul=fused_qact_matmul)

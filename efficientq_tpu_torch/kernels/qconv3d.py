@@ -23,6 +23,7 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import ops
@@ -228,6 +229,17 @@ def _aligned(t, nbytes):
     return t if t is None or t.data_ptr() % nbytes == 0 else t.clone()
 
 
+def _on_card(v, dev) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``dev``: a tensor converted there, a
+    number filled in there (no host-to-device copy, so a launch can be
+    captured in a CUDA graph)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.float32)
+    if isinstance(v, (int, float, np.number)):
+        return torch.full((), float(v), dtype=torch.float32, device=dev)
+    return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+
 def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
             quant_alpha, quant_qlvl, pool, out_dtype):
     dev = qa.device
@@ -248,12 +260,11 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
         raise ValueError(f"dilation {dil}")
     if out_dtype not in _FLOAT_OUT:
         raise ValueError(f"K1 stores float32 or bfloat16, not {out_dtype}")
-    f32 = dict(dtype=torch.float32, device=dev)
-    scale_v = torch.as_tensor(scale, **f32)
+    scale_v = _on_card(scale, dev)
     if scale_v.numel() not in (1, o):
         raise ValueError(f"scale {tuple(scale_v.shape)}: one value or {o}")
     scale_v = scale_v.reshape(-1).contiguous()
-    bias_v = None if bias is None else bias.to(**f32).contiguous()
+    bias_v = None if bias is None else _on_card(bias, dev).contiguous()
     res = None
     if residual is not None:
         res = _aligned(residual.to(device=dev, dtype=(
@@ -262,7 +273,7 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
         if tuple(res.shape) != (n, d, h, w, o):
             raise ValueError(f"residual {tuple(res.shape)} != output "
                              f"{(n, d, h, w, o)}")
-    qalpha = (torch.as_tensor(quant_alpha, **f32).reshape(1).contiguous()
+    qalpha = (_on_card(quant_alpha, dev).reshape(1).contiguous()
               if quant_qlvl else None)
     out = torch.empty((n, d, h, w, o), device=dev,
                       dtype=torch.int8 if quant_qlvl else out_dtype)

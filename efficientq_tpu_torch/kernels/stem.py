@@ -79,10 +79,16 @@ def to_bf16(x: torch.Tensor) -> torch.Tensor:
     own cast gives 0xFFFF on the CPU and 0x7FFF on a card.  Infinities and
     finite values are the cast's."""
     y = x.to(torch.bfloat16)
-    nan = torch.tensor([0x7FC0, -0x40], dtype=torch.int16,
-                       device=x.device).view(torch.bfloat16)
+    nan = _nan_bits(x.device)
     return torch.where(torch.isnan(x),
                        torch.where(torch.signbit(x), nan[1], nan[0]), y)
+
+
+@functools.lru_cache(maxsize=None)
+def _nan_bits(device) -> torch.Tensor:
+    """JAX's bfloat16 quiet NaNs (+, -) on ``device``, uploaded once."""
+    return torch.tensor([0x7FC0, -0x40], dtype=torch.int16,
+                        device=device).view(torch.bfloat16)
 
 
 def s2d_volume(image: torch.Tensor, min_planes: int = 0,
@@ -166,9 +172,17 @@ def _slice_s2d(svol: torch.Tensor, starts, patch_size
         else:
             out[p] = svol[:, (i - 1) // 2:(i - 1) // 2 + pd // 2 + 1,
                           js:js + ph // 2, ks:ks + pw // 2]
-    parities = torch.tensor(np.repeat([i % 2 for (i, _, _) in starts], n),
-                            dtype=torch.int32, device=svol.device)
+    parities = _parities(tuple(i % 2 for (i, _, _) in starts), n,
+                         svol.device)
     return out.reshape(-1, *out.shape[2:]), parities
+
+
+@functools.lru_cache(maxsize=16)
+def _parities(parity, n, device) -> torch.Tensor:
+    """The (P*N,) int32 z-start parities of a grid on ``device``, made
+    once per grid (read-only: every volume of the grid shares them)."""
+    return torch.tensor(np.repeat(parity, n), dtype=torch.int32,
+                        device=device)
 
 
 def pack_stem_weights(w_even: torch.Tensor,

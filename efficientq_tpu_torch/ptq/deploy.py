@@ -22,14 +22,16 @@ K2), which ``make_s2d_volume_inferencer`` applies for ``--serve_stem s2d``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Collection, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import nnir, ops
-from ..eval.sliding import (make_volume_inferencer, patch_grid,
-                            sliding_window_inference)
+from ..eval.sliding import (CapturedForward, make_volume_inferencer,
+                            patch_grid, sliding_window_inference,
+                            volume_inferencer_for)
 from ..kernels.epilogue import fuse_int8_epilogues
 from ..kernels.qconv3d import pack_weights
 from ..kernels.qmatmul import pack_weights_1x1, to_pallas_inference
@@ -267,7 +269,8 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
                                conv3x3_int8: Callable = None,
                                stem_conv: Callable = None,
                                int8_matmul: Callable = None,
-                               qact_matmul: Callable = None):
+                               qact_matmul: Callable = None,
+                               capture: bool = True):
     """s2d serving (``--serve_stem s2d``): the init conv runs as the fused
     space-to-depth stem K2 (``s2d_stem_serving``), the interior int8 convs
     on K1 at ``compute_dtype``.
@@ -284,9 +287,13 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     float32 and is transformed to s2d space there (see ``PERF.md`` for the
     placement's times).  A volume whose grid the s2d path cannot serve
     (odd H/W starts or extents) is served by the direct inferencer at the
-    same compute dtype.  ``patch_batch="auto"`` runs the whole grid as one
-    batch; a device out-of-memory halves it and retries, and later volumes
-    keep the smaller batch.  ``conv3x3_int8``, ``stem_conv``,
+    same compute dtype.  On a card each chunk's patch forward replays from
+    a CUDA graph (``eval.sliding.CapturedForward``, ``infer.captured``)
+    unless ``capture=False``: then it runs eagerly, as kernel hooks that
+    read the card from the host need (a capture cannot take them).
+    ``patch_batch="auto"`` runs the whole grid as one batch; a device
+    out-of-memory halves it and retries, and later volumes keep the
+    smaller batch.  ``conv3x3_int8``, ``stem_conv``,
     ``int8_matmul`` and ``qact_matmul`` replace the kernel wrappers (see
     ``nnir.eval_node``).  The graph may be the mixed deployment
     (``only_kernel_sizes={(3, 3, 3)}``) and carry the 1x1 flags of
@@ -308,19 +315,31 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     v_direct = nnir.to_device(variables, dev)
     auto = patch_batch in ("auto", 0, None)
     keep_hd = bool(hard_pred and compute_dtype is not None)
-    fallback = make_volume_inferencer(
-        graph, patch_batch=8 if auto else int(patch_batch), mode="quantized",
-        heads=heads, hard_pred=hard_pred, multilabel=multilabel,
-        conv3x3_int8=conv3x3_int8, int8_matmul=int8_matmul,
-        qact_matmul=qact_matmul, compute_dtype=compute_dtype)
+    direct = dict(patch_batch=8 if auto else int(patch_batch),
+                  mode="quantized", heads=heads, hard_pred=hard_pred,
+                  multilabel=multilabel, conv3x3_int8=conv3x3_int8,
+                  int8_matmul=int8_matmul, qact_matmul=qact_matmul,
+                  compute_dtype=compute_dtype)
+    fallback = (volume_inferencer_for(dev, graph, **direct) if capture
+                else make_volume_inferencer(graph, **direct))
 
-    def model_fn(xb):
-        return nnir.apply(g2, v2, xb, mode="quantized",
+    def forward(variables, xs, parities):
+        return nnir.apply(g2, variables, (xs, parities), mode="quantized",
                           heads=None if cf else heads,
                           conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
                           int8_matmul=int8_matmul, qact_matmul=qact_matmul,
                           compute_dtype=compute_dtype,
                           keep_head_dtype=keep_hd)
+
+    # on a card the patch forward replays from a CUDA graph (the parities
+    # are made once per grid, outside it)
+    captured = (CapturedForward(forward)
+                if capture and dev.type == "cuda" else None)
+    if captured is not None:
+        captured.use(v2)
+
+    def model_fn(xb):
+        return (captured or functools.partial(forward, v2))(*xb)
 
     def run(svol, patch_size, overlap, vol_shape, pb):
         out = sliding_window_inference(
@@ -356,9 +375,12 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
                 except torch.cuda.OutOfMemoryError:
                     if pb <= 1:
                         raise
+                    if captured is not None:
+                        captured.graph = None  # free the larger graph
                     pb = max(1, pb // 2)
                     pb_cap[0] = pb
                     print(f"serve_stem=s2d: device out of memory, retrying "
                           f"at patch_batch={pb}")
 
+    infer.captured = captured
     return infer

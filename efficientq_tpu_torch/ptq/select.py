@@ -38,10 +38,15 @@ def select_calibration(graph, variables, candidate_imgs: Sequence[np.ndarray],
     on the first candidate, and reused by every candidate's
     ``run_ptq_mixed``: 1 + K calibrations instead of 2K.
 
+    The scoring is eager, also on a card: each calibrated net scores a
+    few volumes, too few replays to repay a CUDA graph's capture
+    (``PERF.md``, ``chip_smoke.py`` phase 11 (f)).
+
     Returns ``(fgraph, qvars, report, selection)`` of the winner, with
     ``selection = {"scores": [...], "picked": index, "seconds": {"ranking":
     s (with mixed_frac), "candidates": [(calibration s, scoring s), ...]}}``
     (host clock).  Only the best result so far is kept."""
+    from ..eval.sliding import make_volume_inferencer
     from ..eval.validate import validate_seg
 
     if len(candidate_imgs) != len(candidate_labels):
@@ -50,6 +55,7 @@ def select_calibration(graph, variables, candidate_imgs: Sequence[np.ndarray],
         raise ValueError("--lwq_select needs at least 2 candidates")
 
     score_pairs = list(zip(candidate_imgs, candidate_labels))
+    multilabel = np.asarray(candidate_labels[0]).ndim == 5
     sn = [f"cand{i}" for i in range(len(candidate_imgs))]
     ranking = None
     seconds = {"candidates": []}
@@ -77,6 +83,9 @@ def select_calibration(graph, variables, candidate_imgs: Sequence[np.ndarray],
                           patch_size=patch_size, overlap=overlap,
                           mode="quantized", patch_batch=2,
                           multilabel_fusetype=multilabel_fusetype,
+                          infer=make_volume_inferencer(
+                              fg, patch_batch=2, mode="quantized",
+                              hard_pred=True, multilabel=multilabel),
                           device=device)
         score = float(sm[-1].get_metric()["dsc"])
         seconds["candidates"].append((t1 - t0, time.perf_counter() - t1))

@@ -33,9 +33,11 @@ on the tiny model of tests/test_cli_e2e.py, on the CPU
   --qat_epochs 1`` in both on the port's training snapshot, within the
   tolerances their tests state; each package reads the other's training
   snapshot.
-- Every unported flag raises ``NotImplementedError`` naming its ROADMAP
-  item (``--ckpt_backend orbax`` a ``ValueError``), and the CLI without a
-  card and without ``EFFQ_PLATFORM=cpu`` raises.
+- Every unported flag (the multi-device ones) raises
+  ``NotImplementedError`` naming its ROADMAP item (``--ckpt_backend
+  orbax`` a ``ValueError``), and the CLI without a card and without
+  ``EFFQ_PLATFORM=cpu`` raises.  The serving flags are held in
+  tests/test_torch_port_serving_cli.py.
 """
 import glob
 import json
@@ -481,16 +483,9 @@ def test_calibration_crop_under_64_raises(flags, monkeypatch, tmp_path):
 
 
 REFUSED = [
-    ("ptq", ["--export_artifact"], "item 8"),
-    ("ptq", ["--serve_grid", "column"], "item 8"),
-    ("ptq", ["--tune_serving", "force"], "item 8"),
     ("ptq", ["--dp_devices", "2"], "item 9"),
     ("ptq", ["--mesh_shape", "1,2"], "item 9"),
     ("ptq", ["--distributed"], "item 9"),
-    ("infer", ["--artifact", "a.zip"], "item 8"),
-    ("infer", ["--export_artifact"], "item 8"),
-    ("infer", ["--serve_grid", "column"], "item 8"),
-    ("infer", ["--tune_serving", "force"], "item 8"),
     ("infer", ["--dp_devices", "2"], "item 9"),
     ("infer", ["--mesh_shape", "1,2"], "item 9"),
     ("infer", ["--distributed"], "item 9"),

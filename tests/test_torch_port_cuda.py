@@ -37,6 +37,13 @@ uploads on its side stream rather than behind the caller's, and keeps a
 pinned staging buffer until its upload has run; ``validate_seg``'s
 pipeline gives what serving one volume at a time gives.
 
+The serving extras: the captured inferencers (int8 float32 on the patch
+and the column grid, s2d bf16) against the same paths run eagerly, bit for
+bit, with the launch counts of the eager paths, and following changed
+variables; K1-K4's registered operators against their wrappers (equal);
+an artifact exported on the card against the captured path (equal); the
+autotuner's sweep and its cache hit.
+
 These tests are marked ``cuda`` and skip without a card.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
 installed:
@@ -670,9 +677,10 @@ def test_cuda_s2d_slice_matches_plain_kernels(cuda):
     got = infer(None, vol, (32, 32, 32), (8, 8, 8))
     assert K2.stem_s2d_conv.launches - k2 == 1  # the whole grid: 1 forward
     assert K.qconv3x3_int8_ndhwc.launches - k1 == 6
+    # eager: the plain K2 reads the parities on the host
     plain = deploy.make_s2d_volume_inferencer(
         dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        stem_conv=K2.stem_s2d_conv_reference, **kw)
+        stem_conv=K2.stem_s2d_conv_reference, capture=False, **kw)
     ref = plain(None, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 39, 48, 48, 3) and got.dtype == torch.uint8
     assert float((got == ref).float().mean()) >= 0.999
@@ -1383,3 +1391,199 @@ def test_cuda_batch_norm_train_matches_cpu(cuda):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the serving extras: the captured inferencers (eval/sliding.py), K1-K4 as
+# registered operators (kernels/library.py), artifacts (export.py) and the
+# autotuner (eval/autotune.py)
+
+def _launch_counts():
+    return (K.qconv3x3_int8_ndhwc.launches, K2.stem_s2d_conv.launches,
+            KM.fused_int8_matmul.launches, KM.fused_qact_matmul.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,pb", [("patch", 2), ("column", 2),
+                                     ("patch", 3), ("patch", 8)],
+                         ids=["patch", "column", "patch-ragged-b3",
+                              "patch-one-chunk-b8"])
+def test_cuda_captured_int8_equals_eager(grid, pb, cuda):
+    """The captured int8 float32 path equals the eager one bit for bit on
+    every call, and the launch counts are the eager path's: 6 K1 per
+    forward.  The full chunk is captured once, when it comes a second time
+    in a row (in the first volume, or in the second where a volume is one
+    chunk), and replayed after; a ragged last chunk runs eagerly."""
+    dg, net, vol, kw = _serve_int8(cuda)
+    kw = dict(kw, patch_batch=pb, serve_grid=grid,
+              stride_div=8 if grid == "column" else None)
+    eager = sliding.make_volume_inferencer(dg, **kw)
+    infer = sliding.make_captured_volume_inferencer(dg, **kw)
+    want = eager(net.variables, vol, (32, 32, 32), (8, 8, 8))
+    n = len(sliding.patch_grid(
+        (40 if grid == "column" else 36, 40, 44),
+        (40, 32, 32) if grid == "column" else 32,
+        (0, 8, 8) if grid == "column" else 8))
+    forwards = -(-n // pb)
+    for i in range(3):
+        before = K.qconv3x3_int8_ndhwc.launches
+        got = infer(net.variables, vol, (32, 32, 32), (8, 8, 8))
+        torch.cuda.synchronize()
+        assert K.qconv3x3_int8_ndhwc.launches - before == 6 * forwards
+        assert torch.equal(got, want)
+        assert infer.captured.captures == (1 if i or n // pb > 1 else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_s2d_equals_eager(cuda):
+    """The s2d bf16 path with its patch forward captured equals the same
+    path run eagerly (``capture=False``), bit for bit; 1 K2 and 6 K1
+    launches a forward, on the capture and on replays."""
+    fg, fv = small_net(1, 1.0)
+    dg, dv = to_int8_inference(fg, fv)
+    images, _ = synthetic.make_subject(np.random.default_rng(1), "brats",
+                                       (39, 48, 48))
+    vol = np.stack(list(images.values()), -1)[None]
+    kw = dict(multilabel=True, heads=slice(-1, None), device=cuda,
+              patch_batch=4)
+    infer = deploy.make_s2d_volume_inferencer(dg, dv, **kw)
+    forwards = -(-len(sliding.patch_grid((39, 48, 48), 32, 8)) // 4)
+    assert forwards == 2
+    outs = []
+    for _ in range(2):
+        k1, k2 = K.qconv3x3_int8_ndhwc.launches, K2.stem_s2d_conv.launches
+        outs.append(infer(None, vol, (32, 32, 32), (8, 8, 8)))
+        assert K2.stem_s2d_conv.launches - k2 == forwards
+        assert K.qconv3x3_int8_ndhwc.launches - k1 == 6 * forwards
+    assert infer.captured.captures == 1
+    eager = deploy.make_s2d_volume_inferencer(dg, dv, capture=False, **kw)
+    assert eager.captured is None
+    want = eager(None, vol, (32, 32, 32), (8, 8, 8))
+    for got in outs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_follows_changed_variables(cuda):
+    """No replay on stale weights: an in-place change of alpha_act, and a
+    new variable set, are each followed by a capture of their own and the
+    eager result."""
+    dg, net, vol, kw = _serve_int8(cuda)
+    infer = sliding.make_captured_volume_inferencer(dg, **kw)
+    eager = sliding.make_volume_inferencer(dg, **kw)
+    v = net.variables
+    args = (vol, (32, 32, 32), (8, 8, 8))
+    first = infer(v, *args)
+    assert torch.equal(first, eager(v, *args))
+    assert infer.captured.captures == 1  # 4 chunks of 2: the 2nd captured
+    node = next(n.name for n in dg.nodes if n.attrs.get("pallas"))
+    v["params"][node]["alpha_act"].mul_(0.5)  # in place
+    changed = infer(v, *args)
+    assert torch.equal(changed, eager(v, *args))
+    assert not torch.equal(changed, first)
+    v2 = {g: {n: {k: t.clone() for k, t in e.items()}
+              for n, e in v[g].items()} for g in v}
+    v2["params"][node]["alpha_act"].mul_(3.0)
+    third = infer(v2, *args)
+    assert torch.equal(third, eager(v2, *args))
+    assert not torch.equal(third, changed)
+    v["params"][node]["alpha_act"].mul_(2.0)  # back to the first set
+    assert torch.equal(infer(v, *args), first)
+    assert infer.captured.captures == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["plain-c8", "quant-c8", "residual-relu-c8",
+                                  "pool-even-c4", "xq-res-relu-pool-c8-dil2",
+                                  "per-channel-c8"])
+def test_cuda_k1_operator_equals_wrapper(name, bf16, cuda):
+    """effq::qconv3x3_int8 (through its adapter) launches K1 once and
+    equals the wrapper's call, every output."""
+    from efficientq_tpu_torch.kernels import library
+
+    case = make_case(sorted(CASES).index(name), **CASES[name])
+    before = K.qconv3x3_int8_ndhwc.launches
+    got = run_port(case, library.qconv3x3_int8, device=cuda, bf16=bf16)
+    assert K.qconv3x3_int8_ndhwc.launches == before + 1
+    want = run_port(case, device=cuda, bf16=bf16)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_k2_k3_k4_operators_equal_wrappers(cuda):
+    from efficientq_tpu_torch.kernels import library
+
+    x, par, we, wo, bias = stem_inputs(23, 4, 8, cuda)
+    alpha = torch.tensor(0.7, device=cuda)
+    for g, w in zip(library.stem_s2d_conv(x, par, we, wo, bias, alpha, 4,
+                                          torch.bfloat16),
+                    K2.stem_s2d_conv(x, par, we, wo, bias, alpha, 4,
+                                     torch.bfloat16)):
+        assert torch.equal(g, w)
+    c = matmul_case(*MATMUL_CASES[0])
+    xm, t = _matmul_args(c, cuda)
+    args = (xm, t(c["codes"]), t(c["bias"]), t(c["alpha"]), t(c["scale"]), NA)
+    assert torch.equal(library.fused_int8_matmul(*args),
+                       KM.fused_int8_matmul(*args))
+    args = (xm, t(c["w"]), t(c["bias"]), t(c["alpha"]), NA)
+    before = _launch_counts()
+    assert torch.equal(library.fused_qact_matmul(*args),
+                       KM.fused_qact_matmul(*args))
+    assert _launch_counts()[3] - before[3] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_artifact_equals_captured_path(cuda, tmp_path):
+    """An artifact exported on the card (K1 as effq::qconv3x3_int8) serves
+    what the captured inferencer serves, replaying its program from CUDA
+    graphs with the K1 launches of the direct path."""
+    from efficientq_tpu_torch import export
+
+    dg, net, vol, kw = _serve_int8(cuda)
+    ep, batch = export.export_patch_model(dg, net.variables, (32, 32, 32),
+                                          4, patch_batch=2, device=cuda)
+    path = str(tmp_path / "a.zip")
+    export.save_serving_artifact(path, ep, {"batch": batch,
+                                            "patch_size": [32, 32, 32]})
+    art = export.load_serving_artifact(path)
+    art.check_platform(cuda)
+    with pytest.raises(RuntimeError, match="cuda"):
+        art.check_platform("cpu")
+    infer = art.volume_inferencer(patch_batch=2, multilabel=True)
+    want = sliding.make_captured_volume_inferencer(dg, **kw)(
+        net.variables, vol, (32, 32, 32), (8, 8, 8))
+    forwards = -(-len(sliding.patch_grid((36, 40, 44), 32, 8)) // 2)
+    for _ in range(2):
+        before = K.qconv3x3_int8_ndhwc.launches
+        got = infer(None, vol, (32, 32, 32), (8, 8, 8))
+        torch.cuda.synchronize()
+        assert K.qconv3x3_int8_ndhwc.launches - before == 6 * forwards
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_autotune_sweeps_then_hits_the_cache(cuda, tmp_path,
+                                                  monkeypatch, capsys):
+    from efficientq_tpu_torch.eval import autotune
+
+    monkeypatch.setenv("EFFQ_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setattr(autotune, "_MEM_CACHE", {})
+    dg, net, vol, _ = _serve_int8(cuda)
+    kw = dict(mode="quantized", heads=slice(-1, None))
+    pb = autotune.choose_patch_batch(dg, net.variables, vol, 32, 8,
+                                     tune="force", **kw)
+    out = capsys.readouterr().out
+    n = len(sliding.patch_grid((36, 40, 44), 32, 8))
+    assert pb in autotune._candidates(n) and "-> patch_batch" in out
+    monkeypatch.setattr(autotune, "_MEM_CACHE", {})  # the disk entry
+
+    def boom(*a, **k):
+        raise AssertionError("measured on a cache hit")
+
+    monkeypatch.setattr(sliding, "make_captured_volume_inferencer", boom)
+    assert autotune.choose_patch_batch(dg, net.variables, vol, 32, 8,
+                                       tune="auto", **kw) == pb

@@ -10,7 +10,8 @@ voxel-classes, and exactly wherever the overlap-summed logit is farther
 than 1e-4 from the decision boundary (0 for the sign test, the runner-up
 for the argmax).  ``SegMetricMC.get_metric()`` is equal wherever the
 predictions are.  Plus ``restore_crop``, the ``s2d`` serving stem
-through ``validate_seg`` and the refusals.
+through ``validate_seg`` and the mesh's refusal (the serving options'
+checks are in tests/test_torch_port_serving_extras.py).
 """
 import glob
 import os.path as P
@@ -252,18 +253,11 @@ def test_s2d_stem_through_validate_seg(validated):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(serve_grid="column"), "item 8"),
-    (dict(artifact=object()), "item 8"),
-    (dict(mesh=object()), "item 9")])
+    pytest.param(dict(mesh=object()), "item 9", id="kw2-item 9")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         validate.validate_seg(None, None, [], [], 1, 3, patch_size=PATCH,
                               overlap=OVERLAP, device="cpu", **kw)
-    if "mesh" not in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            validate.inference(None, None, [], [], save_dir="unused",
-                               patch_size=PATCH, overlap=OVERLAP,
-                               device="cpu", **kw)
 
 
 def test_restore_crop_matches_jax():
