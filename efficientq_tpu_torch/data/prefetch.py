@@ -6,7 +6,9 @@ materializes upcoming batches on a background thread (NumPy IO and the
 augmentations release the GIL in their hot paths).  ``device_feed`` is the
 card's version of JAX's asynchronous ``device_put``: each array is copied
 into a pinned host staging buffer and uploaded on a side stream while the
-caller's stream computes the batch before it.
+caller's stream computes the batch before it.  Its span on a card
+(``utils/tracing.py``): ``feed.stage``, the host's copy of an item into
+pinned memory, with the item's index and ``bytes``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from ..utils.tracing import span
 
 
 class PrefetchLoader:
@@ -111,15 +115,16 @@ def device_feed(loader: Iterable, device=None, mesh=None):
     ring = None
 
     if device.type != "cuda":
-        def put_one(a):
+        def put_one(a, batch):
             return torch.as_tensor(np.asarray(a), device=device), None
     else:
         stream = _side_stream(device)
 
-        def put_one(a):
+        def put_one(a, batch):
             a = np.ascontiguousarray(a)
             buf = ring.take(a.nbytes)[:a.nbytes]
-            np.copyto(buf.numpy().view(a.dtype).reshape(a.shape), a)
+            with span("feed.stage", batch=batch, bytes=a.nbytes):
+                np.copyto(buf.numpy().view(a.dtype).reshape(a.shape), a)
             host = buf.view(torch.from_numpy(a[:0]).dtype).view(a.shape)
             # allocated on the side stream: its blocks return to that
             # stream's pool, and record_stream (in ready) holds them until
@@ -131,12 +136,12 @@ def device_feed(loader: Iterable, device=None, mesh=None):
             ring.uploaded(event)
             return dev, event
 
-    def put(item):
+    def put(item, batch):
         nonlocal ring
         arrays = item if isinstance(item, tuple) else (item,)
         if device.type == "cuda" and ring is None:
             ring = _Staging(2 * len(arrays))
-        return isinstance(item, tuple), [put_one(a) for a in arrays]
+        return isinstance(item, tuple), [put_one(a, batch) for a in arrays]
 
     def ready_one(tensor, event):
         if event is not None:
@@ -150,11 +155,11 @@ def device_feed(loader: Iterable, device=None, mesh=None):
         return out if is_tuple else out[0]
 
     try:
-        pending = put(next(it))
+        pending = put(next(it), 0)
     except StopIteration:
         return
-    for item in it:
-        nxt = put(item)
+    for batch, item in enumerate(it, 1):
+        nxt = put(item, batch)
         yield ready(*pending)
         pending = nxt
     yield ready(*pending)

@@ -10,6 +10,13 @@ forward from a CUDA graph, so the host's per-kernel launch time is paid
 once per capture instead of once per call.  ``column_grid_plan`` and
 ``serve_grid="column"`` serve full-depth columns in place of the patch
 grid's cubes.
+
+Its spans (``utils/tracing.py``): ``volume.extract`` (the patch
+extraction, and a column grid's pad), ``volume.stitch`` (from the
+concatenation to the last patch added) and ``volume.decide`` (the hard
+prediction), each with device marks, and ``volume.chunk`` (one chunk's
+forward, with ``patches`` and ``kind``: ``eager``, or ``capture`` /
+``replay`` as ``CapturedForward`` sets it).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import nnir, ops
+from ..utils.tracing import annotate, span
 
 
 def grid_starts(size: int, patch: int, overlap: int) -> List[int]:
@@ -120,22 +128,30 @@ def sliding_window_inference(model_fn: Callable, image: torch.Tensor,
         vol_shape = tuple(image.shape[1:4])
     starts = patch_grid(vol_shape, patch_size, overlap)
     P = len(starts)
-    if extract_fn is not None:
-        flat = extract_fn(image, starts, patch_size)
-        N = flat[0].shape[0] // P
-        chunks = [tuple(a[s:s + patch_batch] for a in flat)
-                  for s in range(0, P * N, patch_batch)]
-    else:
-        N = image.shape[0]
-        patches = extract_patches(image, starts, patch_size)
-        flat = patches.reshape(P * N, *patches.shape[2:])
-        chunks = [flat[s:s + patch_batch]
-                  for s in range(0, P * N, patch_batch)]
-    outs = [model_fn(c) for c in chunks]
-    out = torch.cat(outs, dim=1)  # (M, P*N, ...)
-    out = out.reshape(out.shape[0], P, N, *out.shape[2:]).movedim(1, 0)
-    return stitch_patches(out, starts, vol_shape,
-                          channels_first=channels_first, normalize=normalize)
+    dev = image.device
+    with span("volume.extract", device=dev):
+        if extract_fn is not None:
+            flat = extract_fn(image, starts, patch_size)
+            N = flat[0].shape[0] // P
+            chunks = [tuple(a[s:s + patch_batch] for a in flat)
+                      for s in range(0, P * N, patch_batch)]
+        else:
+            N = image.shape[0]
+            patches = extract_patches(image, starts, patch_size)
+            flat = patches.reshape(P * N, *patches.shape[2:])
+            chunks = [flat[s:s + patch_batch]
+                      for s in range(0, P * N, patch_batch)]
+    outs = []
+    for s, c in zip(range(0, P * N, patch_batch), chunks):
+        with span("volume.chunk", patches=min(patch_batch, P * N - s),
+                  kind="eager"):
+            outs.append(model_fn(c))
+    with span("volume.stitch", device=dev):
+        out = torch.cat(outs, dim=1)  # (M, P*N, ...)
+        out = out.reshape(out.shape[0], P, N, *out.shape[2:]).movedim(1, 0)
+        return stitch_patches(out, starts, vol_shape,
+                              channels_first=channels_first,
+                              normalize=normalize)
 
 
 def column_grid_plan(vol_shape, patch_size, overlap, stride_div):
@@ -175,15 +191,17 @@ def serve_volume(model_fn: Callable, image: torch.Tensor, patch_size,
         pd, patch_size, overlap = column_grid_plan(
             image.shape[1:4], patch_size, overlap, stride_div)
         if pd != d:
-            image = F.pad(image, (0, 0, 0, 0, 0, 0, 0, pd - d))
+            with span("volume.extract", device=image.device):
+                image = F.pad(image, (0, 0, 0, 0, 0, 0, 0, pd - d))
     # hard predictions are invariant to the overlap-average division (a
     # positive per-voxel count shared by all classes): skip it
     out = sliding_window_inference(model_fn, image, patch_size, overlap,
                                    patch_batch, normalize=not hard_pred)
     out = out[:, :, :d]  # the column pad (a no-op on the patch grid)
     if hard_pred:
-        out = ((out >= 0) if multilabel
-               else torch.argmax(out, dim=-1)).to(torch.uint8)
+        with span("volume.decide", device=out.device):
+            out = ((out >= 0) if multilabel
+                   else torch.argmax(out, dim=-1)).to(torch.uint8)
     return out
 
 
@@ -332,7 +350,9 @@ class CapturedForward:
     a variable set or a column depth that serves a single chunk is never
     captured.  One graph at a time: capturing another signature drops the
     old graph and its memory pool first.  ``captures`` counts the
-    captures.
+    captures.  Each call sets the enclosing span's ``kind``
+    (``utils/tracing.py``): ``eager``, ``capture`` (which replays its new
+    graph once) or ``replay``.
 
     ``use(variables)`` names the variables of the following calls.  A
     graph holds the addresses of the tensors it was captured with, so it
@@ -369,9 +389,13 @@ class CapturedForward:
         last, self._last = self._last, sig
         if self.graph is None or self.graph[0] != sig:
             if sig != last:
+                annotate(kind="eager")
                 return self.forward(self._held[0], *inputs)
             self.graph = None  # its pool goes before the next one is made
             self.graph = self._capture(sig, inputs)
+            annotate(kind="capture")
+        else:
+            annotate(kind="replay")
         _, graph, static_in, static_out, delta = self.graph
         for s, t in zip(static_in, inputs):
             s.copy_(t)

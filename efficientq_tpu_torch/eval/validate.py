@@ -20,6 +20,12 @@ work overlap the card.  On a card that takes three pieces:
   wait for volume i+1's forward as well);
 - the host waits on that copy's event, not on the card, before it
   computes volume i's metrics.
+
+Its span (``utils/tracing.py``): ``pipeline.serve``, one per loader
+batch, with device marks, the root that carries the batch's index
+(volume i's spans in ``eval/sliding.py`` nest in it).  The device time
+from one batch's span to the next's is the time the card waited for the
+host, or for the upload, between them.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 
 from .. import nnir, ops
 from ..data.prefetch import device_feed
+from ..utils.tracing import span
 from .metrics import SegMetricMC
 from .sliding import column_grid_plan, patch_grid, volume_inferencer_for
 
@@ -159,12 +166,13 @@ def _pipeline(loader, device, serve):
             yield images
 
     pending = None
-    for xb in device_feed(images(), device=device):
+    for batch, xb in enumerate(device_feed(images(), device=device)):
         masks = masks_q.popleft()
-        x = ops.ncdhw_to_ndhwc(xb).contiguous()
-        del xb
-        rb = _readback(serve(x, masks), rb_stream)
-        del x
+        with span("pipeline.serve", batch=batch, device=device):
+            x = ops.ncdhw_to_ndhwc(xb).contiguous()
+            del xb
+            rb = _readback(serve(x, masks), rb_stream)
+            del x
         if pending is not None:
             yield _host(pending[0]), pending[1]
         pending = (rb, masks)

@@ -18,7 +18,6 @@ history comes back once per layer.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 
 from .. import ops
 from ..quant import fake_quant_act_k, project_by_iter, project_by_iter_rows
+from ..utils.tracing import device_mark, device_seconds
 from .solver import (GramStats, compute_gram_stats, flat_to_kernel,
                      kernel_to_flat, make_ranking_mse, make_system,
                      quadratic_mse, solve_proximal)
@@ -154,40 +154,15 @@ def admm_quantize(w_flat0: torch.Tensor, bias0: Optional[torch.Tensor],
     return bestG, bestB, bestA, bestLoss, history
 
 
-class _Clock:
-    """Marks on the work queue of a tensor's device: CUDA events on a card,
-    the host clock on the CPU (where torch ops finish before returning)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-        self.mark()
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def seconds(self) -> List[float]:
-        """The seconds between successive marks."""
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b) / 1e3
-                    for a, b in zip(self.marks, self.marks[1:])]
-        return [b - a for a, b in zip(self.marks, self.marks[1:])]
-
-
 def calibrate_from_stats(stats: GramStats, x_q: torch.Tensor,
                          y_fp: torch.Tensor, kernel: torch.Tensor,
                          bias: Optional[torch.Tensor],
                          att: Optional[torch.Tensor], *, ksize, stride,
                          padding, dilation, qlvl_w: int, has_bias: bool,
-                         hp: PTQHyperParams, clock: Optional[_Clock] = None):
-    """ADMM calibration given precomputed GramStats; ``clock`` (if given)
-    is marked after the ADMM loop."""
+                         hp: PTQHyperParams, marks: Optional[list] = None):
+    """ADMM calibration given precomputed GramStats; ``marks`` (if given)
+    gets a device mark (``utils.tracing.device_mark``) after the ADMM
+    loop."""
     w_flat0 = kernel_to_flat(kernel)
 
     # rho scaling
@@ -211,8 +186,8 @@ def calibrate_from_stats(stats: GramStats, x_q: torch.Tensor,
 
     bestG, bestB, alpha_w, best_loss, history = admm_quantize(
         w_flat0, bias, stats, qlvl_w, rho_scale, hp, loss_fn=loss_fn)
-    if clock is not None:
-        clock.mark()
+    if marks is not None:
+        marks.append(device_mark(x_q.device))
 
     kernel_q = flat_to_kernel(bestG, kernel.shape)
     out_q = ops.conv3d(x_q, kernel_q, bestB if has_bias else None, stride,
@@ -273,7 +248,7 @@ def calibrate_layer(x_q: torch.Tensor, y_fp: torch.Tensor,
     ``seconds``: {"gram", "admm", "rest"} of this call (the activation
     projection counts to "gram").
     """
-    clock = _Clock(x_q.device)
+    marks = [device_mark(x_q.device)]
     alpha_act = None
     act_k = torch.zeros((), dtype=torch.int32, device=x_q.device)
     if qlvl_act is not None and act_search:
@@ -299,11 +274,12 @@ def calibrate_layer(x_q: torch.Tensor, y_fp: torch.Tensor,
         x_q = alpha_act * b_act
     stats = compute_gram_stats(x_q, y_fp, att, ksize, stride, padding,
                                dilation, has_bias=has_bias)
-    clock.mark()
+    marks.append(device_mark(x_q.device))
     res = calibrate_from_stats(stats, x_q, y_fp, kernel, bias, att,
                                ksize=ksize, stride=stride, padding=padding,
                                dilation=dilation, qlvl_w=qlvl_w,
-                               has_bias=has_bias, hp=hp, clock=clock)
-    clock.mark()
-    res["seconds"] = dict(zip(("gram", "admm", "rest"), clock.seconds()))
+                               has_bias=has_bias, hp=hp, marks=marks)
+    marks.append(device_mark(x_q.device))
+    res["seconds"] = {k: device_seconds(a, b) for k, a, b in
+                      zip(("gram", "admm", "rest"), marks, marks[1:])}
     return {**res, "alpha_act": alpha_act, "act_k": act_k}
