@@ -236,6 +236,19 @@ Phases, each printed on its own lines:
    registered ``effq::`` operators) equal to its eager forward, 14 K1 and
    6 K3 launches.  Phases 8 to 11 write their data to one temporary
    directory, removed at the end.
+12. K5 (efficientq_tpu_torch/csrc/upsample3d.cu, built here) against its
+   plain version (``F.interpolate``, then the add): at the LiTS chunk's
+   five upsamples (N = 8: TransUp5-8 with the skip in the epilogue, and
+   the head, NDHWC and NCDHW) outputs identical (torch.equal) on normal
+   inputs, and per call K5's time (events around one call; device time
+   alone from CUDA graph replay), the byte bound (x, skip and y over
+   3.35 TB/s), the plain version's time and ``F.interpolate`` plus the add
+   on an NCDHW tensor; then a 256 x 256 x 128 LiTS volume through the
+   main path (``validate._build_infer``, captured) on the LiTS preset's
+   int8 deployment: 5 K5 launches a chunk, the prediction and one chunk's
+   logits identical to the same network on K5's plain version.  The
+   plain networks of phases 2, 4, 7, 8, 9, 10 and 11 run K5's plain
+   version too.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
 path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
@@ -274,6 +287,8 @@ K3_SOURCE = "efficientq_tpu_torch/csrc/qmatmul_int8.cu"
 K3_REPLACES = "efficientq_tpu/pallas/qmatmul.py:116"
 K4_SOURCE = "efficientq_tpu_torch/csrc/qmatmul_f32.cu"
 K4_REPLACES = "efficientq_tpu/pallas/qmatmul.py:54"
+K5_SOURCE = "efficientq_tpu_torch/csrc/upsample3d.cu"
+K5_REPLACES = "none: efficientq_tpu/ops.py:198 resizes with jax.image.resize"
 # NVIDIA H100 SXM published peaks (dense): device memory bytes/s, bf16 and
 # int8 tensor-core operations/s, float32 operations/s off the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
@@ -672,6 +687,17 @@ def post_ptq_weights(graph, seed: int):
     return fgraph, fvars
 
 
+def deploy_served(graph, variables, **kw):
+    """``to_int8_inference`` with the upsamples on K5
+    (``ptq.deploy.upsample_serving``), as every serving path of the port
+    runs them, so the inferencers built here serve the missions' graph."""
+    from efficientq_tpu_torch.ptq.deploy import (to_int8_inference,
+                                                 upsample_serving)
+
+    g, v = to_int8_inference(graph, variables, **kw)
+    return upsample_serving(g), v
+
+
 def build_net(seed: int):
     """BraTS W4A4 preset, BN folded, post-PTQ weights emulated, exported
     as an int8 checkpoint, reloaded and deployed.  Returns the deployed
@@ -681,7 +707,7 @@ def build_net(seed: int):
     from efficientq_tpu_torch.kernels.build import BUILD_DIR
     from efficientq_tpu_torch.models import build_uresq, preset_config
     from efficientq_tpu_torch.models import torch_io
-    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+    from efficientq_tpu_torch.ptq import fold_bn
     from efficientq_tpu_torch.quant import pack_int_weight
 
     cfg = preset_config("brats", quantize=True)
@@ -702,7 +728,7 @@ def build_net(seed: int):
     _, fresh = fold_bn(graph, fresh)
     lvars = torch_io.load_int8_checkpoint(fgraph, fresh, path)
     os.remove(path)
-    dgraph, dvars = to_int8_inference(fgraph, lvars)
+    dgraph, dvars = deploy_served(fgraph, lvars)
     n_k1 = sum(1 for n in dgraph.nodes if n.attrs.get("pallas"))
     n_int8 = sum(1 for n in dgraph.nodes if n.attrs.get("int8"))
     print(f"[phase2] BraTS W4A4 preset: {n_int8} convs on the int8 path, "
@@ -714,11 +740,13 @@ def build_net(seed: int):
 
 def phase2(seed: int):
     from efficientq_tpu_torch.data.labels import split_label_brats
+    from efficientq_tpu_torch import nnir
     from efficientq_tpu_torch.data.synthetic import make_subject
     from efficientq_tpu_torch.eval.metrics import dice
     from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
                                                    patch_grid)
     from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.kernels import upsample as K5
 
     dev = torch.device("cuda")
     dgraph, net, folded = build_net(seed)
@@ -741,6 +769,7 @@ def phase2(seed: int):
     preds, secs = [], []
     torch.cuda.synchronize()
     K.qconv3x3_int8_ndhwc.launches = 0
+    K5.upsample_trilinear3d.launches = 0
     for vol in vols:
         t0 = time.perf_counter()
         pred = infer(variables, vol.to(dev), PATCH, OVERLAP)
@@ -748,10 +777,17 @@ def phase2(seed: int):
         secs.append(time.perf_counter() - t0)
         preds.append(pred)
     launches = K.qconv3x3_int8_ndhwc.launches
-    print(f"[phase2] K1 launches {launches} over {3 * forwards} patch-batch "
-          f"forwards ({n_patches} patches per volume, batch 2)", flush=True)
+    k5 = K5.upsample_trilinear3d.launches
+    # the final head's upsamples, each on K5 (ptq.deploy.upsample_serving)
+    n_up = sum(1 for name in nnir.live_nodes(dgraph, dgraph.outputs[-1:])
+               if dgraph.node(name).op == "upsample_k5")
+    print(f"[phase2] K1 launches {launches}, K5 launches {k5} over "
+          f"{3 * forwards} patch-batch forwards ({n_patches} patches per "
+          f"volume, batch 2)", flush=True)
     check(launches == 14 * 3 * forwards,
           f"K1 launched {launches} times, expected {14 * 3 * forwards}")
+    check(n_up > 0 and k5 == n_up * 3 * forwards,
+          f"K5 launched {k5} times, expected {n_up * 3 * forwards}")
     vps = 2 / (secs[1] + secs[2])
     print(f"[phase2] seconds per volume {[round(s, 4) for s in secs]}; "
           f"volumes/s over volumes 2-3: {vps:.4f}", flush=True)
@@ -769,11 +805,13 @@ def phase2(seed: int):
 
     # the same serving run with the plain K1 on the card (launches no K1)
     plain = make_volume_inferencer(
-        dgraph, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, **kw)
+        dgraph, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        upsample=plain_k5, **kw)
     ref = plain(variables, vols[0].to(dev), PATCH, OVERLAP)
     same = int((ref == preds[0]).sum())
     frac = same / ref.numel()
-    print(f"[phase2] volume 1, K1 vs plain K1: {same} of {ref.numel()} "
+    print(f"[phase2] volume 1, K1 and K5 vs their plain versions: {same} of "
+          f"{ref.numel()} "
           f"voxel-classes agree ({frac:.8f})", flush=True)
     check(frac >= AGREE_MIN, f"agreement {frac} < {AGREE_MIN}")
 
@@ -787,7 +825,7 @@ def phase2(seed: int):
           f"logits {tuple(logits.shape)} not finite")
     return launches, dict(dgraph=dgraph, net=net, vols=vols,
                           subjects=subjects, infer=infer, preds=preds,
-                          folded=folded, vps={"phase 2": vps})
+                          folded=folded, vps={"phase 2": vps}, k5=k5)
 
 
 def _bound(nbytes: float, ops: float, peak: float):
@@ -1170,7 +1208,7 @@ def phase4(seed: int, served):
         **kw)(None, vols[0], PATCH, OVERLAP)
     plain = make_s2d_volume_inferencer(
         dgraph, variables, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        stem_conv=stem.stem_s2d_conv_reference, **kw)(
+        stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5, **kw)(
         None, vols[0], PATCH, OVERLAP)
     f32 = served["infer"](variables, served["vols"][0].to(dev), PATCH,
                           OVERLAP)
@@ -1445,7 +1483,7 @@ def phase6(seed: int, served, s2d_preds):
                                                    patch_grid)
     from efficientq_tpu_torch.kernels import qmatmul as KM
     from efficientq_tpu_torch.models import build_uresq, preset_config
-    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+    from efficientq_tpu_torch.ptq import fold_bn
     from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
     from efficientq_tpu_torch.quant import act_codes
 
@@ -1491,7 +1529,7 @@ def phase6(seed: int, served, s2d_preds):
 
     # (c) --deploy mixed + --serve_stem s2d + include_1x1
     fgraph, lvars = served["folded"]
-    mg, mv = to_int8_inference(fgraph, lvars, only_kernel_sizes={(3, 3, 3)})
+    mg, mv = deploy_served(fgraph, lvars, only_kernel_sizes={(3, 3, 3)})
     mpg = KM.to_pallas_inference(mg, include_1x1=True)
     n_k1 = sum(1 for n in mpg.nodes if n.attrs.get("pallas")
                and n.attrs["kernel_size"] == (3, 3, 3))
@@ -1768,8 +1806,7 @@ def phase7(seed: int, smi: str, vol, label, dev):
                                                    patch_grid)
     from efficientq_tpu_torch.kernels import qconv3d as K
     from efficientq_tpu_torch.kernels import stem
-    from efficientq_tpu_torch.ptq import (PTQHyperParams, fold_bn, run_ptq,
-                                          to_int8_inference)
+    from efficientq_tpu_torch.ptq import PTQHyperParams, fold_bn, run_ptq
     from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
     from efficientq_tpu_torch.quant import project_by_iter
 
@@ -1864,7 +1901,7 @@ def phase7(seed: int, smi: str, vol, label, dev):
     torch.cuda.empty_cache()
 
     # serving the calibrated net: int8 float32 path, then s2d bf16
-    dg, dv = to_int8_inference(fg, nnir.to_device(qv, "cpu"))
+    dg, dv = deploy_served(fg, nnir.to_device(qv, "cpu"))
     n_k1 = sum(1 for n in dg.nodes if n.attrs.get("pallas"))
     check(n_k1 == 14, f"calibrated deployment: {n_k1} K1 convs, expected 14")
     dv = nnir.to_device(dv, dev)
@@ -1883,7 +1920,7 @@ def phase7(seed: int, smi: str, vol, label, dev):
           f"calibrated int8 path: {counted.counts} over {forwards} forwards")
     plain = make_volume_inferencer(
         dg, mode="quantized", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        **kw)(dv, vol.to(dev), PATCH, OVERLAP)
+        upsample=plain_k5, **kw)(dv, vol.to(dev), PATCH, OVERLAP)
     check(torch.equal(plain, pred), "calibrated int8 path: K1 != plain K1")
     target = split_label_brats(label)
     d = [dice(pred[0, 0, ..., c].cpu().numpy(), target[c]) for c in range(3)]
@@ -1912,7 +1949,8 @@ def phase7(seed: int, smi: str, vol, label, dev):
           f"calibrated s2d path: launches {counted.counts}")
     s2d_plain = make_s2d_volume_inferencer(
         dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        stem_conv=stem.stem_s2d_conv_reference, capture=False, **s2d_kw)(
+        stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5,
+        capture=False, **s2d_kw)(
         None, host, PATCH, OVERLAP)
     agree_s2d = float((s2d_plain == s2d_pred).float().mean())
     print(f"[phase7] calibrated net on the s2d bf16 path: launches "
@@ -2053,8 +2091,7 @@ def _deployed_export(args):
     from efficientq_tpu_torch import nnir
     from efficientq_tpu_torch.cli import definer
     from efficientq_tpu_torch.models import build_uresq, torch_io
-    from efficientq_tpu_torch.ptq import (apply_qlvl_overrides, fold_bn,
-                                          to_int8_inference)
+    from efficientq_tpu_torch.ptq import apply_qlvl_overrides, fold_bn
 
     hub, _, _, n_class, _ = definer.get_data_cube(args)
     cfg, _, n_mo = definer.get_model_config(args)
@@ -2065,7 +2102,7 @@ def _deployed_export(args):
         fg = apply_qlvl_overrides(fg, overrides)
     fv = torch_io.load_int8_checkpoint(fg, fv, args.pretrain)
     only = {(3, 3, 3)} if args.deploy == "mixed" else None
-    dg, dv = to_int8_inference(fg, fv, only_kernel_sizes=only)
+    dg, dv = deploy_served(fg, fv, only_kernel_sizes=only)
     return dg, dv, hub, n_mo, n_class
 
 
@@ -2316,7 +2353,7 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
         plain = _plain_val(args, lambda g, v: make_volume_inferencer(
             g, patch_batch=min(n_patches, 8), mode="quantized",
             hard_pred=True, multilabel=True,
-            conv3x3_int8=K.qconv3x3_int8_ndhwc_reference),
+            conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, upsample=plain_k5),
             os.path.join(tmp, "plain_int8"))
         int8_val = {}
         for sn, want in plain.items():
@@ -2351,7 +2388,8 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
         plain = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
             g, v, multilabel=True, compute_dtype=torch.bfloat16,
             device="cuda", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-            stem_conv=stem.stem_s2d_conv_reference, capture=False),
+            stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5,
+            capture=False),
             os.path.join(tmp, "plain_s2d"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_d, "infer", "val", f"{sn}.nii.gz"))
@@ -2569,7 +2607,8 @@ def phase9_lits(seed: int, smi: str, work: str):
               f"{len(flagged)} K1 x {forwards} forwards")
         plain = _plain_val(args, lambda g, v: make_volume_inferencer(
             g, patch_batch=batch, mode="quantized", hard_pred=True,
-            multilabel=False, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference),
+            multilabel=False, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+            upsample=plain_k5),
             os.path.join(root, "plain_int8"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_c, "infer", "val", f"{sn}.nii.gz"))
@@ -2688,7 +2727,8 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
         plain = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
             g, v, multilabel=True, compute_dtype=torch.bfloat16,
             device="cuda", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-            stem_conv=stem.stem_s2d_conv_reference, capture=False),
+            stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5,
+            capture=False),
             os.path.join(work, "brats", "plain_knobs"))
         # K2 sums in float32 on the tensor cores, its plain version in
         # float64: a few bf16 stem outputs round one ulp apart, a code with
@@ -3081,7 +3121,8 @@ def phase10_missions(seed: int, smi: str, work: str, brats):
                                g, patch_batch=min(n_patches, 8),
                                mode="quantized", hard_pred=True,
                                multilabel=True,
-                               conv3x3_int8=K.qconv3x3_int8_ndhwc_reference),
+                               conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+                               upsample=plain_k5),
                            os.path.join(root, "plain_int8"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_d, "infer", "val", f"{sn}.nii.gz"))
@@ -3184,7 +3225,6 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
     from efficientq_tpu_torch.kernels import qmatmul as KM
     from efficientq_tpu_torch.models import (build_uresq, min_input_divisor,
                                              preset_config)
-    from efficientq_tpu_torch.ptq import to_int8_inference
     from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
     from efficientq_tpu_torch.ptq.tune import sweep_tail_alpha
 
@@ -3271,7 +3311,8 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
     checked = make_volume_inferencer(dgraph, conv3x3_int8=k1_checked, **ckw)(
         variables, vols[0], PATCH, OVERLAP)
     plain = make_volume_inferencer(
-        dgraph, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, **ckw)(
+        dgraph, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        upsample=plain_k5, **ckw)(
         variables, vols[0], PATCH, OVERLAP)
     col = make_captured_volume_inferencer(dgraph, **ckw)
     with _Launches() as counted:
@@ -3463,7 +3504,7 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
 
     # (g) a LiTS stream of varied depths on the LiTS preset (random
     # weights): captured against eager
-    lg, lv = to_int8_inference(*post_ptq_weights(
+    lg, lv = deploy_served(*post_ptq_weights(
         build_uresq(preset_config("lits", quantize=True)), seed + 11))
     lv = nnir.to_device(lv, dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -3517,6 +3558,167 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
     del lvols, passes, eager_l, cap_l, lv
     torch.cuda.empty_cache()
     return launches
+
+
+# the LiTS serving graph's five upsamples at a chunk of LITS_BATCH
+# patches of 128 x 128 x 64 (phase 12): (input shape, factors, channels
+# first, with the skip); the head as the direct path serves it (NDHWC) and
+# as the s2d path does (NCDHW)
+K5_SHAPES = {
+    "TransUp5": ((LITS_BATCH, 4, 4, 4, 256), (2, 2, 2), False, True),
+    "TransUp6": ((LITS_BATCH, 8, 8, 8, 128), (2, 2, 2), False, True),
+    "TransUp7": ((LITS_BATCH, 16, 16, 16, 64), (2, 2, 2), False, True),
+    "TransUp8": ((LITS_BATCH, 32, 32, 32, 32), (2, 2, 2), False, True),
+    "head": ((LITS_BATCH, 64, 64, 64, 3), (2, 2, 1), False, False),
+    "head_ncdhw": ((LITS_BATCH, 3, 64, 64, 64), (2, 2, 1), True, False),
+}
+
+
+def plain_k5(*args, **kw):
+    """K5's plain version (``F.interpolate``, then the add), the
+    ``upsample`` hook of the plain networks."""
+    from efficientq_tpu_torch.kernels import upsample
+
+    return upsample.upsample_trilinear3d_reference(*args, **kw)
+
+
+def phase12(seed: int, smi: str):
+    """K5 against its plain version: (a) at the LiTS chunk's five
+    upsamples, outputs identical (torch.equal) on normal inputs, and K5's
+    time beside the byte bound, the plain version's and ``F.interpolate``
+    plus the add on PyTorch's own NCDHW layout; (b) a 256 x 256 x 128 LiTS
+    volume through the main path (``validate._build_infer``, captured) on
+    the LiTS preset's int8 deployment: 5 K5 launches a chunk, and the
+    prediction and one chunk's logits identical to the plain network's
+    (the same path with K5's plain version).  Returns (numbers,
+    {path: launches})."""
+    import torch.nn.functional as F
+
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
+                                                   patch_grid)
+    from efficientq_tpu_torch.eval.validate import _build_infer
+    from efficientq_tpu_torch.kernels import build
+    from efficientq_tpu_torch.kernels import upsample as K5
+    from efficientq_tpu_torch.models import build_uresq, preset_config
+    from efficientq_tpu_torch.ptq import to_int8_inference
+    from efficientq_tpu_torch.ptq.deploy import upsample_serving
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    K5._lib()
+    print(f"[phase12] built K5 ({K5_SOURCE}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in _ptxas_lines(build.build_log.get("upsample3d.cu")):
+        print(f"[phase12] K5 ptxas: {line}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    keys = ("ms", "graph_ms", "plain_ms", "graph_plain_ms", "library_ms",
+            "graph_library_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    shapes, max_err = {}, 0.0
+    for name, (shape, f, cf, with_skip) in K5_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device=dev)
+        want = K5.upsample_trilinear3d_reference(x, f, None, cf)
+        skip = (torch.randn(want.shape, generator=gen, device=dev)
+                if with_skip else None)
+        if skip is not None:
+            want = want + skip
+        got = K5.upsample_trilinear3d(x, f, skip, cf)
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want),
+              f"K5 {name} {shape} x {f}: max |K5 - plain| {err}")
+        # PyTorch's own layout for F.interpolate: NCDHW, contiguous
+        xc = (x if cf else x.permute(0, 4, 1, 2, 3)).contiguous()
+        sc = (None if skip is None else
+              skip.permute(0, 4, 1, 2, 3).contiguous())
+        size = tuple(e * k for e, k in zip(xc.shape[2:], f))
+
+        def k5():
+            return K5.upsample_trilinear3d(x, f, skip, cf)
+
+        def plain():
+            return K5.upsample_trilinear3d_reference(x, f, skip, cf)
+
+        def library():
+            y = F.interpolate(xc, size=size, mode="trilinear",
+                              align_corners=False)
+            return y if sc is None else y + sc
+
+        nbytes = 4 * (x.numel() + got.numel() * (2 if with_skip else 1))
+        row = dict(ms=_median_ms(k5), graph_ms=_graph_ms(k5),
+                   plain_ms=_median_ms(plain), graph_plain_ms=_graph_ms(plain),
+                   library_ms=_median_ms(library),
+                   graph_library_ms=_graph_ms(library),
+                   bound_ms=nbytes / HBM_BPS * 1e3)
+        shapes[name] = row
+        if name != "head_ncdhw":  # the chunk's five: the direct path's head
+            for k in keys:
+                tot[k] += row[k]
+        share = 100 * row["bound_ms"] / row["graph_ms"]
+        print(f"[phase12] K5 {name} {shape} x {f}"
+              f"{' + skip' if with_skip else ''}: equals its plain version; "
+              f"device {row['graph_ms']:.4f} ms ({share:.1f} % of the "
+              f"bound {row['bound_ms']:.4f}, {nbytes / 1e6:.1f} MB), with the "
+              f"host {row['ms']:.4f}; plain {row['graph_plain_ms']:.4f}; "
+              f"F.interpolate NCDHW + add {row['graph_library_ms']:.4f}",
+              flush=True)
+        del x, skip, got, want, xc, sc
+    print(f"[phase12] on {smi}: the LiTS chunk's five upsamples ({LITS_BATCH} "
+          f"patches): K5 device {tot['graph_ms']:.4f} ms "
+          f"({tot['graph_ms'] / LITS_BATCH:.4f} a patch, "
+          f"{100 * tot['bound_ms'] / tot['graph_ms']:.1f} % of the bound "
+          f"{tot['bound_ms']:.4f}); plain {tot['graph_plain_ms']:.4f} "
+          f"({tot['graph_plain_ms'] / LITS_BATCH:.4f} a patch); "
+          f"F.interpolate + add {tot['graph_library_ms']:.4f}", flush=True)
+    torch.cuda.empty_cache()
+
+    # (b) the main path on a LiTS volume, K5 against the plain network
+    dg, dv = to_int8_inference(*post_ptq_weights(
+        build_uresq(preset_config("lits", quantize=True)), seed + 12))
+    dv = nnir.to_device(dv, dev)
+    vol = torch.randn((1, *LITS_VOL, 1), generator=gen, device=dev)
+    chunks = -(-len(patch_grid(LITS_VOL, LITS_PATCH, LITS_OVERLAP))
+               // LITS_BATCH)
+    infer = _build_infer(
+        dg, dv, vol, LITS_PATCH, LITS_OVERLAP, mode="quantized",
+        patch_batch="auto", multilabel=False, compute_dtype=None,
+        serve_stem="direct", heads=slice(-1, None), device=dev,
+        tune_serving="off")
+    infer(dv, vol, LITS_PATCH, LITS_OVERLAP)  # captures the full chunks
+    torch.cuda.synchronize()
+    K5.upsample_trilinear3d.launches = 0
+    pred = infer(dv, vol, LITS_PATCH, LITS_OVERLAP)
+    torch.cuda.synchronize()
+    launches = K5.upsample_trilinear3d.launches
+    check(launches == 5 * chunks,
+          f"LiTS main path: K5 launched {launches} times, expected "
+          f"{5 * chunks} ({chunks} chunks)")
+    served = upsample_serving(dg)
+    plain = make_volume_inferencer(
+        served, patch_batch=LITS_BATCH, mode="quantized",
+        heads=slice(-1, None), hard_pred=True, upsample=plain_k5)(
+        dv, vol, LITS_PATCH, LITS_OVERLAP)
+    check(torch.equal(plain, pred),
+          "LiTS main path: the prediction differs from the plain network's")
+    xb = torch.randn((LITS_BATCH, *LITS_PATCH, 1), generator=gen, device=dev)
+    with torch.inference_mode():
+        logits = nnir.apply(served, dv, xb, mode="quantized",
+                            heads=slice(-1, None))
+        plain_logits = nnir.apply(served, dv, xb, mode="quantized",
+                                  heads=slice(-1, None), upsample=plain_k5)
+    check(torch.equal(logits, plain_logits),
+          f"LiTS chunk: logits differ from the plain network's by up to "
+          f"{float((logits - plain_logits).abs().max())}")
+    print(f"[phase12] on {smi}: a {LITS_VOL} LiTS volume through "
+          f"_build_infer (captured, {chunks} chunks of {LITS_BATCH}): K5 "
+          f"launches {launches}; the prediction and one chunk's logits equal "
+          f"the plain network's (torch.equal)", flush=True)
+    del dv, vol, pred, plain, xb, logits, plain_logits, infer
+    torch.cuda.empty_cache()
+    numbers = dict(max_abs_err=max_err, per_patch_graph_ms=tot["graph_ms"]
+                   / LITS_BATCH, **tot, shapes=shapes)
+    return numbers, {"lits_int8_f32": launches}
 
 
 def main():
@@ -3576,6 +3778,7 @@ def main():
                          brats)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    k5, k5_paths = phase12(args.seed, smi)
     if args.profile:
         profile_paths(served, s2d_infer, k3_infer, mixed_infer)
         profile_calibration(args.seed)
@@ -3585,7 +3788,8 @@ def main():
     # launches of each kernel on each serving path, counted from 0 around
     # the path's run
     by_path = {"K1": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
-               "K2": {"s2d_bf16": k2}, "K3": {}, "K4": {}}
+               "K2": {"s2d_bf16": k2}, "K3": {}, "K4": {},
+               "K5": {"int8_f32": served["k5"], **k5_paths}}
     names = {"a": "int8_f32_include_1x1", "b": "s2d_bf16_include_1x1",
              "c": "mixed_s2d_include_1x1", "d": "fq_patch"}
     for path, counts in paths.items():
@@ -3610,7 +3814,8 @@ def main():
     # K3's and K4's: one forward's six 1x1 convs at B = 8 and bfloat16
     # input (phase 5), the B = 2 float32 forward beside them.
     # K1's LiTS numbers (phase 1): one LiTS forward's 18 convs at N = 8,
-    # 16 levels, float32 output, as lits_* keys.
+    # 16 levels, float32 output, as lits_* keys.  K5's (phase 12): the sums
+    # over one LiTS chunk's five upsamples at N = 8, and each shape's.
     k1 = dict(p3["k1"], max_abs_err=max(max_err, p3["k1"]["max_abs_err"],
                                         lits["lits_max_abs_err"]),
               n2_f32_ms=ms, n2_f32_plain_ms=plain_ms, **lits)
@@ -3619,7 +3824,8 @@ def main():
         entry("K2", "stem_s2d_conv", K2_SOURCE, K2_REPLACES, p3["k2"]),
         entry("K3", "fused_int8_matmul", K3_SOURCE, K3_REPLACES, p5["k3"]),
         entry("K4", "fused_qact_matmul", K4_SOURCE, K4_REPLACES,
-              p5["k4"])]}))
+              p5["k4"]),
+        entry("K5", "upsample_trilinear3d", K5_SOURCE, K5_REPLACES, k5)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

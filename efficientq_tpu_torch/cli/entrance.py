@@ -303,7 +303,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=("none", "int8", "mixed"),
                         help="infer-mission serving graph (ptq/deploy.py)")
     # ours: serving artifacts (export.py) — the final-head patch forward
-    # with weights baked in, a torch.export program whose K1-K4 are the
+    # with weights baked in, a torch.export program whose K1-K5 are the
     # registered effq:: operators.  The reference's deployment artifact is a weight file
     # that needs the full model code + exact flags to serve
     # (src/models/PTQConv.py:128-143); an artifact serves with neither.

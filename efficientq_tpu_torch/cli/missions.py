@@ -568,7 +568,7 @@ def infer(args):
     (``export.py``) instead: no --pretrain and no model or quantization
     flags, the artifact is the computation.  ``--export_artifact`` writes
     such an artifact of this run's serving graph (with any --deploy
-    rewrite; its K1-K4 as the registered operators).  Returns the snapshot
+    rewrite; its K1-K5 as the registered operators).  Returns the snapshot
     directory and the seconds of the final test (and of the export)."""
     from ..ptq import apply_qlvl_overrides, fold_bn
 

@@ -211,7 +211,8 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
                            conv3x3_int8: Callable = None,
                            compute_dtype=None, int8_matmul: Callable = None,
                            qact_matmul: Callable = None,
-                           serve_grid: str = "patch", stride_div=None):
+                           serve_grid: str = "patch", stride_div=None,
+                           upsample: Callable = None):
     """Returns infer(variables, image, patch_size, overlap), eager.
 
     ``heads``: the output heads to compute (e.g. ``slice(-1, None)`` for
@@ -219,9 +220,9 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
     ``hard_pred``: return uint8 hard predictions: (M, N, D, H, W, C)
     per-class binaries when ``multilabel`` (sigmoid(x) >= 0.5 <=> x >= 0),
     else (M, N, D, H, W) argmax class ids.  ``mode``: see ``nnir.apply``
-    ('fp', 'quantized' or 'fq').  ``conv3x3_int8``, ``int8_matmul`` and
-    ``qact_matmul`` replace the K1, K3 and K4 wrappers (see
-    ``nnir.eval_node``).  ``compute_dtype``: see
+    ('fp', 'quantized' or 'fq').  ``conv3x3_int8``, ``int8_matmul``,
+    ``qact_matmul`` and ``upsample`` replace the K1, K3, K4 and K5 wrappers
+    (see ``nnir.eval_node``).  ``compute_dtype``: see
     ``nnir.apply``; with hard predictions the heads stay in it through the
     stitch and the decision (the canvas traffic halves), else the logits
     come back as float32.  ``serve_grid="column"``: full-depth column
@@ -229,7 +230,7 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
     predictions cover the original volume."""
     _check_grid(serve_grid, stride_div)
     forward = _patch_forward(graph, mode, heads, hard_pred, compute_dtype,
-                             conv3x3_int8, int8_matmul, qact_matmul)
+                             conv3x3_int8, int8_matmul, qact_matmul, upsample)
 
     def infer(variables, image, patch_size, overlap):
         with torch.inference_mode():
@@ -242,14 +243,14 @@ def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
 
 
 def _patch_forward(graph, mode, heads, hard_pred, compute_dtype,
-                   conv3x3_int8, int8_matmul, qact_matmul):
+                   conv3x3_int8, int8_matmul, qact_matmul, upsample):
     """forward(variables, xb): ``nnir.apply`` of one patch chunk."""
     keep_hd = bool(hard_pred and compute_dtype is not None)
 
     def forward(variables, xb):
         return nnir.apply(graph, variables, xb, mode=mode, heads=heads,
                           conv3x3_int8=conv3x3_int8, int8_matmul=int8_matmul,
-                          qact_matmul=qact_matmul,
+                          qact_matmul=qact_matmul, upsample=upsample,
                           compute_dtype=compute_dtype,
                           keep_head_dtype=keep_hd)
 
@@ -265,7 +266,8 @@ def make_captured_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
                                     int8_matmul: Callable = None,
                                     qact_matmul: Callable = None,
                                     serve_grid: str = "patch",
-                                    stride_div=None):
+                                    stride_div=None,
+                                    upsample: Callable = None):
     """``make_volume_inferencer`` with the patch forward replayed from CUDA
     graphs (``CapturedForward``): the counterpart of the JAX package's
     jitted volume inferencer, with the same arguments and results.  The
@@ -280,7 +282,7 @@ def make_captured_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
     _check_grid(serve_grid, stride_div)
     captured = CapturedForward(_patch_forward(
         graph, mode, heads, hard_pred, compute_dtype, conv3x3_int8,
-        int8_matmul, qact_matmul))
+        int8_matmul, qact_matmul, upsample))
 
     def infer(variables, image, patch_size, overlap):
         if image.device.type != "cuda":
@@ -311,9 +313,10 @@ def _counted():
     from ..kernels.qconv3d import qconv3x3_int8_ndhwc
     from ..kernels.qmatmul import fused_int8_matmul, fused_qact_matmul
     from ..kernels.stem import stem_s2d_conv
+    from ..kernels.upsample import upsample_trilinear3d
 
     return (qconv3x3_int8_ndhwc, stem_s2d_conv, fused_int8_matmul,
-            fused_qact_matmul)
+            fused_qact_matmul, upsample_trilinear3d)
 
 
 def _leaf_key(v):

@@ -86,15 +86,19 @@ def _build_infer(graph, variables, x, patch_size, overlap, *, mode,
                  device, artifact=None, serve_grid="patch", stride_div=None,
                  tune_serving="auto"):
     """The volume inferencer of the first volume ``x``: the artifact's,
-    the s2d stem's or the direct one; captured on a card."""
+    the s2d stem's or the direct one; captured on a card.  The direct
+    one serves the graph with its upsamples on K5
+    (``ptq.deploy.upsample_serving``; the s2d and artifact paths apply it
+    themselves)."""
     if artifact is not None:
         return artifact.volume_inferencer(patch_batch=patch_batch,
                                           hard_pred=True,
                                           multilabel=multilabel)
+    from ..ptq.deploy import make_s2d_volume_inferencer, upsample_serving
+
+    served = upsample_serving(graph)
     auto = patch_batch in ("auto", 0, None)
     if serve_stem == "s2d":
-        from ..ptq.deploy import make_s2d_volume_inferencer
-
         infer = make_s2d_volume_inferencer(
             graph, variables, patch_batch=patch_batch, hard_pred=True,
             multilabel=multilabel,
@@ -115,11 +119,11 @@ def _build_infer(graph, variables, x, patch_size, overlap, *, mode,
     else:
         from .autotune import choose_patch_batch
 
-        pb = choose_patch_batch(graph, variables, x, patch_size, overlap,
+        pb = choose_patch_batch(served, variables, x, patch_size, overlap,
                                 mode=mode, heads=heads,
                                 compute_dtype=compute_dtype,
                                 tune=tune_serving)
-    return volume_inferencer_for(device, graph, patch_batch=pb, mode=mode,
+    return volume_inferencer_for(device, served, patch_batch=pb, mode=mode,
                                  heads=heads, hard_pred=True,
                                  multilabel=multilabel,
                                  compute_dtype=compute_dtype,

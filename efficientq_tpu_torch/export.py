@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``export.py``.  The artifact is the
 computation itself: the final-head patch forward with every weight baked
 in, exported with ``torch.export`` (non-strict) and serialized with
-``torch.export.save``.  K1-K4 are in it as the registered operators of
-``kernels/library.py``, so a consumer calls it with no model-building code
-(``load_serving_artifact`` registers the operators first).
+``torch.export.save``.  K1-K5 are in it as the registered operators of
+``kernels/library.py`` (the upsamples rewritten by
+``ptq.deploy.upsample_serving``), so a consumer calls it with no
+model-building code (``load_serving_artifact`` registers the operators
+first).
 
 Artifact = one zip file:
     manifest.json   serving metadata (patch size, overlap, grid, classes,
@@ -17,7 +19,7 @@ The format string is the port's own (``FORMAT``): the JAX package's
 artifact holds a ``jax.export`` module, this one a PyTorch program, so each
 package's loader refuses the other's zip.  ``platforms`` is the one device
 type the program was exported on (``["cuda"]`` or ``["cpu"]``): its
-weights live there and its K1-K4 run there.
+weights live there and its K1-K5 run there.
 
 Calling convention of the exported program:
     (B, pd, ph, pw, nMod) float32  ->  (1, B, pd, ph, pw, C_out) float32
@@ -80,9 +82,12 @@ def export_patch_model(graph, variables, patch_size, n_mod: int, *,
     ``"symbolic"`` or the pinned int batch size.  ``compute_dtype`` bakes a
     low-precision serving dtype (--serve_dtype bf16) into the program; the
     head comes out float32 either way."""
+    from .ptq.deploy import upsample_serving
+
     patch_size = tuple(ops.triple(patch_size))
     device = torch.device(device)
-    model = _PatchModel(graph, nnir.to_device(variables, device), mode,
+    model = _PatchModel(upsample_serving(graph),
+                        nnir.to_device(variables, device), mode,
                         compute_dtype, slice(-1, None))
 
     def example(b):
@@ -116,7 +121,8 @@ def export_s2d_model(graph, variables, patch_size, n_mod: int, *,
     (``serve_stem='s2d'`` and ``stem_geometry``).  Returns ``(exported,
     batch, stem_attrs)``, or None when the graph has no eligible stem (use
     ``--deploy int8|mixed`` first)."""
-    from .ptq.deploy import channels_first_tail, s2d_stem_serving
+    from .ptq.deploy import (channels_first_tail, s2d_stem_serving,
+                             upsample_serving)
 
     patch_size = tuple(ops.triple(patch_size))
     device = torch.device(device)
@@ -126,8 +132,8 @@ def export_s2d_model(graph, variables, patch_size, n_mod: int, *,
     g2, v2, stem = s2d_stem_serving(channels_first_tail(graph), variables)
     if stem is None:
         return None
-    model = _S2DPatchModel(g2, nnir.to_device(v2, device), "quantized",
-                           compute_dtype, None)
+    model = _S2DPatchModel(upsample_serving(g2), nnir.to_device(v2, device),
+                           "quantized", compute_dtype, None)
     pd, ph, pw = patch_size
     b = int(patch_batch)
     stack = torch.zeros((b, pd // 2 + 1, ph // 2, pw // 2, 8 * n_mod),

@@ -1,10 +1,11 @@
-"""K1-K4 as registered operators (``torch.library.custom_op``), so that an
+"""K1-K5 as registered operators (``torch.library.custom_op``), so that an
 exported program (``torch.export``, ``export.py``) can carry them.
 
-    effq::qconv3x3_int8      K1, kernels/qconv3d.py
-    effq::stem_s2d_conv      K2, kernels/stem.py
-    effq::fused_int8_matmul  K3, kernels/qmatmul.py
-    effq::fused_qact_matmul  K4, kernels/qmatmul.py
+    effq::qconv3x3_int8         K1, kernels/qconv3d.py
+    effq::stem_s2d_conv         K2, kernels/stem.py
+    effq::fused_int8_matmul     K3, kernels/qmatmul.py
+    effq::fused_qact_matmul     K4, kernels/qmatmul.py
+    effq::upsample_trilinear3d  K5, kernels/upsample.py
 
 Each op's CUDA implementation is its kernel's wrapper (which counts the
 launch) and its CPU implementation the plain PyTorch version; a fake
@@ -18,12 +19,12 @@ calling the wrappers directly (no dispatcher between them and the card).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import Tensor
 
-from . import qconv3d, qmatmul, stem
+from . import qconv3d, qmatmul, stem, upsample
 
 _F32 = torch.float32
 
@@ -215,6 +216,48 @@ def fused_qact_matmul(x, w, bias, alpha_act, qlvl_act: int):
                                             int(qlvl_act))
 
 
+# K5 -------------------------------------------------------------------
+
+@torch.library.custom_op("effq::upsample_trilinear3d", mutates_args=(),
+                         device_types="cuda")
+def _upsample_trilinear3d(x: Tensor, scale_factor: List[int],
+                          skip: Optional[Tensor],
+                          channels_first: bool) -> Tensor:
+    return upsample.upsample_trilinear3d(x, scale_factor, skip,
+                                         channels_first)
+
+
+@_upsample_trilinear3d.register_kernel("cpu")
+def _(x, scale_factor, skip, channels_first):
+    return upsample.upsample_trilinear3d_reference(x, scale_factor, skip,
+                                                   channels_first)
+
+
+@_upsample_trilinear3d.register_fake
+def _(x, scale_factor, skip, channels_first):
+    f = list(scale_factor)
+    if channels_first:
+        n, c, d, h, w = x.shape
+        shape = (n, c, d * f[0], h * f[1], w * f[2])
+    else:
+        n, d, h, w, c = x.shape
+        shape = (n, d * f[0], h * f[1], w * f[2], c)
+    dt = x.dtype if skip is None else torch.promote_types(x.dtype,
+                                                          skip.dtype)
+    return x.new_empty(shape, dtype=dt)
+
+
+def upsample_trilinear3d(x, scale_factor, skip=None,
+                         channels_first: bool = False):
+    """``effq::upsample_trilinear3d`` with the K5 wrapper's signature (the
+    ``upsample`` hook)."""
+    from ..ops import triple
+
+    return torch.ops.effq.upsample_trilinear3d(
+        x, list(triple(scale_factor)), skip, bool(channels_first))
+
+
 # the kernel hooks of nnir.apply, op-backed
 HOOKS = dict(conv3x3_int8=qconv3x3_int8, stem_conv=stem_s2d_conv,
-             int8_matmul=fused_int8_matmul, qact_matmul=fused_qact_matmul)
+             int8_matmul=fused_int8_matmul, qact_matmul=fused_qact_matmul,
+             upsample=upsample_trilinear3d)

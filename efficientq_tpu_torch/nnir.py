@@ -56,6 +56,7 @@ from . import ops
 from .kernels.qconv3d import qconv3x3_int8_ndhwc
 from .kernels.qmatmul import fused_int8_matmul, qconv1x1_ndhwc
 from .kernels.stem import stem_s2d_conv
+from .kernels.upsample import upsample_trilinear3d
 from .quant import (act_codes, fake_quant_act, fake_quant_act_k,
                     fake_quant_weight)
 
@@ -364,12 +365,15 @@ def _eval_conv_cf(node: Node, params, x, mode: str, compute_dtype=None):
 def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
               ins, *, mode: str = "fp", conv3x3_int8: Callable = None,
               stem_conv: Callable = None, int8_matmul: Callable = None,
-              qact_matmul: Callable = None, compute_dtype=None):
+              qact_matmul: Callable = None, upsample: Callable = None,
+              compute_dtype=None):
     """Evaluate one inference-mode node.  The kernel hooks replace, for the
     flagged nodes, the int8 3^3 conv (``conv3x3_int8``, default: the K1
     wrapper), the s2d stem (``stem_conv``, K2), the int8 1x1 matmul
-    (``int8_matmul``, K3) and the fake-quant 1x1 matmul (``qact_matmul``,
-    K4); each takes its wrapper's signature (e.g. its plain version)."""
+    (``int8_matmul``, K3), the fake-quant 1x1 matmul (``qact_matmul``,
+    K4) and the serving upsample (``upsample``, K5, the ``upsample_k5``
+    nodes of ``ptq.deploy.upsample_serving``); each takes its wrapper's
+    signature (e.g. its plain version)."""
     if node.op == "conv":
         return _eval_conv(node, params, ins, mode,
                           conv3x3_int8 or qconv3x3_int8_ndhwc,
@@ -379,6 +383,11 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
         return _eval_conv_cf(node, params, ins[0], mode, compute_dtype)
     if node.op == "upsample_cf":
         return ops.upsample3d_cf(ins[0], node.attrs["scale_factor"])
+    if node.op == "upsample_k5":
+        # inputs (x) or (x, skip): the TransUp skip added in K5's epilogue
+        return (upsample or upsample_trilinear3d)(
+            ins[0], node.attrs["scale_factor"],
+            ins[1] if len(ins) > 1 else None, node.attrs["channels_first"])
     if node.op == "stem_s2d":
         # the fused space-to-depth stem (kernels/stem.py, rewritten by
         # ptq/deploy.py::s2d_stem_serving): the input is the (s2d patches,
@@ -544,6 +553,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
           mode: str = "fp", heads: Optional[slice] = None,
           conv3x3_int8: Callable = None, stem_conv: Callable = None,
           int8_matmul: Callable = None, qact_matmul: Callable = None,
+          upsample: Callable = None,
           compute_dtype=None, keep_head_dtype: bool = False,
           capture: Optional[Sequence[str]] = None, train: bool = False,
           seed: Optional[int] = None, remat: int = 0, tf32: bool = False):
@@ -585,7 +595,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     if remat and not train:
         raise ValueError("remat applies to the training forward only "
                          "(train=True)")
-    hooks = (conv3x3_int8, stem_conv, int8_matmul, qact_matmul)
+    hooks = (conv3x3_int8, stem_conv, int8_matmul, qact_matmul, upsample)
     if train and any(h is not None for h in hooks):
         raise ValueError("the training forward takes no kernel hooks")
     if remat and capture is None:
@@ -619,7 +629,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
                     node, params, st, ins, mode=mode,
                     conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
                     int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                    compute_dtype=compute_dtype)
+                    upsample=upsample, compute_dtype=compute_dtype)
             if capture and node.name in capture:
                 captured[node.name] = values[node.name]
             for n in node.inputs:

@@ -15,9 +15,13 @@ The JAX package builds the fused-kernel graph only on a TPU; the port
 builds it on every device, so the CPU tests run the same graph the card
 runs (on the CPU the K1 wrapper takes its plain version).
 
-Serving rewrites: ``channels_first_tail`` (the final head emitted NCDHW)
-and ``s2d_stem_serving`` (the init conv as the fused space-to-depth stem,
-K2), which ``make_s2d_volume_inferencer`` applies for ``--serve_stem s2d``.
+Serving rewrites: ``channels_first_tail`` (the final head emitted NCDHW),
+``s2d_stem_serving`` (the init conv as the fused space-to-depth stem, K2),
+which ``make_s2d_volume_inferencer`` applies for ``--serve_stem s2d``, and
+``upsample_serving`` (every upsample on K5, the TransUp skip add fused in),
+which every serving path applies last (``eval/validate.py::_build_infer``,
+``make_s2d_volume_inferencer``, ``export.py``).  Training, QAT and
+calibration graphs keep ``ops.upsample3d``.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from ..kernels.qmatmul import pack_weights_1x1, to_pallas_inference
 from ..kernels.stem import (extract_pre_s2d_patches, pack_stem_weights,
                             s2d_need_planes, s2d_stem_weights, s2d_supported,
                             s2d_volume)
-from ..nnir import Graph
+from ..nnir import Graph, Node
 
 
 def eligible(qcfg) -> bool:
@@ -117,11 +121,13 @@ def channels_first_tail(graph: Graph) -> Graph:
     makes the 1x1 head conv emit (N, C, D, H, W) (``conv_cf``) and upsamples
     that (``upsample_cf``), so both run along W.  Numerics are unchanged
     (same contraction, same trilinear weights).  Consumers take the class
-    axis at dim 1 of each head.  A tail of another shape is left as is."""
+    axis at dim 1 of each head.  A tail of another shape is left as is.
+    A tail already on K5 (``upsample_serving``) turns channels-first on
+    K5, so the two rewrites apply in either order."""
     out = graph.outputs[-1]
     tail_up = None
     cur = graph.node(out)
-    if cur.op == "upsample":
+    if cur.op in ("upsample", "upsample_k5"):
         tail_up = cur.name
         cur = graph.node(cur.inputs[0])
     a = cur.attrs
@@ -134,6 +140,9 @@ def channels_first_tail(graph: Graph) -> Graph:
         if n.name == cur.name:
             new_nodes.append(dataclasses.replace(n, op="conv_cf",
                                                  attrs=dict(n.attrs)))
+        elif n.name == tail_up and n.op == "upsample_k5":
+            new_nodes.append(dataclasses.replace(
+                n, attrs=dict(n.attrs, channels_first=True)))
         elif n.name == tail_up:
             new_nodes.append(dataclasses.replace(n, op="upsample_cf",
                                                  attrs=dict(n.attrs)))
@@ -142,6 +151,51 @@ def channels_first_tail(graph: Graph) -> Graph:
     # the aux-head nodes stay in the list, unreachable from the single
     # channels-first output, so nnir.apply never evaluates them
     return Graph(new_nodes, [out], graph.input_name)
+
+
+def upsample_serving(graph: Graph) -> Graph:
+    """Serving-only rewrite: every trilinear upsample runs on K5
+    (``kernels/upsample.py``).
+
+    Every ``upsample`` and ``upsample_cf`` becomes an ``upsample_k5`` node
+    (``channels_first`` for the latter).  An ``upsample`` whose one
+    consumer is an ``add`` takes the add's place, with the inputs (the
+    upsample's input, the add's other input), and adds that skip in K5's
+    epilogue.  An upsample with another consumer, or one a batch norm
+    separates from its add (the ``fuse_bn`` graphs' ``TransUp.bn_x``), runs
+    on K5 without the epilogue.  The values are those of the graph as it
+    was: K5's plain version is the unfused pair, and the kernel rounds as
+    it does.  A graph without upsamples comes back as it is, so the
+    rewrite applies once, before or after ``channels_first_tail``."""
+    if not any(n.op in ("upsample", "upsample_cf") for n in graph.nodes):
+        return graph
+    consumers = graph.consumers()
+    fused = {}  # add name -> the upsample it takes
+    for n in graph.nodes:
+        users = consumers.get(n.name, [])
+        if (n.op == "upsample" and len(users) == 1
+                and users[0] != "__output__"
+                and graph.node(users[0]).op == "add"):
+            fused[users[0]] = n
+    gone = {up.name for up in fused.values()}
+    new_nodes = []
+    for n in graph.nodes:
+        if n.name in gone:
+            continue
+        if n.name in fused:
+            up = fused[n.name]
+            skip = next(i for i in n.inputs if i != up.name)
+            new_nodes.append(Node(n.name, "upsample_k5",
+                                  (up.inputs[0], skip),
+                                  {"scale_factor": up.attrs["scale_factor"],
+                                   "channels_first": False}))
+        elif n.op in ("upsample", "upsample_cf"):
+            new_nodes.append(dataclasses.replace(
+                n, op="upsample_k5",
+                attrs=dict(n.attrs, channels_first=n.op == "upsample_cf")))
+        else:
+            new_nodes.append(n)
+    return Graph(new_nodes, list(graph.outputs), graph.input_name)
 
 
 def s2d_stem_serving(graph: Graph, variables):
@@ -270,6 +324,7 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
                                stem_conv: Callable = None,
                                int8_matmul: Callable = None,
                                qact_matmul: Callable = None,
+                               upsample: Callable = None,
                                capture: bool = True):
     """s2d serving (``--serve_stem s2d``): the init conv runs as the fused
     space-to-depth stem K2 (``s2d_stem_serving``), the interior int8 convs
@@ -278,7 +333,8 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     ``graph`` / ``variables``: the int8 deployment (``to_int8_inference``),
     without the channels-first tail: it is applied here, when the caller
     serves the final head only (``heads=slice(-1, None)``) or the graph has
-    one head.  The weights go to ``device`` once.
+    one head, and then ``upsample_serving``.  The weights go to ``device``
+    once.
 
     Returns ``infer(variables_ignored, image, patch_size, overlap)`` that
     takes a host (N, D, H, W, C) volume (NumPy or a CPU tensor) and
@@ -293,8 +349,8 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     read the card from the host need (a capture cannot take them).
     ``patch_batch="auto"`` runs the whole grid as one batch; a device
     out-of-memory halves it and retries, and later volumes keep the
-    smaller batch.  ``conv3x3_int8``, ``stem_conv``,
-    ``int8_matmul`` and ``qact_matmul`` replace the kernel wrappers (see
+    smaller batch.  ``conv3x3_int8``, ``stem_conv``, ``int8_matmul``,
+    ``qact_matmul`` and ``upsample`` replace the kernel wrappers (see
     ``nnir.eval_node``).  The graph may be the mixed deployment
     (``only_kernel_sizes={(3, 3, 3)}``) and carry the 1x1 flags of
     ``to_pallas_inference(include_1x1=True)``."""
@@ -310,6 +366,7 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     g2, v2, stem = s2d_stem_serving(g_in, variables)
     if stem is None:
         return None
+    g2 = upsample_serving(g2)
     dev = torch.device(device)
     v2 = nnir.to_device(v2, dev)
     v_direct = nnir.to_device(variables, dev)
@@ -319,16 +376,17 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
                   mode="quantized", heads=heads, hard_pred=hard_pred,
                   multilabel=multilabel, conv3x3_int8=conv3x3_int8,
                   int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                  compute_dtype=compute_dtype)
-    fallback = (volume_inferencer_for(dev, graph, **direct) if capture
-                else make_volume_inferencer(graph, **direct))
+                  upsample=upsample, compute_dtype=compute_dtype)
+    g_direct = upsample_serving(graph)
+    fallback = (volume_inferencer_for(dev, g_direct, **direct) if capture
+                else make_volume_inferencer(g_direct, **direct))
 
     def forward(variables, xs, parities):
         return nnir.apply(g2, variables, (xs, parities), mode="quantized",
                           heads=None if cf else heads,
                           conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
                           int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                          compute_dtype=compute_dtype,
+                          upsample=upsample, compute_dtype=compute_dtype,
                           keep_head_dtype=keep_hd)
 
     # on a card the patch forward replays from a CUDA graph (the parities
