@@ -249,6 +249,18 @@ Phases, each printed on its own lines:
    logits identical to the same network on K5's plain version.  The
    plain networks of phases 2, 4, 7, 8, 9, 10 and 11 run K5's plain
    version too.
+13. K6 (efficientq_tpu_torch/csrc/groupnorm.cu, built here) against its
+   plain version (float64 statistics in PyTorch): at SegResNet's
+   GroupNorms in a chunk of 8 patches of 128 x 192 x 160 (32 channels at
+   full resolution, emitting K1's codes, to 256 at an eighth; the head's
+   ReLU'd float32) outputs identical (torch.equal) on normal inputs, and
+   per call K6's device time (CUDA graph replay), the byte bound (x read
+   once, the codes or float32 written once, over 3.35 TB/s), the plain
+   version's time and ``F.group_norm`` on an NCDHW tensor with the ReLU
+   and the act-quant as torch ops; then a BraTS study of 155 x 240 x 240
+   through the main path (``validate._build_infer``, captured) on the
+   full-width SegResNet's int8 deployment: 25 K6, 24 K1 and 3 K5 launches
+   a chunk.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
 path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
@@ -289,6 +301,8 @@ K4_SOURCE = "efficientq_tpu_torch/csrc/qmatmul_f32.cu"
 K4_REPLACES = "efficientq_tpu/pallas/qmatmul.py:54"
 K5_SOURCE = "efficientq_tpu_torch/csrc/upsample3d.cu"
 K5_REPLACES = "none: efficientq_tpu/ops.py:198 resizes with jax.image.resize"
+K6_SOURCE = "efficientq_tpu_torch/csrc/groupnorm.cu"
+K6_REPLACES = "none: the JAX package has no GroupNorm"
 # NVIDIA H100 SXM published peaks (dense): device memory bytes/s, bf16 and
 # int8 tensor-core operations/s, float32 operations/s off the tensor cores
 HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
@@ -3721,6 +3735,133 @@ def phase12(seed: int, smi: str):
     return numbers, {"lits_int8_f32": launches}
 
 
+# SegResNet's GroupNorms in a chunk of 8 patches of 128 x 192 x 160
+# (phase 13): (shape, how many a forward runs, codes for K1 or the head's
+# ReLU'd float32)
+SEG_PATCH, SEG_BATCH, SEG_VOL = (128, 192, 160), 8, (155, 240, 240)
+K6_SHAPES = {
+    "level0": ((SEG_BATCH, 128, 192, 160, 32), 4, True),
+    "level1": ((SEG_BATCH, 64, 96, 80, 64), 6, True),
+    "level2": ((SEG_BATCH, 32, 48, 40, 128), 6, True),
+    "level3": ((SEG_BATCH, 16, 24, 20, 256), 8, True),
+    "head": ((SEG_BATCH, 128, 192, 160, 32), 1, False),
+}
+
+
+def phase13(seed: int, smi: str):
+    """K6 against its plain version: (a) at SegResNet's GroupNorms in a
+    chunk of 8 patches, outputs identical (torch.equal) on normal inputs,
+    and K6's device time beside the byte bound, the plain version's and
+    ``F.group_norm`` (NCDHW) with the ReLU and the act-quant as torch ops;
+    (b) a BraTS study through the main path (``validate._build_infer``,
+    captured) on the full-width SegResNet's int8 deployment: 25 K6, 24 K1
+    and 3 K5 launches a chunk.  Returns (numbers, {path: launches})."""
+    import torch.nn.functional as F
+
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.eval.validate import _build_infer
+    from efficientq_tpu_torch.kernels import build
+    from efficientq_tpu_torch.kernels import groupnorm as K6
+    from efficientq_tpu_torch.kernels import qconv3d as K1
+    from efficientq_tpu_torch.kernels import upsample as K5
+    from efficientq_tpu_torch.models import SegResNetConfig, build_segresnet
+    from efficientq_tpu_torch.ptq import to_int8_inference
+    from efficientq_tpu_torch.quant import act_codes
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    K6._lib()
+    print(f"[phase13] built K6 ({K6_SOURCE}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in _ptxas_lines(build.build_log.get("groupnorm.cu")):
+        print(f"[phase13] K6 ptxas: {line}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    alpha = torch.tensor(4.0 / 3.0, device=dev)
+    keys = ("graph_ms", "plain_ms", "library_ms", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    shapes = {}
+    for name, (shape, count, codes) in K6_SHAPES.items():
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev)
+             + torch.randn(c, generator=gen, device=dev))
+        gamma = 1 + 0.2 * torch.randn(c, generator=gen, device=dev)
+        beta = 0.2 * torch.randn(c, generator=gen, device=dev)
+        kw = (dict(quant_alpha=alpha, quant_qlvl=4) if codes
+              else dict(relu=True))
+        got = K6.group_norm(x, gamma, beta, 8, **kw)
+        want = K6.group_norm_reference(x, gamma, beta, 8, **kw)
+        check(torch.equal(got, want), f"K6 {name} {shape}: differs from its "
+              f"plain version at {int((got != want).sum())} elements")
+        del want
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+
+        def k6():
+            return K6.group_norm(x, gamma, beta, 8, **kw)
+
+        def plain():
+            return K6.group_norm_reference(x, gamma, beta, 8, **kw)
+
+        def library():
+            y = F.relu(F.group_norm(xc, 8, gamma, beta, 1e-5))
+            return act_codes(y, alpha, 4) if codes else y
+
+        nbytes = x.numel() * (4 + (1 if codes else 4))
+        row = dict(graph_ms=_graph_ms(k6), plain_ms=_median_ms(plain, 1, 3),
+                   library_ms=_median_ms(library),
+                   bound_ms=nbytes / HBM_BPS * 1e3)
+        shapes[name] = row
+        for k in keys:
+            tot[k] += count * row[k]
+        print(f"[phase13] K6 {name} {shape} -> "
+              f"{'codes' if codes else 'relu float32'}: equals its plain "
+              f"version; device {row['graph_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['graph_ms']:.1f} % of the "
+              f"bound {row['bound_ms']:.4f}, {nbytes / 1e6:.1f} MB); plain "
+              f"{row['plain_ms']:.4f}; F.group_norm NCDHW + relu"
+              f"{' + act-quant' if codes else ''} {row['library_ms']:.4f}",
+              flush=True)
+        del x, xc, got
+        torch.cuda.empty_cache()
+    print(f"[phase13] on {smi}: the 25 GroupNorms of a SegResNet chunk "
+          f"({SEG_BATCH} patches): K6 device {tot['graph_ms']:.4f} ms "
+          f"({100 * tot['bound_ms'] / tot['graph_ms']:.1f} % of the bound "
+          f"{tot['bound_ms']:.4f}); plain {tot['plain_ms']:.4f}; "
+          f"F.group_norm + relu + act-quant {tot['library_ms']:.4f}",
+          flush=True)
+
+    # (b) the main path on a BraTS study
+    cfg = SegResNetConfig(num_mod=4, num_classes=3, quantize=True, qlvl_w=4,
+                          qlvl_act=4, q_first=(256, -1), q_last=(256, -1))
+    dg, dv = to_int8_inference(*post_ptq_weights(build_segresnet(cfg),
+                                                 seed + 13))
+    dv = nnir.to_device(dv, dev)
+    vol = torch.randn((1, *SEG_VOL, 4), generator=gen, device=dev)
+    infer = _build_infer(
+        dg, dv, vol, SEG_PATCH, OVERLAP, mode="quantized",
+        patch_batch="auto", multilabel=True, compute_dtype=None,
+        serve_stem="direct", heads=slice(-1, None), device=dev,
+        tune_serving="off")
+    for _ in range(2):  # eager, then captured
+        infer(dv, vol, SEG_PATCH, OVERLAP)
+    torch.cuda.synchronize()
+    counters = (K6.group_norm, K1.qconv3x3_int8_ndhwc,
+                K5.upsample_trilinear3d)
+    before = [fn.launches for fn in counters]
+    infer(dv, vol, SEG_PATCH, OVERLAP)
+    torch.cuda.synchronize()
+    launches = [fn.launches - b for fn, b in zip(counters, before)]
+    check(launches == [25, 24, 3], f"SegResNet main path: K6, K1 and K5 "
+          f"launched {launches} times a chunk, expected [25, 24, 3]")
+    print(f"[phase13] on {smi}: a {SEG_VOL} BraTS study through "
+          f"_build_infer (captured, one chunk of {SEG_BATCH}): K6, K1, K5 "
+          f"launches {launches}", flush=True)
+    del dv, vol, infer
+    torch.cuda.empty_cache()
+    numbers = dict(per_patch_graph_ms=tot["graph_ms"] / SEG_BATCH, **tot,
+                   shapes=shapes)
+    return numbers, {"segresnet_int8_f32": launches[0]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3779,6 +3920,7 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k5, k5_paths = phase12(args.seed, smi)
+    k6, k6_paths = phase13(args.seed, smi)
     if args.profile:
         profile_paths(served, s2d_infer, k3_infer, mixed_infer)
         profile_calibration(args.seed)
@@ -3789,7 +3931,8 @@ def main():
     # the path's run
     by_path = {"K1": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
                "K2": {"s2d_bf16": k2}, "K3": {}, "K4": {},
-               "K5": {"int8_f32": served["k5"], **k5_paths}}
+               "K5": {"int8_f32": served["k5"], **k5_paths},
+               "K6": k6_paths}
     names = {"a": "int8_f32_include_1x1", "b": "s2d_bf16_include_1x1",
              "c": "mixed_s2d_include_1x1", "d": "fq_patch"}
     for path, counts in paths.items():
@@ -3815,7 +3958,8 @@ def main():
     # input (phase 5), the B = 2 float32 forward beside them.
     # K1's LiTS numbers (phase 1): one LiTS forward's 18 convs at N = 8,
     # 16 levels, float32 output, as lits_* keys.  K5's (phase 12): the sums
-    # over one LiTS chunk's five upsamples at N = 8, and each shape's.
+    # over one LiTS chunk's five upsamples at N = 8, and each shape's.  K6's
+    # (phase 13): the sums over one SegResNet chunk's 25 GroupNorms.
     k1 = dict(p3["k1"], max_abs_err=max(max_err, p3["k1"]["max_abs_err"],
                                         lits["lits_max_abs_err"]),
               n2_f32_ms=ms, n2_f32_plain_ms=plain_ms, **lits)
@@ -3825,7 +3969,8 @@ def main():
         entry("K3", "fused_int8_matmul", K3_SOURCE, K3_REPLACES, p5["k3"]),
         entry("K4", "fused_qact_matmul", K4_SOURCE, K4_REPLACES,
               p5["k4"]),
-        entry("K5", "upsample_trilinear3d", K5_SOURCE, K5_REPLACES, k5)]}))
+        entry("K5", "upsample_trilinear3d", K5_SOURCE, K5_REPLACES, k5),
+        entry("K6", "group_norm", K6_SOURCE, K6_REPLACES, k6)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,13 +15,12 @@ import pickle
 import shutil
 import sys
 import time
-from typing import Tuple
 
 import numpy as np
 
 from ..data import labels as LB
 from ..data.datahub import DataHub
-from ..models import UResQConfig, num_mo as model_num_mo
+from ..models import SegResNetConfig, UResQConfig, num_mo as model_num_mo
 
 
 def parse_triple(s, default=None):
@@ -145,8 +144,59 @@ def get_data_cube(args):
     return hub, data_info, nMod, nClass, patch_size
 
 
-def get_model_config(args) -> Tuple[UResQConfig, str, int]:
-    """Returns (UResQConfig, model_info, num_mo) (definer.py:130-248)."""
+def _quant_config(args):
+    """The model config's quantization fields from the quantization
+    flags."""
+    quantize = args.qconv.lower() != "conv"
+    q_first = q_last = None
+    qlvl_w = qlvl_act = 8
+    if quantize:
+        qlvl_w = args.qlvl_w
+        qlvl_act = args.qlvl_a if (args.qlvl_a and args.qlvl_a > 0) else 256
+        if args.q_first:
+            q_first = tuple(int(x) for x in str(args.q_first).split(","))
+        if args.q_last:
+            q_last = tuple(int(x) for x in str(args.q_last).split(","))
+    return dict(quantize=quantize, qlvl_w=qlvl_w, qlvl_act=qlvl_act,
+                q_weight=(args.qlvl_w or 0) > 0 if quantize else False,
+                q_act=(args.qlvl_a or 0) > 0 if quantize else False,
+                q_first=q_first, q_last=q_last)
+
+
+def _segresnet_config(args, nMod, nClass) -> SegResNetConfig:
+    """SegResNet (MONAI) from the model flags: ``--width`` the initial
+    filters (one number), ``--depth`` the ResBlocks of each encoder level
+    then of each decoder level (2L - 1 numbers: MONAI's blocks_down, then
+    blocks_up), ``--norm gn`` with ``--group_num`` groups (8 unless
+    given), ReLU.  No dropout: MONAI's inference network has none."""
+    if args.norm.lower() != "gn":
+        raise NotImplementedError("SegResNet runs with GroupNorm: pass "
+                                  "--norm gn (and --group_num, 8 if unset)")
+    if args.nla.lower() != "relu":
+        raise RuntimeError(f"SegResNet uses ReLU, got --nla {args.nla}")
+    if args.ds:
+        raise ValueError("SegResNet has no deep-supervision heads (--ds)")
+    widths = [int(x) for x in args.width.split(",")] if args.width else [32]
+    if len(widths) != 1:
+        raise ValueError(f"SegResNet takes one --width, its initial "
+                         f"filters, got {args.width}")
+    depths = ([int(x) for x in args.depth.split(",")] if args.depth
+              else [1, 2, 2, 4, 1, 1, 1])
+    if len(depths) % 2 != 1:
+        raise ValueError(f"SegResNet's --depth lists the encoder's levels "
+                         f"then the decoder's, 2L - 1 numbers, got "
+                         f"{args.depth}")
+    n_down = len(depths) // 2 + 1
+    return SegResNetConfig(
+        num_mod=nMod, num_classes=nClass, init_filters=widths[0],
+        blocks_down=depths[:n_down], blocks_up=depths[n_down:],
+        num_groups=args.group_num or 8, **_quant_config(args))
+
+
+def get_model_config(args):
+    """Returns (model config, model_info, num_mo) (definer.py:130-248):
+    a ``UResQConfig``, or for ``--model SegResNet`` a
+    ``SegResNetConfig`` (one head)."""
     task = args.task.lower()
     nMod = args.nMod or (4 if task == "brats" else 1)
     nClass = args.nClass or (4 if task == "brats" else 3)
@@ -155,8 +205,11 @@ def get_model_config(args) -> Tuple[UResQConfig, str, int]:
     if args.multi_label:
         nClass -= 1
 
-    if args.model not in ("UResQ",):
+    if args.model not in ("UResQ", "SegResNet"):
         raise ValueError(f"Unknown model name: {args.model}")
+    if args.model == "SegResNet":
+        model_info = args.model + "_" + args.norm.upper()
+        return _segresnet_config(args, nMod, nClass), model_info, 1
 
     # --nla selects in-place vs non-in-place ReLU (definer.py:179-184);
     # for the 'mid' ordering this changes the residual math (the in-place
@@ -182,17 +235,6 @@ def get_model_config(args) -> Tuple[UResQConfig, str, int]:
     dils = ([int(x) for x in args.dilation.split(",")] if args.dilation
             else [1] * len(widths))
 
-    quantize = args.qconv.lower() != "conv"
-    q_first = q_last = None
-    qlvl_w = qlvl_act = 8
-    if quantize:
-        qlvl_w = args.qlvl_w
-        qlvl_act = args.qlvl_a if (args.qlvl_a and args.qlvl_a > 0) else 256
-        if args.q_first:
-            q_first = tuple(int(x) for x in str(args.q_first).split(","))
-        if args.q_last:
-            q_last = tuple(int(x) for x in str(args.q_last).split(","))
-
     ds_depth_limit = 3 if 2 in init_stride else 4
     aniso_pool_depth = 99999
     if args.hetero_dim:
@@ -205,11 +247,7 @@ def get_model_config(args) -> Tuple[UResQConfig, str, int]:
         ds=args.ds or None, init_kernel=args.init_kernel, fuse_bn=True,
         drop_cut_thres=128, ds_depth_limit=ds_depth_limit,
         aniso_pool_depth=aniso_pool_depth, aniso_pool_stride=(2, 2, 1),
-        inplace_nla=inplace_nla,
-        quantize=quantize, qlvl_w=qlvl_w, qlvl_act=qlvl_act,
-        q_weight=(args.qlvl_w or 0) > 0 if quantize else False,
-        q_act=(args.qlvl_a or 0) > 0 if quantize else False,
-        q_first=q_first, q_last=q_last)
+        inplace_nla=inplace_nla, **_quant_config(args))
 
     model_info = args.model + "_" + args.norm.upper()
     n_mo = model_num_mo(cfg) if args.ds else 1

@@ -48,7 +48,7 @@ import torch
 from .. import nnir
 from ..data.transforms import center_crop
 from ..eval.validate import validate_seg
-from ..models import (build_uresq, min_input_divisor, torch_io,
+from ..models import (build_model, min_input_divisor, torch_io,
                       validate_spatial_shape)
 from ..ptq import run_ptq, run_ptq_mixed, tail_sensitive_convs
 from ..ptq.select import select_calibration, to_ndhwc
@@ -164,7 +164,7 @@ def train_fp(args):
     hub, data_info, nMod, nClass, patch_size = definer.get_data_cube(args)
     cfg, model_info, n_mo = definer.get_model_config(args)
     validate_spatial_shape(patch_size, cfg, "--patch_size")
-    graph = build_uresq(cfg)
+    graph = build_model(cfg)
     variables = nnir.init(graph, 0, device="cpu")
     seconds = {"data": time.perf_counter() - t0}
 
@@ -331,7 +331,7 @@ def ptq(args):
     t0 = time.perf_counter()
     hub, data_info, nMod, nClass, patch_size = definer.get_data_cube(args)
     cfg, model_info, n_mo = definer.get_model_config(args)
-    graph = build_uresq(cfg)
+    graph = build_model(cfg)
     variables = nnir.init(graph, 0, device="cpu")
 
     validate_spatial_shape(patch_size, cfg, "--patch_size")
@@ -581,7 +581,7 @@ def infer(args):
 
     cfg, model_info, n_mo = definer.get_model_config(args)
     validate_spatial_shape(patch_size, cfg, "--patch_size")
-    graph = build_uresq(cfg)
+    graph = build_model(cfg)
     variables = nnir.init(graph, 0, device="cpu")
     if not args.pretrain:
         raise ValueError("infer requires --pretrain (a PTQ export) or "

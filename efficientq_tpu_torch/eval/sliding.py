@@ -157,8 +157,8 @@ def sliding_window_inference(model_fn: Callable, image: torch.Tensor,
 def column_grid_plan(vol_shape, patch_size, overlap, stride_div):
     """Full-depth column serving plan: (padded D, column patch, overlap).
 
-    D pads up to the net's stride multiple ``stride_div``
-    (``models.uresq.min_input_divisor``'s D entry) and each column spans
+    D pads up to the net's stride multiple ``stride_div`` (the D entry of
+    the served model's ``models.min_input_divisor``) and each column spans
     it whole, with no D overlap; H and W keep the reference's patch and
     grid rule.  On a BraTS volume (155 x 240 x 240, 128^3 patches, overlap
     16) that is 4 columns of 160 x 128 x 128 in place of 8 cubes.  Not for
@@ -174,6 +174,8 @@ def _check_grid(serve_grid, stride_div):
     if serve_grid not in ("patch", "column"):
         raise ValueError(f"unknown serve_grid {serve_grid!r}")
     if serve_grid == "column" and not stride_div:
+        # the JAX package's words (a parity test holds them); the divisor
+        # is the served model's, UResQ's or SegResNet's
         raise ValueError("serve_grid='column' needs stride_div "
                          "(models.uresq.min_input_divisor)")
 
@@ -309,14 +311,18 @@ def volume_inferencer_for(device, graph: nnir.Graph, **kw):
 
 
 def _counted():
-    """The kernel wrappers whose ``launches`` a replay must add to."""
+    """The counters a replay must add to, as (owner, attribute): each
+    kernel wrapper's ``launches`` and the GroupNorm nodes' ``elements``."""
+    from ..kernels.groupnorm import group_norm
     from ..kernels.qconv3d import qconv3x3_int8_ndhwc
     from ..kernels.qmatmul import fused_int8_matmul, fused_qact_matmul
     from ..kernels.stem import stem_s2d_conv
     from ..kernels.upsample import upsample_trilinear3d
 
-    return (qconv3x3_int8_ndhwc, stem_s2d_conv, fused_int8_matmul,
-            fused_qact_matmul, upsample_trilinear3d)
+    return tuple((fn, "launches") for fn in (
+        qconv3x3_int8_ndhwc, stem_s2d_conv, fused_int8_matmul,
+        fused_qact_matmul, upsample_trilinear3d, group_norm)) + (
+        (group_norm, "elements"),)
 
 
 def _leaf_key(v):
@@ -366,8 +372,9 @@ class CapturedForward:
 
     The capture follows an eager call of the same signature, which warmed
     up the libraries.  Its own increments of the kernel wrappers'
-    ``launches`` are taken back and added again at each replay, so the
-    counts are those of the forwards that ran.  A replay's output is a
+    ``launches`` and of the GroupNorm ``elements`` are taken back and added
+    again at each replay, so the counts are those of the forwards that
+    ran.  A replay's output is a
     copy of the graph's static output."""
 
     def __init__(self, forward: Callable):
@@ -403,21 +410,22 @@ class CapturedForward:
         for s, t in zip(static_in, inputs):
             s.copy_(t)
         graph.replay()
-        for fn, n in zip(_counted(), delta):
-            fn.launches += n
+        for (owner, attr), n in zip(_counted(), delta):
+            setattr(owner, attr, getattr(owner, attr) + n)
         return static_out.clone()
 
     def _capture(self, sig, inputs):
         static_in = [t.clone() for t in inputs]
         counted = _counted()
-        before = [fn.launches for fn in counted]
+        before = [getattr(owner, attr) for owner, attr in counted]
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
                 static_out = self.forward(self._held[0], *static_in)
         finally:
-            delta = [fn.launches - b for fn, b in zip(counted, before)]
-            for fn, b in zip(counted, before):
-                fn.launches = b
+            delta = [getattr(owner, attr) - b
+                     for (owner, attr), b in zip(counted, before)]
+            for (owner, attr), b in zip(counted, before):
+                setattr(owner, attr, b)
         self.captures += 1
         return sig, graph, static_in, static_out, delta

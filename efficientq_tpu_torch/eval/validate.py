@@ -64,6 +64,8 @@ def _check_serving(artifact, mesh, serve_grid, stride_div, serve_stem,
                              "with --serve_grid column "
                              "--export_column_depth N")
     elif serve_grid == "column" and not stride_div:
+        # the JAX package's words (a parity test holds them); the divisor
+        # is the served model's, UResQ's or SegResNet's
         raise ValueError("serve_grid='column' needs stride_div "
                          "(models.uresq.min_input_divisor's D entry)")
     if serve_stem == "s2d" and (artifact is not None
@@ -87,16 +89,16 @@ def _build_infer(graph, variables, x, patch_size, overlap, *, mode,
                  tune_serving="auto"):
     """The volume inferencer of the first volume ``x``: the artifact's,
     the s2d stem's or the direct one; captured on a card.  The direct
-    one serves the graph with its upsamples on K5
-    (``ptq.deploy.upsample_serving``; the s2d and artifact paths apply it
+    one serves the graph with its upsamples on K5 and its GroupNorms on K6
+    (``ptq.deploy.serving_graph``; the s2d and artifact paths apply it
     themselves)."""
     if artifact is not None:
         return artifact.volume_inferencer(patch_batch=patch_batch,
                                           hard_pred=True,
                                           multilabel=multilabel)
-    from ..ptq.deploy import make_s2d_volume_inferencer, upsample_serving
+    from ..ptq.deploy import make_s2d_volume_inferencer, serving_graph
 
-    served = upsample_serving(graph)
+    served = serving_graph(graph)
     auto = patch_batch in ("auto", 0, None)
     if serve_stem == "s2d":
         infer = make_s2d_volume_inferencer(
@@ -230,7 +232,8 @@ def validate_seg(
     from its program and ``graph`` / ``variables`` may be None (pass
     ``num_mo=1``: it emits the final head only).  ``serve_grid="column"``:
     full-depth columns (``eval.sliding.column_grid_plan``), which needs
-    ``stride_div`` (``models.uresq.min_input_divisor``'s D entry).
+    ``stride_div`` (the D entry of the served model's
+    ``models.min_input_divisor``).
     ``mesh`` (ROADMAP queue 1 item 9) raises ``NotImplementedError``."""
     _check_serving(artifact, mesh, serve_grid, stride_div, serve_stem,
                    num_mo)
@@ -322,6 +325,8 @@ def inference(graph, variables, loader, sn_list, *, save_dir, patch_size,
         raise ValueError("--serve_grid column does not compose with "
                          "--artifact serving")
     if serve_grid == "column" and not stride_div:
+        # the JAX package's words (a parity test holds them); the divisor
+        # is the served model's, UResQ's or SegResNet's
         raise ValueError("serve_grid='column' needs stride_div "
                          "(models.uresq.min_input_divisor's D entry)")
     os.makedirs(save_dir, exist_ok=True)

@@ -3,9 +3,9 @@
 Counterpart of the JAX package's ``export.py``.  The artifact is the
 computation itself: the final-head patch forward with every weight baked
 in, exported with ``torch.export`` (non-strict) and serialized with
-``torch.export.save``.  K1-K5 are in it as the registered operators of
-``kernels/library.py`` (the upsamples rewritten by
-``ptq.deploy.upsample_serving``), so a consumer calls it with no
+``torch.export.save``.  K1-K6 are in it as the registered operators of
+``kernels/library.py`` (the upsamples and GroupNorms rewritten by
+``ptq.deploy.serving_graph``), so a consumer calls it with no
 model-building code (``load_serving_artifact`` registers the operators
 first).
 
@@ -82,11 +82,11 @@ def export_patch_model(graph, variables, patch_size, n_mod: int, *,
     ``"symbolic"`` or the pinned int batch size.  ``compute_dtype`` bakes a
     low-precision serving dtype (--serve_dtype bf16) into the program; the
     head comes out float32 either way."""
-    from .ptq.deploy import upsample_serving
+    from .ptq.deploy import serving_graph
 
     patch_size = tuple(ops.triple(patch_size))
     device = torch.device(device)
-    model = _PatchModel(upsample_serving(graph),
+    model = _PatchModel(serving_graph(graph),
                         nnir.to_device(variables, device), mode,
                         compute_dtype, slice(-1, None))
 
@@ -122,7 +122,7 @@ def export_s2d_model(graph, variables, patch_size, n_mod: int, *,
     batch, stem_attrs)``, or None when the graph has no eligible stem (use
     ``--deploy int8|mixed`` first)."""
     from .ptq.deploy import (channels_first_tail, s2d_stem_serving,
-                             upsample_serving)
+                             serving_graph)
 
     patch_size = tuple(ops.triple(patch_size))
     device = torch.device(device)
@@ -132,7 +132,7 @@ def export_s2d_model(graph, variables, patch_size, n_mod: int, *,
     g2, v2, stem = s2d_stem_serving(channels_first_tail(graph), variables)
     if stem is None:
         return None
-    model = _S2DPatchModel(upsample_serving(g2), nnir.to_device(v2, device),
+    model = _S2DPatchModel(serving_graph(g2), nnir.to_device(v2, device),
                            "quantized", compute_dtype, None)
     pd, ph, pw = patch_size
     b = int(patch_batch)

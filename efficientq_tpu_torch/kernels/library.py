@@ -1,4 +1,4 @@
-"""K1-K5 as registered operators (``torch.library.custom_op``), so that an
+"""K1-K6 as registered operators (``torch.library.custom_op``), so that an
 exported program (``torch.export``, ``export.py``) can carry them.
 
     effq::qconv3x3_int8         K1, kernels/qconv3d.py
@@ -6,6 +6,7 @@ exported program (``torch.export``, ``export.py``) can carry them.
     effq::fused_int8_matmul     K3, kernels/qmatmul.py
     effq::fused_qact_matmul     K4, kernels/qmatmul.py
     effq::upsample_trilinear3d  K5, kernels/upsample.py
+    effq::group_norm            K6, kernels/groupnorm.py
 
 Each op's CUDA implementation is its kernel's wrapper (which counts the
 launch) and its CPU implementation the plain PyTorch version; a fake
@@ -24,7 +25,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import Tensor
 
-from . import qconv3d, qmatmul, stem, upsample
+from . import groupnorm, qconv3d, qmatmul, stem, upsample
 
 _F32 = torch.float32
 
@@ -257,7 +258,39 @@ def upsample_trilinear3d(x, scale_factor, skip=None,
         x, list(triple(scale_factor)), skip, bool(channels_first))
 
 
+# K6 -------------------------------------------------------------------
+
+@torch.library.custom_op("effq::group_norm", mutates_args=(),
+                         device_types="cuda")
+def _group_norm(x: Tensor, gamma: Tensor, beta: Tensor, num_groups: int,
+                eps: float, relu: bool, quant_alpha: Tensor,
+                quant_qlvl: int) -> Tensor:
+    return groupnorm.group_norm(x, gamma, beta, num_groups, eps, relu,
+                                quant_alpha, quant_qlvl)
+
+
+@_group_norm.register_kernel("cpu")
+def _(x, gamma, beta, num_groups, eps, relu, quant_alpha, quant_qlvl):
+    return groupnorm.group_norm_reference(x, gamma, beta, num_groups, eps,
+                                          relu, quant_alpha, quant_qlvl)
+
+
+@_group_norm.register_fake
+def _(x, gamma, beta, num_groups, eps, relu, quant_alpha, quant_qlvl):
+    return x.new_empty(x.shape,
+                       dtype=torch.int8 if quant_qlvl else x.dtype)
+
+
+def group_norm(x, gamma, beta, num_groups: int, eps: float = 1e-5,
+               relu: bool = False, quant_alpha=None, quant_qlvl: int = 0):
+    """``effq::group_norm`` with the K6 wrapper's signature (the
+    ``group_norm`` hook)."""
+    return torch.ops.effq.group_norm(
+        x, gamma, beta, int(num_groups), float(eps), bool(relu),
+        _scalar(quant_alpha if quant_qlvl else 0.0, x), int(quant_qlvl))
+
+
 # the kernel hooks of nnir.apply, op-backed
 HOOKS = dict(conv3x3_int8=qconv3x3_int8, stem_conv=stem_s2d_conv,
              int8_matmul=fused_int8_matmul, qact_matmul=fused_qact_matmul,
-             upsample=upsample_trilinear3d)
+             upsample=upsample_trilinear3d, group_norm=group_norm)

@@ -7,6 +7,8 @@ mirror the reference's torch module paths, so conversion is mechanical:
   ``X.alpha_w``, ``X.alpha_act``, ``X.act_k`` (an int32 offset-grid shift)
 - bn node ``X``    <->  ``X.weight`` (scale), ``X.bias``, ``X.running_mean``,
   ``X.running_var``
+- group-norm node ``X`` (``group_norm``, or the serving rewrite's
+  ``group_norm_k6``)  <->  ``X.weight`` (scale), ``X.bias``
 
 ``from_jax_variables`` carries the JAX package's variables (as NumPy
 arrays) over to the port, key for key.
@@ -21,6 +23,9 @@ import torch
 
 from ..nnir import Graph
 from ..quant import unpack_int_weight
+
+
+_GROUP_NORMS = ("group_norm", "group_norm_k6")
 
 
 def _to_np(v):
@@ -88,11 +93,13 @@ def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
                 params[node.name]["act_k"] = torch.tensor(
                     int(np.asarray(sd[f"{node.name}.act_k"]).reshape(())),
                     dtype=torch.int32)
-        elif node.op == "bn":
+        elif node.op in ("bn",) + _GROUP_NORMS:
             for ours, theirs in (("scale", "weight"), ("bias", "bias")):
                 v = take(f"{node.name}.{theirs}")
                 if v is not None:
                     params[node.name][ours] = v
+            if node.op != "bn":
+                continue
             for ours, theirs in (("mean", "running_mean"),
                                  ("var", "running_var")):
                 v = take(f"{node.name}.{theirs}")
@@ -195,6 +202,10 @@ def to_torch_state_dict(graph: Graph, variables) -> Dict[str, np.ndarray]:
             for k in ("bias", "alpha_w", "alpha_act", "act_k"):
                 if k in p:
                     out[f"{node.name}.{k}"] = _to_np(p[k])
+        elif node.op in _GROUP_NORMS:
+            p = params[node.name]
+            out[f"{node.name}.weight"] = _to_np(p["scale"])
+            out[f"{node.name}.bias"] = _to_np(p["bias"])
         elif node.op == "bn":
             p = params[node.name]
             s = state[node.name]

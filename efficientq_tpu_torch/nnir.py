@@ -53,6 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import ops
+from .kernels.groupnorm import group_norm as _k6, group_norm_reference
 from .kernels.qconv3d import qconv3x3_int8_ndhwc
 from .kernels.qmatmul import fused_int8_matmul, qconv1x1_ndhwc
 from .kernels.stem import stem_s2d_conv
@@ -138,6 +139,13 @@ class GraphBuilder:
     def bn(self, name, x, ch, eps=1e-5, momentum=0.1):
         return self.add(name, "bn", [x], ch=ch, eps=eps, momentum=momentum)
 
+    def group_norm(self, name, x, ch, num_groups, eps=1e-5):
+        """GroupNorm over ``num_groups`` groups of ``ch`` channels, with a
+        per-channel affine (``scale``, ``bias``) and no running
+        statistics."""
+        return self.add(name, "group_norm", [x], ch=ch,
+                        num_groups=int(num_groups), eps=float(eps))
+
     def relu(self, name, x):
         return self.add(name, "relu", [x])
 
@@ -201,6 +209,10 @@ def init(graph: Graph, seed: int = 0, device="cuda"):
                                  "bias": torch.zeros(ch, **f32)}
             state[node.name] = {"mean": torch.zeros(ch, **f32),
                                 "var": torch.ones(ch, **f32)}
+        elif node.op == "group_norm":
+            ch = node.attrs["ch"]
+            params[node.name] = {"scale": torch.ones(ch, **f32),
+                                 "bias": torch.zeros(ch, **f32)}
     return {"params": params, "state": state}
 
 
@@ -366,14 +378,18 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
               ins, *, mode: str = "fp", conv3x3_int8: Callable = None,
               stem_conv: Callable = None, int8_matmul: Callable = None,
               qact_matmul: Callable = None, upsample: Callable = None,
-              compute_dtype=None):
+              group_norm: Callable = None, compute_dtype=None):
     """Evaluate one inference-mode node.  The kernel hooks replace, for the
     flagged nodes, the int8 3^3 conv (``conv3x3_int8``, default: the K1
     wrapper), the s2d stem (``stem_conv``, K2), the int8 1x1 matmul
     (``int8_matmul``, K3), the fake-quant 1x1 matmul (``qact_matmul``,
-    K4) and the serving upsample (``upsample``, K5, the ``upsample_k5``
-    nodes of ``ptq.deploy.upsample_serving``); each takes its wrapper's
-    signature (e.g. its plain version)."""
+    K4), the serving upsample (``upsample``, K5, the ``upsample_k5``
+    nodes of ``ptq.deploy.upsample_serving``) and the serving GroupNorm
+    (``group_norm``, K6, the ``group_norm_k6`` nodes of
+    ``ptq.deploy.group_norm_serving``); each takes its wrapper's
+    signature (e.g. its plain version).  Every GroupNorm node, either
+    kind, adds the elements it normalizes to ``group_norm.elements`` of
+    ``kernels/groupnorm.py``."""
     if node.op == "conv":
         return _eval_conv(node, params, ins, mode,
                           conv3x3_int8 or qconv3x3_int8_ndhwc,
@@ -404,6 +420,8 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
         s = state[node.name]
         return ops.batch_norm(ins[0], p["scale"], p["bias"], s["mean"],
                               s["var"], node.attrs["eps"])
+    if node.op in ("group_norm", "group_norm_k6"):
+        return _eval_group_norm(node, params, ins[0], group_norm)
     if node.op == "relu":
         return ops.relu(ins[0])
     if node.op == "maxpool":
@@ -418,6 +436,25 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
     if node.op == "add":
         return ins[0] + ins[1]
     raise ValueError(f"unknown op {node.op}")
+
+
+def _eval_group_norm(node: Node, params, x, group_norm: Callable = None):
+    """A ``group_norm`` node (the plain version, on any device) or a
+    ``group_norm_k6`` node of the serving rewrite (K6, or the hook): its
+    ReLU (``relu``) and its consumer's act-quant (``quant_for``,
+    ``quant_qlvl``: int8 codes out) fused in."""
+    a = node.attrs
+    p = params[node.name]
+    _k6.elements += x.numel()
+    if node.op == "group_norm":
+        return group_norm_reference(x, p["scale"], p["bias"],
+                                    a["num_groups"], a["eps"])
+    quant_for = a.get("quant_for")
+    return (group_norm or _k6)(
+        x, p["scale"], p["bias"], a["num_groups"], a["eps"],
+        bool(a.get("relu")),
+        params[quant_for]["alpha_act"] if quant_for else None,
+        a.get("quant_qlvl", 0) if quant_for else 0)
 
 
 def node_seed(seed: int, index: int) -> int:
@@ -553,7 +590,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
           mode: str = "fp", heads: Optional[slice] = None,
           conv3x3_int8: Callable = None, stem_conv: Callable = None,
           int8_matmul: Callable = None, qact_matmul: Callable = None,
-          upsample: Callable = None,
+          upsample: Callable = None, group_norm: Callable = None,
           compute_dtype=None, keep_head_dtype: bool = False,
           capture: Optional[Sequence[str]] = None, train: bool = False,
           seed: Optional[int] = None, remat: int = 0, tf32: bool = False):
@@ -595,7 +632,8 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     if remat and not train:
         raise ValueError("remat applies to the training forward only "
                          "(train=True)")
-    hooks = (conv3x3_int8, stem_conv, int8_matmul, qact_matmul, upsample)
+    hooks = (conv3x3_int8, stem_conv, int8_matmul, qact_matmul, upsample,
+             group_norm)
     if train and any(h is not None for h in hooks):
         raise ValueError("the training forward takes no kernel hooks")
     if remat and capture is None:
@@ -629,7 +667,8 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
                     node, params, st, ins, mode=mode,
                     conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
                     int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                    upsample=upsample, compute_dtype=compute_dtype)
+                    upsample=upsample, group_norm=group_norm,
+                    compute_dtype=compute_dtype)
             if capture and node.name in capture:
                 captured[node.name] = values[node.name]
             for n in node.inputs:

@@ -18,10 +18,12 @@ runs (on the CPU the K1 wrapper takes its plain version).
 Serving rewrites: ``channels_first_tail`` (the final head emitted NCDHW),
 ``s2d_stem_serving`` (the init conv as the fused space-to-depth stem, K2),
 which ``make_s2d_volume_inferencer`` applies for ``--serve_stem s2d``, and
-``upsample_serving`` (every upsample on K5, the TransUp skip add fused in),
-which every serving path applies last (``eval/validate.py::_build_infer``,
+``upsample_serving`` (every upsample on K5, the TransUp skip add fused in)
+and ``group_norm_serving`` (every GroupNorm on K6, with its ReLU and its
+consumer's act-quant fused in), which every serving path applies last,
+together, as ``serving_graph`` (``eval/validate.py::_build_infer``,
 ``make_s2d_volume_inferencer``, ``export.py``).  Training, QAT and
-calibration graphs keep ``ops.upsample3d``.
+calibration graphs keep ``ops.upsample3d`` and the plain GroupNorm.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from .. import nnir, ops
 from ..eval.sliding import (CapturedForward, make_volume_inferencer,
                             patch_grid, sliding_window_inference,
                             volume_inferencer_for)
-from ..kernels.epilogue import fuse_int8_epilogues
+from ..kernels.epilogue import _quant_absorbs_relu, fuse_int8_epilogues
 from ..kernels.qconv3d import pack_weights
 from ..kernels.qmatmul import pack_weights_1x1, to_pallas_inference
 from ..kernels.stem import (extract_pre_s2d_patches, pack_stem_weights,
@@ -198,6 +200,77 @@ def upsample_serving(graph: Graph) -> Graph:
     return Graph(new_nodes, list(graph.outputs), graph.input_name)
 
 
+def group_norm_serving(graph: Graph) -> Graph:
+    """Serving-only rewrite: every live GroupNorm runs on K6
+    (``kernels/groupnorm.py``), as a ``group_norm_k6`` node.
+
+    - GN -> [relu] -> int8 conv (one consumer at each hop, the conv
+      reading it as its data input; ``fuse_int8_epilogues`` may have
+      bypassed the relu already): K6 emits the conv's int8 activation
+      codes (``quant_for``, ``quant_qlvl``; the quantizer's clip at 0 is
+      the relu) and the conv takes them (``input_quantized``), on K1 or on
+      the int8 path;
+    - GN -> relu (its one consumer): K6 emits the ReLU'd float (``relu``),
+      and the relu node becomes an identity;
+    - any other GN: K6 emits the float.
+
+    The values are those of the graph as it was: K6's plain version is the
+    plain GroupNorm, ReLU and act-quant.  A graph without GroupNorms
+    (every UResQ graph) comes back as it is, so the rewrite applies once,
+    in any order with ``upsample_serving``."""
+    if not any(n.op == "group_norm" for n in graph.nodes):
+        return graph
+    live = nnir.live_nodes(graph, graph.outputs)
+    # the live consumers only: an epilogue-bypassed relu stays in the list
+    consumers = {k: [u for u in users if u == "__output__" or u in live]
+                 for k, users in graph.consumers().items()}
+
+    def only_user(name):
+        users = consumers.get(name, [])
+        if len(users) != 1 or users[0] == "__output__":
+            return None
+        return graph.node(users[0])
+
+    attrs_of = {}
+    for n in graph.nodes:
+        if n.op != "group_norm" or n.name not in live:
+            continue
+        attrs = dict(n.attrs, relu=False)
+        nxt = only_user(n.name)
+        relu = nxt if nxt is not None and nxt.op == "relu" else None
+        conv = only_user(relu.name) if relu is not None else nxt
+        src = relu.name if relu is not None else n.name
+        # an int8 conv whose act-quant can take codes (and absorbs a relu)
+        if (conv is not None and _quant_absorbs_relu(conv)
+                and conv.inputs[0] == src and src not in conv.inputs[1:]):
+            attrs.update(quant_for=conv.name,
+                         quant_qlvl=conv.attrs["qcfg"].qlvl_act)
+            attrs_of[conv.name] = dict(conv.attrs, input_quantized=True)
+        elif relu is not None:
+            attrs["relu"] = True
+        attrs_of[n.name] = attrs
+        if relu is not None:
+            attrs_of[relu.name] = None  # an identity
+    new_nodes = []
+    for n in graph.nodes:
+        if n.name not in attrs_of:
+            new_nodes.append(n)
+        elif attrs_of[n.name] is None:
+            new_nodes.append(Node(n.name, "identity", n.inputs, {}))
+        elif n.op == "group_norm":
+            new_nodes.append(dataclasses.replace(n, op="group_norm_k6",
+                                                 attrs=attrs_of[n.name]))
+        else:
+            new_nodes.append(dataclasses.replace(n, attrs=attrs_of[n.name]))
+    return Graph(new_nodes, list(graph.outputs), graph.input_name)
+
+
+def serving_graph(graph: Graph) -> Graph:
+    """The serving rewrites that every serving path applies last:
+    ``upsample_serving`` (K5) and ``group_norm_serving`` (K6)."""
+    return group_norm_serving(upsample_serving(graph))
+
+
 def s2d_stem_serving(graph: Graph, variables):
     """Serving-only rewrite: run the init conv as the fused space-to-depth
     stem (kernels/stem.py, K2).
@@ -333,7 +406,7 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     ``graph`` / ``variables``: the int8 deployment (``to_int8_inference``),
     without the channels-first tail: it is applied here, when the caller
     serves the final head only (``heads=slice(-1, None)``) or the graph has
-    one head, and then ``upsample_serving``.  The weights go to ``device``
+    one head, and then ``serving_graph``.  The weights go to ``device``
     once.
 
     Returns ``infer(variables_ignored, image, patch_size, overlap)`` that
@@ -366,7 +439,7 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
     g2, v2, stem = s2d_stem_serving(g_in, variables)
     if stem is None:
         return None
-    g2 = upsample_serving(g2)
+    g2 = serving_graph(g2)
     dev = torch.device(device)
     v2 = nnir.to_device(v2, dev)
     v_direct = nnir.to_device(variables, dev)
@@ -377,7 +450,7 @@ def make_s2d_volume_inferencer(graph: Graph, variables, *,
                   multilabel=multilabel, conv3x3_int8=conv3x3_int8,
                   int8_matmul=int8_matmul, qact_matmul=qact_matmul,
                   upsample=upsample, compute_dtype=compute_dtype)
-    g_direct = upsample_serving(graph)
+    g_direct = serving_graph(graph)
     fallback = (volume_inferencer_for(dev, g_direct, **direct) if capture
                 else make_volume_inferencer(g_direct, **direct))
 
