@@ -33,7 +33,11 @@ Phases, each printed on its own lines:
    pool, and at C = O = 512 a 16-level conv feeding a 4-level one and the
    other way round, each equal to the plain K1 (torch.equal), with K1's,
    the plain version's and cuDNN's times (per call and as device time)
-   and the bound;
+   and the bound; then K1 taking a float32 input (its quantize pass and
+   the convolution on the codes) at the nine block1 convs of the LiTS
+   serving net (N = 8, 4 levels, the served quant epilogue), equal to
+   ``act_codes`` + K1 on the codes (torch.equal), with both device times,
+   ``act_codes``'s and the bound, and ``prologue_quant_launches``;
 2. the serving slice at full width: the BraTS W4A4 preset with weights
    from ``--seed``, BN folded, post-PTQ weights emulated (projected onto
    the alpha grid, alpha_act = 1), exported and reloaded as an int8
@@ -245,8 +249,10 @@ Phases, each printed on its own lines:
    3.35 TB/s), the plain version's time and ``F.interpolate`` plus the add
    on an NCDHW tensor; then a 256 x 256 x 128 LiTS volume through the
    main path (``validate._build_infer``, captured) on the LiTS preset's
-   int8 deployment: 5 K5 launches a chunk, the prediction and one chunk's
-   logits identical to the same network on K5's plain version.  The
+   int8 deployment: 5 K5 and 18 K1 launches a chunk (9 of them
+   quantizing a float input, ``prologue_quant_launches``), the prediction
+   and one chunk's logits identical to the same network on K5's plain
+   version.  The
    plain networks of phases 2, 4, 7, 8, 9, 10 and 11 run K5's plain
    version too.
 13. K6 (efficientq_tpu_torch/csrc/groupnorm.cu, built here) against its
@@ -260,7 +266,7 @@ Phases, each printed on its own lines:
    and the act-quant as torch ops; then a BraTS study of 155 x 240 x 240
    through the main path (``validate._build_infer``, captured) on the
    full-width SegResNet's int8 deployment: 25 K6, 24 K1 and 3 K5 launches
-   a chunk.
+   a chunk, no K1 launch quantizing a float input (K6 hands K1 codes).
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
 path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
@@ -395,8 +401,9 @@ def setup():
 
 def _ptxas_lines(log):
     """One line per kernel of an nvcc -Xptxas=-v log: the template
-    arguments (K1: brick z, brick y, 16-byte loads; K2: k-steps per tap,
-    output type), registers, barriers, stack and spills."""
+    arguments (K1: brick z, brick y, 16-byte loads, or its float input's
+    pass and the input type; K2: k-steps per tap, output type), registers,
+    barriers, stack and spills."""
     import re
 
     if log is None:
@@ -407,7 +414,11 @@ def _ptxas_lines(log):
         if m:
             t = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", m.group(1))
             k2 = re.search(r"stem_s2d_kernelILi(\d+)ELb(\d)E", m.group(1))
-            name = (f"brick {t.group(1)}x{t.group(2)}x8 "
+            q = re.search(r"qconv3d_int8_kernel_quantizeILb(\d)E",
+                          m.group(1))
+            name = (f"quantize pass, {('f32', 'bf16')[int(q.group(1))]} x"
+                    if q else
+                    f"brick {t.group(1)}x{t.group(2)}x8 "
                     f"{'cp.async' if t.group(3) == '1' else 'byte loads'}"
                     if t else
                     f"k-steps {k2.group(1)} (0: run time), "
@@ -677,6 +688,80 @@ def k1_lits(seed: int):
     by = "bytes" if tot.pop("t_bytes") >= tot.pop("t_ops") else "operations"
     return dict({f"lits_{k}": v for k, v in tot.items()},
                 lits_bound_by=by, lits_max_abs_err=max_err)
+
+
+def k1_float_input(seed: int, smi: str):
+    """Phase 1, K1 with a float input at the LiTS block1 convs (one a
+    stage of ``LITS_STAGES``; N = 8 patches, float32 x, 4 levels of alpha
+    4/3, the served quant epilogue, as the benchmark serves them): device
+    time (CUDA graph replay) of K1 taking x (its
+    quantize pass, then the convolution on the codes) beside ``act_codes``
+    + K1 on the codes (and each alone), the call's bound (float32 x read
+    and codes written once, against its int8 operations), outputs equal
+    (torch.equal), and ``prologue_quant_launches`` (one a call).  Returns
+    the sums over one forward's nine block1 convs."""
+    from efficientq_tpu_torch.kernels import qconv3d as K
+    from efficientq_tpu_torch.quant import act_codes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    n, q = LITS_BATCH, 4
+    alpha = torch.tensor(4.0 / 3.0, device=dev)
+    keys = ("float_input_ms", "separate_ms", "act_codes_ms", "codes_ms",
+            "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    rows = {}
+    before = K.qconv3x3_int8_ndhwc.prologue_quant_launches
+    for s, c in dict.fromkeys(LITS_STAGES):
+        count = LITS_STAGES.count((s, c))
+        x = torch.randn(n, s, s, s, c, device=dev, generator=gen).abs()
+        w = (2 * torch.randint(0, q, (3, 3, 3, c, c), device=dev,
+                               generator=gen) - (q - 1)).to(torch.int8)
+        b = torch.randn(c, device=dev, generator=gen)
+        scale = torch.tensor(0.002, device=dev)
+        kw = dict(quant_alpha=alpha, quant_qlvl=q, w_packed=K.pack_weights(w))
+        qa = act_codes(x, alpha, q)
+
+        def float_input():
+            return K.qconv3x3_int8_ndhwc(x, w, b, alpha, scale, q, **kw)
+
+        def separate():
+            return K.qconv3x3_int8_ndhwc(act_codes(x, alpha, q), w, b,
+                                         alpha, scale, q, x_quantized=True,
+                                         **kw)
+
+        check(torch.equal(float_input(), separate()),
+              f"K1 on float x != act_codes + K1 at {s}^3 x {c}")
+        nbytes = x.numel() * 5 + 27 * c * c + 8 * c
+        bound, by = _bound(nbytes, 2 * x.numel() * 27 * c, INT8_OPS)
+        row = dict(
+            float_input_ms=_graph_ms(float_input),
+            separate_ms=_graph_ms(separate),
+            act_codes_ms=_graph_ms(lambda: act_codes(x, alpha, q)),
+            codes_ms=_graph_ms(lambda: K.qconv3x3_int8_ndhwc(
+                qa, w, b, alpha, scale, q, x_quantized=True, **kw)),
+            bound_ms=bound)
+        rows[f"{s}^3 x {c}"] = row
+        for k in keys:
+            tot[k] += count * row[k]
+        print(f"[phase1] K1 on float x, LiTS block1 N={n} {s}^3 C=O={c} "
+              f"(x{count} a forward): device {row['float_input_ms']:.4f} ms "
+              f"({100 * bound / row['float_input_ms']:.1f} % of the bound "
+              f"{bound:.4f}, {by}); act_codes + K1 on codes "
+              f"{row['separate_ms']:.4f} (act_codes {row['act_codes_ms']:.4f}"
+              f", K1 on codes {row['codes_ms']:.4f}); equal (torch.equal)",
+              flush=True)
+        del x, w, qa, kw
+        torch.cuda.empty_cache()
+    calls = K.qconv3x3_int8_ndhwc.prologue_quant_launches - before
+    print(f"[phase1] on {smi}: one LiTS forward's nine block1 convs (N={n}): "
+          f"K1 on float x {tot['float_input_ms']:.4f} ms, act_codes + K1 "
+          f"{tot['separate_ms']:.4f} ms (act_codes {tot['act_codes_ms']:.4f},"
+          f" K1 on codes {tot['codes_ms']:.4f}), bound {tot['bound_ms']:.4f};"
+          f" {tot['float_input_ms'] / n:.4f} against "
+          f"{tot['separate_ms'] / n:.4f} ms a patch; prologue_quant_launches "
+          f"+{calls} over these calls", flush=True)
+    return dict(tot, shapes=rows)
 
 
 def post_ptq_weights(graph, seed: int):
@@ -3613,6 +3698,7 @@ def phase12(seed: int, smi: str):
                                                    patch_grid)
     from efficientq_tpu_torch.eval.validate import _build_infer
     from efficientq_tpu_torch.kernels import build
+    from efficientq_tpu_torch.kernels import qconv3d as K1
     from efficientq_tpu_torch.kernels import upsample as K5
     from efficientq_tpu_torch.models import build_uresq, preset_config
     from efficientq_tpu_torch.ptq import to_int8_inference
@@ -3702,12 +3788,20 @@ def phase12(seed: int, smi: str):
     infer(dv, vol, LITS_PATCH, LITS_OVERLAP)  # captures the full chunks
     torch.cuda.synchronize()
     K5.upsample_trilinear3d.launches = 0
+    k1 = (K1.qconv3x3_int8_ndhwc.launches,
+          K1.qconv3x3_int8_ndhwc.prologue_quant_launches)
     pred = infer(dv, vol, LITS_PATCH, LITS_OVERLAP)
     torch.cuda.synchronize()
     launches = K5.upsample_trilinear3d.launches
     check(launches == 5 * chunks,
           f"LiTS main path: K5 launched {launches} times, expected "
           f"{5 * chunks} ({chunks} chunks)")
+    k1 = (K1.qconv3x3_int8_ndhwc.launches - k1[0],
+          K1.qconv3x3_int8_ndhwc.prologue_quant_launches - k1[1])
+    check(k1 == (18 * chunks, 9 * chunks),
+          f"LiTS main path: K1 launched {k1[0]} times, {k1[1]} of them "
+          f"quantizing a float input; expected {18 * chunks} and "
+          f"{9 * chunks}")
     served = upsample_serving(dg)
     plain = make_volume_inferencer(
         served, patch_batch=LITS_BATCH, mode="quantized",
@@ -3726,8 +3820,9 @@ def phase12(seed: int, smi: str):
           f"{float((logits - plain_logits).abs().max())}")
     print(f"[phase12] on {smi}: a {LITS_VOL} LiTS volume through "
           f"_build_infer (captured, {chunks} chunks of {LITS_BATCH}): K5 "
-          f"launches {launches}; the prediction and one chunk's logits equal "
-          f"the plain network's (torch.equal)", flush=True)
+          f"launches {launches}, K1 {k1[0]} ({k1[1]} quantizing their float "
+          f"input, the block1 convs); the prediction and one chunk's logits "
+          f"equal the plain network's (torch.equal)", flush=True)
     del dv, vol, pred, plain, xb, logits, plain_logits, infer
     torch.cuda.empty_cache()
     numbers = dict(max_abs_err=max_err, per_patch_graph_ms=tot["graph_ms"]
@@ -3847,14 +3942,19 @@ def phase13(seed: int, smi: str):
     counters = (K6.group_norm, K1.qconv3x3_int8_ndhwc,
                 K5.upsample_trilinear3d)
     before = [fn.launches for fn in counters]
+    prologue = K1.qconv3x3_int8_ndhwc.prologue_quant_launches
     infer(dv, vol, SEG_PATCH, OVERLAP)
     torch.cuda.synchronize()
     launches = [fn.launches - b for fn, b in zip(counters, before)]
-    check(launches == [25, 24, 3], f"SegResNet main path: K6, K1 and K5 "
-          f"launched {launches} times a chunk, expected [25, 24, 3]")
+    prologue = K1.qconv3x3_int8_ndhwc.prologue_quant_launches - prologue
+    check(launches == [25, 24, 3] and prologue == 0,
+          f"SegResNet main path: K6, K1 and K5 launched {launches} times a "
+          f"chunk, K1 quantized {prologue} float inputs; expected "
+          f"[25, 24, 3] and 0 (K6 hands K1 its codes)")
     print(f"[phase13] on {smi}: a {SEG_VOL} BraTS study through "
           f"_build_infer (captured, one chunk of {SEG_BATCH}): K6, K1, K5 "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, K1 prologue quantizations {prologue}",
+          flush=True)
     del dv, vol, infer
     torch.cuda.empty_cache()
     numbers = dict(per_patch_graph_ms=tot["graph_ms"] / SEG_BATCH, **tot,
@@ -3898,6 +3998,7 @@ def main():
         return
     max_err, ms, plain_ms = phase1(args.seed)
     lits = k1_lits(args.seed)
+    float_input = k1_float_input(args.seed, smi)
     k1_f32, served = phase2(args.seed)
     p3 = phase3(args.seed)
     # phase 4 runs the s2d path eagerly: phase 11 (a) holds the captured
@@ -3962,7 +4063,8 @@ def main():
     # (phase 13): the sums over one SegResNet chunk's 25 GroupNorms.
     k1 = dict(p3["k1"], max_abs_err=max(max_err, p3["k1"]["max_abs_err"],
                                         lits["lits_max_abs_err"]),
-              n2_f32_ms=ms, n2_f32_plain_ms=plain_ms, **lits)
+              n2_f32_ms=ms, n2_f32_plain_ms=plain_ms, **lits,
+              lits_block1_float_input=float_input)
     print(json.dumps({"kernels": [
         entry("K1", "qconv3x3_int8_ndhwc", K1_SOURCE, K1_REPLACES, k1),
         entry("K2", "stem_s2d_conv", K2_SOURCE, K2_REPLACES, p3["k2"]),

@@ -5,12 +5,21 @@
 // _qconv3d_kernel, _qconv3d_ring_kernel, _qconv3d_ring_tz_kernel):
 //
 //   y = conv3d(qa, w) * scale + bias        stride 1, padding = dilation
-//   qa: (N, D, H, W, C) int8 activation codes (NDHWC)
+//   qa: (N, D, H, W, C) int8 activation codes (NDHWC), or the codes of
+//       float32 or bfloat16 activations x that K1 quantizes itself (below)
 //   w:  (27, O, Cp) int8 weight codes, k contiguous: w[tap][o][c], input
 //       channels zero-padded to Cp = 32 * ceil(C / 32), made once at
 //       deploy time (kernels/qconv3d.py::pack_weights)
 //   scale, bias: (O,) float32
 //   accumulation in int32 on the int8 tensor cores, so the sum is exact.
+//
+// Prologue, for float input: qa = int8(rint(clip(x / alpha, 0, 1) *
+// (qlvl - 1))), x widened exactly to float32 first, the quant epilogue's
+// arithmetic below.  The JAX package quantizes outside its kernel, in one
+// XLA fusion; in eager PyTorch that is five full-size passes (37 bytes an
+// element).  Here a pass of K1's own reads x once and writes the codes
+// once (5 bytes an element for float32), and the convolution reads the
+// codes as it reads any codes.
 //
 // Epilogues, applied to the float32 y in this order (the Pallas kernel's):
 //   residual      y += residual            (float32 or bfloat16, converted
@@ -66,6 +75,18 @@
 //    stay resident for all of the block's bricks.
 //  - Channel counts that are not a multiple of 16 (C = 3 in the tests)
 //    stage their halo with plain byte loads instead of cp.async.
+//  - Float input: qconv3d_int8_kernel_quantize, launched just before the
+//    convolution on the same stream, writes the codes to a scratch tensor
+//    with 16-byte loads and 8-byte stores, blocks persistent over the
+//    tensor (named with the convolution's prefix, so a trace counts its
+//    time as K1's).  With at most 4 levels a code takes no divide
+//    (act_code.cuh: a code is the count of thresholds x reaches).
+//    Quantizing while staging the halo instead converts each element once
+//    per column tile and about 2.3 times per tile (the halo), and its
+//    loads wait in the tap loop's registers or in 4x the halo's shared
+//    memory (one block an SM instead of two): measured on an H100 at the
+//    LiTS block1 convs, 1.5 times the pass and the convolution together
+//    (PERF.md section 6).
 //  - Epilogue: the int32 sums of a brick go to the spent stage's shared
 //    memory, and the block runs the epilogue over them element-wise, 4
 //    channels a thread, so the residual, y and the int8 codes move in
@@ -74,6 +95,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "act_code.cuh"
 
 namespace {
 
@@ -84,6 +107,7 @@ constexpr int WBYTES = 27 * BN * CK;    // one chunk of weights (27,648 B)
 constexpr int HS = 48;                  // halo row stride: 32 bytes + 16
 constexpr int SR = BN + 4;              // staged sums row stride, words
 constexpr int SMEM_MAX = 232448;        // a block's opt-in shared memory
+constexpr int QUANT_BLOCKS = 132 * 8;   // the prologue pass: 8 an SM
 
 struct Args {
   const int8_t* qa;
@@ -223,6 +247,51 @@ __device__ __forceinline__ void store4(void* p, long long e, bool bf16,
     } else {
       for (int j = 0; j < n; ++j) q[j] = v[j];
     }
+  }
+}
+
+// The codes of a float input x of n elements, act_code(x[i]): 8 elements
+// a thread and step (two 16-byte loads of float32 or one of bfloat16, one
+// 8-byte store), the blocks persistent over the tensor so each warp finds
+// its thresholds once; the last n % 8 elements one a thread.  x is
+// 16-byte aligned, qa 8-byte aligned.
+template <bool BF16>
+__global__ void __launch_bounds__(256)
+qconv3d_int8_kernel_quantize(const void* x, const float* alpha, int qlvl,
+                             int8_t* qa, long long n) {
+  const Quant q = quant_setup(*alpha, qlvl);
+  const long long groups = n / 8;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g < groups; g += stride) {
+    float v[8];
+    if (BF16) {
+      const uint4 u = __ldg(static_cast<const uint4*>(x) + g);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);              // low bf16
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);  // high bf16
+      }
+    } else {
+      const float4 lo = __ldg(static_cast<const float4*>(x) + 2 * g);
+      const float4 hi = __ldg(static_cast<const float4*>(x) + 2 * g + 1);
+      v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    }
+    uint32_t word[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      word[i / 4] |= static_cast<uint32_t>(code_of(v[i], q)) << (8 * (i % 4));
+    reinterpret_cast<uint2*>(qa)[g] = make_uint2(word[0], word[1]);
+  }
+  const long long i = groups * 8 + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) {
+    const float v =
+        BF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i])
+             : static_cast<const float*>(x)[i];
+    qa[i] = static_cast<int8_t>(code_of(v, q));
   }
 }
 
@@ -517,29 +586,33 @@ int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
 }  // namespace
 
 // Plain C entry point for ctypes.  Pointers that do not apply are null:
-// bias (none), residual (no residual epilogue), qalpha and out_i8
-// (quant_qlvl == 0),
-// out_y (quant_qlvl > 0), out_pool (no pool epilogue).  residual is
-// bfloat16 with res_bf16, else float32; out_y and out_pool are bfloat16
-// with out_bf16, else float32.  scale is (O,) with scale_per_channel, else
-// one value.  qa (when C % 16 == 0) and w are 16-byte
-// aligned, residual 8-byte aligned.  The tile plan (brick_z x brick_y x 8
-// voxels, grid_x x grid_y blocks) is kernels/qconv3d.py::_tile_plan's.
-// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// x_alpha and qa (x_qlvl == 0), bias (none), residual (no residual
+// epilogue), qalpha and out_i8 (quant_qlvl == 0), out_y (quant_qlvl > 0),
+// out_pool (no pool epilogue).  x is int8 codes with x_qlvl == 0, else
+// float32 (bfloat16 with x_bf16) activations, quantized to x_qlvl levels
+// of x_alpha into qa (int8, x's shape) first; residual is bfloat16 with
+// res_bf16, else float32; out_y and out_pool are bfloat16 with out_bf16,
+// else float32.  scale is (O,) with scale_per_channel, else one value.  x
+// (codes when C % 16 == 0; floats always), qa and w are 16-byte aligned,
+// residual 8-byte aligned.  The tile plan (brick_z x brick_y x 8 voxels,
+// grid_x x grid_y blocks) is kernels/qconv3d.py::_tile_plan's.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a plan it does not take; it does not
 // synchronise.
-extern "C" int qconv3d_int8_launch(const void* qa, const void* w,
+extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
+                                   void* qa, const void* w,
                                    const void* scale, const void* bias,
                                    const void* residual, const void* qalpha,
                                    void* out_y, void* out_i8, void* out_pool,
                                    int N, int D, int H, int W, int C, int O,
-                                   int dil, int res_relu, int quant_qlvl,
+                                   int dil, int x_qlvl, int x_bf16,
+                                   int res_relu, int quant_qlvl,
                                    int res_bf16, int out_bf16,
                                    int scale_per_channel, int brick_z,
                                    int brick_y, int grid_x, int grid_y,
                                    void* stream) {
   Args a;
-  a.qa = static_cast<const int8_t*>(qa);
+  a.qa = static_cast<const int8_t*>(x_qlvl ? qa : x);
   a.w = static_cast<const int8_t*>(w);
   a.scale = static_cast<const float*>(scale);
   a.bias = static_cast<const float*>(bias);
@@ -574,12 +647,29 @@ extern "C" int qconv3d_int8_launch(const void* qa, const void* w,
   a.stage_bytes = ((loads > staged ? loads : staged) + 127) / 128 * 128;
   const int smem = 2 * a.stage_bytes + (a.nchunks > 1 ? 0 : WBYTES);
   if (bricks > 0x7fffffffLL || grid_x < 1 || grid_x > bricks ||
-      grid_y != (O + BN - 1) / BN || smem > SMEM_MAX || dil < 1)
+      grid_y != (O + BN - 1) / BN || smem > SMEM_MAX || dil < 1 ||
+      x_qlvl < 0 || (x_qlvl && !(x_alpha && qa)))
     return static_cast<int>(cudaErrorInvalidValue);
   a.bricks = static_cast<int>(bricks);
   const dim3 grid(static_cast<unsigned>(grid_x),
                   static_cast<unsigned>(grid_y));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_qlvl) {  // the prologue: x's codes into qa
+    const long long n = static_cast<long long>(N) * D * H * W * C;
+    const long long blocks = (n / 8 + 255) / 256;
+    const unsigned qgrid = static_cast<unsigned>(
+        blocks < QUANT_BLOCKS ? (blocks > 0 ? blocks : 1) : QUANT_BLOCKS);
+    const float* alpha = static_cast<const float*>(x_alpha);
+    int8_t* codes = static_cast<int8_t*>(qa);
+    if (x_bf16)
+      qconv3d_int8_kernel_quantize<true>
+          <<<qgrid, 256, 0, s>>>(x, alpha, x_qlvl, codes, n);
+    else
+      qconv3d_int8_kernel_quantize<false>
+          <<<qgrid, 256, 0, s>>>(x, alpha, x_qlvl, codes, n);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const bool vec = C % 16 == 0;
 #define K1_CASE(BZ, BY)                                          \
   if (brick_z == BZ && brick_y == BY)                            \

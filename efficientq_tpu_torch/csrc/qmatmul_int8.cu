@@ -65,6 +65,8 @@
 
 #include <type_traits>
 
+#include "act_code.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -145,63 +147,8 @@ __device__ __forceinline__ void unpack(const uint4 v, float (&f)[8]) {
   }
 }
 
-// the activation code of v, rint(clip(v / alpha, 0, 1) * qmax)
-__device__ __forceinline__ int act_code(float v, float alpha, float qmax) {
-  const float q = fminf(fmaxf(__fdiv_rn(v, alpha), 0.0f), 1.0f);
-  return static_cast<int>(rintf(__fmul_rn(q, qmax)));
-}
-
-// The activation quantizer of one call: with `thresh`, t[c - 1] is the
-// least x whose code is c or more (NaN past the last code: no x reaches it)
-struct Quant {
-  float alpha, qmax;
-  float t[3];
-  bool thresh;
-};
-
-// The least float x with act_code(x) >= c, for alpha in [2^-60, 2^60]:
-// act_code is monotone in x, so of the 32 consecutive floats around
-// alpha (c - 0.5) / qmax, one per lane, the first that reaches c is it,
-// when the first lane's does not.  All 32 lanes call it; `found` is false
-// when the window misses.
-__device__ __forceinline__ float code_threshold(int c, float alpha,
-                                                float qmax, bool& found) {
-  const float mid =
-      __fmul_rn(__fdiv_rn(static_cast<float>(c) - 0.5f, qmax), alpha);
-  const float x =
-      __uint_as_float(__float_as_uint(mid) + (threadIdx.x & 31u) - 16u);
-  const unsigned hit =
-      __ballot_sync(0xffffffffu, act_code(x, alpha, qmax) >= c);
-  found = hit != 0 && (hit & 1u) == 0;
-  return __shfl_sync(0xffffffffu, x, found ? __ffs(hit) - 1 : 0);
-}
-
-// The quantizer of one call, the same in every warp: thresholds for at
-// most 4 levels and alpha in [2^-60, 2^60], where the window finds them
-// all; else every element takes act_code's divide.
-__device__ Quant quant_setup(float alpha, int qlvl) {
-  Quant q;
-  q.alpha = alpha;
-  q.qmax = static_cast<float>(qlvl - 1);
-  q.thresh = qlvl <= 4 && alpha >= 0x1p-60f && alpha <= 0x1p60f;
-  const bool few = q.thresh;  // uniform over the block
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    q.t[c] = __int_as_float(0x7fffffff);
-    if (few && c + 1 < qlvl) {
-      bool found;
-      q.t[c] = code_threshold(c + 1, alpha, q.qmax, found);
-      q.thresh = q.thresh && found;
-    }
-  }
-  return q;
-}
-
 // Quantize piece e of one raw slice (16 bytes of a row, pieces of a row
-// consecutive) into the [row][k] code tile.  With thresholds a code is
-// the count of thresholds x reaches: the code act_code gives, by
-// monotony, with no divide (NaN reaches none: code 0, as the clip takes
-// it).  Else act_code's divide.
+// consecutive) into the [row][k] code tile (code_of, act_code.cuh).
 template <typename T>
 __device__ __forceinline__ void quantize_piece(const Args& a, int e,
                                                const char* raw,
@@ -217,10 +164,7 @@ __device__ __forceinline__ void quantize_piece(const Args& a, int e,
   for (int i = 0; i < EPP / 4; ++i) word[i] = 0u;
 #pragma unroll
   for (int i = 0; i < EPP; ++i) {
-    const int c = q.thresh ? (f[i] >= q.t[0]) + (f[i] >= q.t[1]) +
-                                 (f[i] >= q.t[2])
-                           : act_code(f[i], q.alpha, q.qmax);
-    word[i / 4] |= static_cast<uint32_t>(c) << (8 * (i % 4));
+    word[i / 4] |= static_cast<uint32_t>(code_of(f[i], q)) << (8 * (i % 4));
   }
   if (EPP == 4) {
     *reinterpret_cast<uint32_t*>(dst) = word[0];

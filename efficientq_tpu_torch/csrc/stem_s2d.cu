@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_code.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -135,62 +137,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the activation code of v, rint(clip(v / alpha, 0, 1) * qmax)
-__device__ __forceinline__ int act_code(float v, float alpha, float qmax) {
-  const float q = fminf(fmaxf(__fdiv_rn(v, alpha), 0.0f), 1.0f);
-  return static_cast<int>(rintf(__fmul_rn(q, qmax)));
-}
-
-// The consumer's quantizer: with `thresh`, t[c - 1] is the least y whose
-// code is c or more (NaN past the last code: no y reaches it)
-struct Quant {
-  float alpha, qmax;
-  float t[3];
-  bool thresh;
-};
-
-// The least float y with act_code(y) >= c, for alpha in [2^-60, 2^60]:
-// act_code is monotone in y, so of the 32 consecutive floats around
-// alpha (c - 0.5) / qmax, one per lane, the first that reaches c is it,
-// when the first lane's does not.  All 32 lanes call it; `found` is false
-// when the window misses.
-__device__ __forceinline__ float code_threshold(int c, float alpha,
-                                                float qmax, bool& found) {
-  const float mid =
-      __fmul_rn(__fdiv_rn(static_cast<float>(c) - 0.5f, qmax), alpha);
-  const float v =
-      __uint_as_float(__float_as_uint(mid) + (threadIdx.x & 31u) - 16u);
-  const unsigned hit = __ballot_sync(FULL, act_code(v, alpha, qmax) >= c);
-  found = hit != 0 && (hit & 1u) == 0;
-  return __shfl_sync(FULL, v, found ? __ffs(hit) - 1 : 0);
-}
-
-// The quantizer of one call, the same in every warp: thresholds for at
-// most 4 levels and alpha in [2^-60, 2^60], where the window finds them
-// all; else every output takes act_code's divide.
-__device__ Quant quant_setup(float alpha, int qlvl) {
-  Quant q;
-  q.alpha = alpha;
-  q.qmax = static_cast<float>(qlvl - 1);
-  q.thresh = qlvl <= 4 && alpha >= 0x1p-60f && alpha <= 0x1p60f;
-  const bool few = q.thresh;  // uniform over the block
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    q.t[c] = __int_as_float(0x7fffffff);
-    if (few && c + 1 < qlvl) {
-      bool found;
-      q.t[c] = code_threshold(c + 1, alpha, q.qmax, found);
-      q.thresh = q.thresh && found;
-    }
-  }
-  return q;
-}
-
-__device__ __forceinline__ int code_of(float y, const Quant& q) {
-  return q.thresh ? (y >= q.t[0]) + (y >= q.t[1]) + (y >= q.t[2])
-                  : act_code(y, q.alpha, q.qmax);
 }
 
 // The output channel of mma column n: in each chunk of BN columns, column

@@ -90,7 +90,7 @@ def _kernel_sources_hash() -> str:
     from ..kernels.build import CSRC
 
     h = hashlib.sha256()
-    for path in sorted(glob.glob(P.join(CSRC, "*.cu"))):
+    for path in sorted(glob.glob(P.join(CSRC, "*.cu*"))):
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]

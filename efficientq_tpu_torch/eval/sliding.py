@@ -312,7 +312,8 @@ def volume_inferencer_for(device, graph: nnir.Graph, **kw):
 
 def _counted():
     """The counters a replay must add to, as (owner, attribute): each
-    kernel wrapper's ``launches`` and the GroupNorm nodes' ``elements``."""
+    kernel wrapper's ``launches``, K1's ``prologue_quant_launches`` and the
+    GroupNorm nodes' ``elements``."""
     from ..kernels.groupnorm import group_norm
     from ..kernels.qconv3d import qconv3x3_int8_ndhwc
     from ..kernels.qmatmul import fused_int8_matmul, fused_qact_matmul
@@ -322,7 +323,8 @@ def _counted():
     return tuple((fn, "launches") for fn in (
         qconv3x3_int8_ndhwc, stem_s2d_conv, fused_int8_matmul,
         fused_qact_matmul, upsample_trilinear3d, group_norm)) + (
-        (group_norm, "elements"),)
+        (qconv3x3_int8_ndhwc, "prologue_quant_launches"),
+        (group_norm, "elements"))
 
 
 def _leaf_key(v):
@@ -371,10 +373,10 @@ class CapturedForward:
     tensor meanwhile.
 
     The capture follows an eager call of the same signature, which warmed
-    up the libraries.  Its own increments of the kernel wrappers'
-    ``launches`` and of the GroupNorm ``elements`` are taken back and added
-    again at each replay, so the counts are those of the forwards that
-    ran.  A replay's output is a
+    up the libraries.  Its own increments of the counters of ``_counted``
+    (the kernel wrappers' launches, K1's prologue quantizations, the
+    GroupNorm elements) are taken back and added again at each replay, so
+    the counts are those of the forwards that ran.  A replay's output is a
     copy of the graph's static output."""
 
     def __init__(self, forward: Callable):

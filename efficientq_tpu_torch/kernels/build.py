@@ -2,9 +2,10 @@
 
 Each source compiles on first use into its own shared library with a
 plain C interface, under ``efficientq_tpu_torch/_build/`` (listed in
-.gitignore), named by a hash of the source and the flags so an edited
-source rebuilds.  ``load_all`` starts one nvcc per source at once.  There
-is no fallback: a missing nvcc or a failed build raises.
+.gitignore), named by a hash of the source, the headers of ``csrc/`` and
+the flags so an edited source or header rebuilds.  ``load_all`` starts
+one nvcc per source at once.  There is no fallback: a missing nvcc or a
+failed build raises.
 """
 from __future__ import annotations
 
@@ -22,10 +23,11 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # sm_90a (Hopper); no fast math, and no FMA contraction, so the float
 # epilogues round exactly as the reference does; ptxas reports each
-# kernel's registers, shared memory and spills
+# kernel's registers, shared memory and spills; csrc/'s headers found
+# from a copy of a source built elsewhere (the timing scripts' variants)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-Xptxas=-v", "-I" + CSRC)
 # the card the kernels are tiled for, NVIDIA H100 (SXM): SMs, and shared
 # memory per SM and per block (opt-in), bytes
 SMS, SMEM_SM, SMEM_BLOCK = 132, 233472, 232448
@@ -51,10 +53,13 @@ def nvcc_path() -> str:
 
 def _paths(source: str):
     """(source path, library path): the library is named by a hash of the
-    source and the flags."""
+    source, the headers and the flags."""
     path = os.path.join(CSRC, source)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for name in [source] + sorted(f for f in os.listdir(CSRC)
+                                  if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return path, os.path.join(BUILD_DIR,
                               f"{stem}-{digest.hexdigest()[:16]}.so")

@@ -14,8 +14,13 @@ of the same function, op for op the JAX package's ``_xla_qconv3x3``.
 only; for CUDA tensors it launches the kernel or raises.  Each launch adds
 one to ``qconv3x3_int8_ndhwc.launches``.
 
-The act-quant prologue of a float input stays a torch op, as in the JAX
-package (its kernel too reads int8 codes produced outside it).
+A float32 or bfloat16 input is quantized by K1 itself, in a pass of its
+own on the card (``qconv3d_int8_kernel_quantize``, in the same source and
+the same launch call) that reads x once and writes its int8 codes once for
+the convolution; the JAX package's kernel reads codes that one XLA fusion
+makes before it, and ``act_codes`` in eager PyTorch is five full-size
+passes.  Each such launch also adds one to
+``qconv3x3_int8_ndhwc.prologue_quant_launches``.
 """
 from __future__ import annotations
 
@@ -105,8 +110,9 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
     padding = dilation, computed in float32 and stored as ``out_dtype``
     (float32 or bfloat16, rounded to nearest even).
 
-    x: (N, D, H, W, C) float (float32 or bfloat16; the codes are taken in
-    float32), or int8 codes when ``x_quantized``;
+    x: (N, D, H, W, C) float (float32 or bfloat16; the codes
+    ``act_codes(x, alpha_act, qlvl_act)`` are taken in float32, on a card
+    by K1's own pass, with one alpha), or int8 codes when ``x_quantized``;
     w_codes: (3, 3, 3, C, O) int8; scale: () or (O,) = alpha_act * alpha_w
     / ((na-1)(nw-1)); w_packed: ``pack_weights(w_codes)``, made at deploy
     time (packed here when None).
@@ -128,15 +134,16 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got "
                          f"{x.device}")
-    qa = x if x_quantized else act_codes(x, alpha_act, qlvl_act)
     if w_packed is None:
         w_packed = pack_weights(w_codes)
-    return _launch(qa, w_packed, w_codes.shape[-1], bias, scale, dilation,
+    return _launch(x, None if x_quantized else (alpha_act, int(qlvl_act)),
+                   w_packed, w_codes.shape[-1], bias, scale, dilation,
                    residual, residual_relu, quant_alpha, quant_qlvl, pool,
                    out_dtype)
 
 
 qconv3x3_int8_ndhwc.launches = 0
+qconv3x3_int8_ndhwc.prologue_quant_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -147,7 +154,7 @@ def _lib():
     from . import build
 
     fn = build.load("qconv3d_int8.cu").qconv3d_int8_launch
-    fn.argtypes = [_P] * 9 + [_I] * 16 + [_P]  # else ints pass as 32-bit
+    fn.argtypes = [_P] * 11 + [_I] * 18 + [_P]  # else ints pass as 32-bit
     fn.restype = _I
     return fn
 
@@ -240,20 +247,34 @@ def _on_card(v, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(v, np.float32), device=dev)
 
 
-def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
-            quant_alpha, quant_qlvl, pool, out_dtype):
-    dev = qa.device
-    qa = _aligned(qa.contiguous(), 16)
-    n, d, h, w, c = qa.shape
-    if qa.dtype != torch.int8 or qa.numel() == 0:
-        raise ValueError(f"K1 needs non-empty int8 codes, got {qa.dtype} "
-                         f"{tuple(qa.shape)}")
+def _launch(x, x_quant, w_packed, o, bias, scale, dilation, residual,
+            residual_relu, quant_alpha, quant_qlvl, pool, out_dtype):
+    """K1 on the card: ``x`` int8 codes (``x_quant`` None), or float32 /
+    bfloat16 activations that K1's pass quantizes with ``x_quant`` =
+    (alpha, levels) into a scratch tensor of codes first."""
+    dev = x.device
+    x = _aligned(x.contiguous(), 16)
+    n, d, h, w, c = x.shape
+    if x_quant is None and (x.dtype != torch.int8 or x.numel() == 0):
+        raise ValueError(f"K1 needs non-empty int8 codes, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    x_alpha, x_qlvl = None, 0
+    if x_quant is not None:
+        if x.dtype not in _FLOAT_OUT or x.numel() == 0:
+            raise ValueError(f"K1 quantizes a non-empty float32 or bfloat16 "
+                             f"input, got {x.dtype} {tuple(x.shape)}")
+        x_alpha = _on_card(x_quant[0], dev).reshape(-1).contiguous()
+        x_qlvl = x_quant[1]
+        if x_alpha.numel() != 1 or x_qlvl < 2:
+            raise ValueError(f"K1's input quantizer takes one alpha and 2 or "
+                             f"more levels, got {x_alpha.numel()} alphas and "
+                             f"{x_qlvl} levels")
     if (w_packed.dtype != torch.int8 or w_packed.device != dev
             or tuple(w_packed.shape) != (27, o, -(-c // _CK) * _CK)
             or not w_packed.is_contiguous()):
         raise ValueError(f"packed weights {w_packed.dtype} "
                          f"{tuple(w_packed.shape)} on {w_packed.device} do "
-                         f"not fit codes {tuple(qa.shape)} -> {o} channels")
+                         f"not fit input {tuple(x.shape)} -> {o} channels")
     w_packed = _aligned(w_packed, 16)
     dil = int(dilation)
     if dil < 1:
@@ -275,6 +296,9 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
                              f"{(n, d, h, w, o)}")
     qalpha = (_on_card(quant_alpha, dev).reshape(1).contiguous()
               if quant_qlvl else None)
+    # the prologue's codes of a float x, which the convolution then reads
+    codes = (torch.empty(x.shape, device=dev, dtype=torch.int8)
+             if x_qlvl else None)
     out = torch.empty((n, d, h, w, o), device=dev,
                       dtype=torch.int8 if quant_qlvl else out_dtype)
     pooled = (torch.empty((n, d // 2, h // 2, w // 2, o), device=dev,
@@ -285,11 +309,12 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
         return t.data_ptr() if t is not None else None
 
     with torch.cuda.device(dev):
-        rc = _lib()(ptr(qa), ptr(w_packed), ptr(scale_v), ptr(bias_v),
-                    ptr(res), ptr(qalpha),
+        rc = _lib()(ptr(x), ptr(x_alpha), ptr(codes), ptr(w_packed),
+                    ptr(scale_v), ptr(bias_v), ptr(res), ptr(qalpha),
                     None if quant_qlvl else ptr(out),
                     ptr(out) if quant_qlvl else None, ptr(pooled),
-                    n, d, h, w, c, o, dil, int(bool(residual_relu)),
+                    n, d, h, w, c, o, dil, x_qlvl,
+                    int(x.dtype == torch.bfloat16), int(bool(residual_relu)),
                     int(quant_qlvl),
                     int(res is not None and res.dtype == torch.bfloat16),
                     int(out_dtype == torch.bfloat16),
@@ -298,4 +323,5 @@ def _launch(qa, w_packed, o, bias, scale, dilation, residual, residual_relu,
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
     qconv3x3_int8_ndhwc.launches += 1
+    qconv3x3_int8_ndhwc.prologue_quant_launches += x_quant is not None
     return (out, pooled) if pool else out

@@ -27,7 +27,12 @@ rounding-level perturbations.
 
 K1 also at the LiTS preset's 512-channel shapes and at the 16-level grids
 of the mixed-precision recipe, and a deployment with offset activation
-grids (``act_k``) against its quantized forward.
+grids (``act_k``) against its quantized forward.  K1 quantizing a float32
+or bfloat16 input itself: equal to the plain version (whose
+``act_codes`` quantizes in separate passes) at the nine LiTS block1
+shapes, with the residual and pool epilogues, on inputs dense in .5
+ties; its codes equal to ``act_codes`` at every grid the kernel takes;
+and one call replayed from a CUDA graph.
 
 Training: one train step on the card in exact float32 against the CPU's,
 remat and the dropout masks on the card, and ``ops.batch_norm_train``.
@@ -292,6 +297,190 @@ def test_cuda_k1_lits_shapes_match_plain(name, bf16, cuda):
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         np.testing.assert_array_equal(g, r)
+
+
+def tie_dense(alpha, qlvl, bf16=False):
+    """Float32 inputs at the edges of K1's input quantizer
+    ``rint(clip(x / alpha, 0, 1) * (qlvl - 1))``: the 17 x 17 floats
+    around fl(fl((k + 0.5) / (qlvl - 1)) * alpha) (17 quotients, 17 x
+    around each), which hold x whose float32 quotient and product land
+    exactly on a .5 tie (rounded half to even), and their neighbours;
+    zeros, negatives, the clip's ends and values far past it.  With
+    ``bf16`` the values rounded to bfloat16 and their bfloat16 neighbours
+    (bfloat16 x lands on a tie only where alpha and qlvl - 1 are powers of
+    two)."""
+    qmax, a = np.float32(qlvl - 1), np.float32(abs(alpha))
+    ties = np.arange(qlvl - 1, dtype=np.float32) + np.float32(0.5)
+    off = np.arange(-8, 9)
+
+    def around(v):
+        return (v.view(np.int32)[:, None] + off).astype(np.int32).view(
+            np.float32).ravel()
+
+    x = around((around((ties / qmax).astype(np.float32)) * a)
+               .astype(np.float32))
+    x = np.concatenate([x, -x[::7], np.float32(
+        [0.0, -0.0, a, np.nextafter(a, 0), np.nextafter(a, np.inf), 2 * a,
+         1e3, -1e3, 3e38, -3e38])]).astype(np.float32)
+    if bf16:
+        bits = torch.from_numpy(x).to(torch.bfloat16).view(torch.int16)
+        x = torch.cat([bits, bits + 1, bits - 1]).view(
+            torch.bfloat16).float().numpy()
+    return np.unique(x[np.isfinite(x)])
+
+
+def tie_input(shape, alpha, qlvl, dtype, device, seed):
+    """x of ``shape`` on ``device``: half of its elements drawn from
+    ``tie_dense(alpha, qlvl)``, half |N(0, 1)| * alpha * 1.2, so every
+    part of the volume (its edges too) holds ties, negatives, zeros and
+    values past the clip; in ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pool = torch.from_numpy(tie_dense(alpha, qlvl, dtype == torch.bfloat16)
+                            ).to(device)
+    pick = pool[torch.randint(len(pool), shape, device=device,
+                              generator=gen)]
+    rand = torch.randn(shape, device=device, generator=gen).abs() * (
+        1.2 * abs(alpha))
+    half = torch.rand(shape, device=device, generator=gen) < 0.5
+    return torch.where(half, pick, rand).to(dtype)
+
+
+# the LiTS serving net's nine block1 convs (UResBlock1-9
+# Layer1.block1.conv) at a 128 x 128 x 64 patch: (extent, C = O).  Each
+# takes a float input (the stem's, a TransDown's or K5's output) that K1
+# quantizes to 4 levels, and emits block2's 4-level codes
+# (epilogue_quant_for, kernels/epilogue.py rule 1)
+LITS_BLOCK1 = [(64, 32), (32, 64), (16, 128), (8, 256), (4, 512), (8, 256),
+               (16, 128), (32, 64), (64, 32)]
+LITS_ALPHA = 4 / 3  # the benchmark configuration's 4-level activation range
+
+
+def _block1_call(i, dtype, device, epilogue, n=8):
+    """(args, kwargs) of K1 at LiTS block i + 1 (N = 8 patches) with a
+    tie-dense float input of ``dtype``; ``epilogue``: "quant" (the served
+    graph's), "residual" (a residual with relu, ``dtype`` out) or "pool"
+    (``dtype`` out and the pool)."""
+    s, c = LITS_BLOCK1[i]
+    gen = torch.Generator(device=device).manual_seed(300 + i)
+    x = tie_input((n, s, s, s, c), LITS_ALPHA, NA, dtype, device, 400 + i)
+    w = (2 * torch.randint(0, NA, (3, 3, 3, c, c), device=device,
+                           generator=gen) - (NA - 1)).to(torch.int8)
+    b = torch.randn(c, device=device, generator=gen)
+    alpha = torch.tensor(LITS_ALPHA, device=device)
+    kw = dict(w_packed=K.pack_weights(w))
+    if epilogue == "quant":
+        kw.update(quant_alpha=alpha, quant_qlvl=NA)
+    elif epilogue == "residual":
+        kw.update(residual=torch.randn(n, s, s, s, c, device=device,
+                                       generator=gen).to(dtype),
+                  residual_relu=True, out_dtype=dtype)
+    else:
+        kw.update(pool=True, out_dtype=dtype)
+    return (x, w, b, alpha, torch.tensor(0.002, device=device), NA), kw
+
+
+def _check_float_k1(args, kw):
+    """The float-input K1 call equals the plain version (torch.equal), is
+    one launch, and quantized its input in its prologue."""
+    before = (K.qconv3x3_int8_ndhwc.launches,
+              K.qconv3x3_int8_ndhwc.prologue_quant_launches)
+    got = K.qconv3x3_int8_ndhwc(*args, **kw)
+    assert (K.qconv3x3_int8_ndhwc.launches,
+            K.qconv3x3_int8_ndhwc.prologue_quant_launches) == (
+                before[0] + 1, before[1] + 1)
+    ref = K.qconv3x3_int8_ndhwc_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("i", range(len(LITS_BLOCK1)),
+                         ids=[f"UResBlock{i + 1}-{s}cube-c{c}"
+                              for i, (s, c) in enumerate(LITS_BLOCK1)])
+def test_cuda_k1_float_input_at_lits_block1(i, dtype, cuda):
+    """K1 quantizing its float32 or bfloat16 input in its prologue, at the
+    LiTS block1 shapes with the served graph's quant epilogue: torch.equal
+    to the plain version, whose act_codes quantizes in separate passes."""
+    _check_float_k1(*_block1_call(i, dtype, cuda, "quant"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("epilogue", ["residual", "pool"])
+@pytest.mark.parametrize("i", [1, 3], ids=["32cube-c64", "8cube-c256"])
+def test_cuda_k1_float_input_with_residual_and_pool(i, epilogue, dtype,
+                                                    cuda):
+    _check_float_k1(*_block1_call(i, dtype, cuda, epilogue))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("qlvl,alpha", [(2, 1.1), (3, 1.1), (4, 4 / 3),
+                                        (4, 0.37), (4, 3e-18), (16, 2.5),
+                                        (128, 0.9), (4, -0.8)])
+def test_cuda_k1_prologue_codes_are_exact(qlvl, alpha, dtype, cuda):
+    """With the identity at the centre tap, scale 1 and no bias, y is the
+    input's code itself: K1's prologue codes (thresholds at 2-4 levels,
+    the divide at 16 and 128 levels, an extreme or negative alpha) equal
+    act_codes bit for bit on ``tie_dense``'s values, at +-inf and random;
+    NaN gives code 0, as the clip takes it."""
+    from efficientq_tpu_torch.quant import act_codes
+
+    c = 32
+    x = np.concatenate([tie_dense(alpha, qlvl, dtype == "bf16"),
+                        np.float32([np.inf, -np.inf, np.nan]),
+                        np.random.RandomState(qlvl).randn(4096).astype(
+                            np.float32) * np.float32(abs(alpha))])
+    x = np.resize(x, (-(-x.size // (8 * c)) * 8, c)).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda).reshape(1, -1, 1, 8, c)
+    if dtype == "bf16":
+        xt = xt.to(torch.bfloat16)
+    w = torch.zeros(3, 3, 3, c, c, dtype=torch.int8, device=cuda)
+    w[1, 1, 1] = torch.eye(c, dtype=torch.int8, device=cuda)
+    at = torch.tensor(alpha, device=cuda)
+    before = K.qconv3x3_int8_ndhwc.prologue_quant_launches
+    y = K.qconv3x3_int8_ndhwc(xt, w, None, at, 1.0, qlvl)
+    torch.cuda.synchronize()
+    assert K.qconv3x3_int8_ndhwc.prologue_quant_launches == before + 1
+    nan = torch.isnan(xt)
+    assert int(nan.sum()) > 0 and torch.equal(y[nan], torch.zeros_like(
+        y[nan]))
+    assert torch.equal(y[~nan], act_codes(xt, at, qlvl)[~nan].float())
+
+
+@pytest.mark.cuda
+def test_cuda_k1_float_input_replays_in_a_cuda_graph(cuda):
+    """A float-input K1 call (packed weights, alphas on the card) is
+    captured in a CUDA graph, and its replay equals the eager call."""
+    args, kw = _block1_call(1, torch.float32, cuda, "quant", n=2)
+    eager = K.qconv3x3_int8_ndhwc(*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.qconv3x3_int8_ndhwc(*args, **kw)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager) and bool(eager.any())
+
+
+@pytest.mark.cuda
+def test_cuda_k1_takes_float32_or_bfloat16_input(cuda):
+    codes = torch.zeros(3, 3, 3, 8, 4, dtype=torch.int8, device=cuda)
+    for dt in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            K.qconv3x3_int8_ndhwc(torch.zeros(1, 4, 4, 4, 8, dtype=dt,
+                                              device=cuda), codes, None,
+                                  1.0, 1.0, NA)
+    with pytest.raises(ValueError, match="one alpha"):
+        K.qconv3x3_int8_ndhwc(torch.zeros(1, 4, 4, 4, 8, device=cuda), codes,
+                              None, torch.ones(8, device=cuda), 1.0, NA)
 
 
 @pytest.mark.cuda

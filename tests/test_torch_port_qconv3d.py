@@ -4,6 +4,11 @@ realization ``_xla_qconv3x3``.  The cases are shared with
 test_torch_port_cuda.py, which holds the CUDA kernel against the plain
 version on a card.
 
+K1's input quantizer (its pass for a float input) is emulated step by
+step in NumPy float32 and by its thresholds, and held equal to
+``act_codes``; the benchmark's served graphs are read for which K1 nodes
+take a float input (nine in LiTS, none in SegResNet).
+
 Tolerances.  int8 outputs are compared exactly.  float32 outputs equal
 ``_xla_qconv3x3`` exactly: the port computes the same ops in the same
 order (exact integer accumulation, then ``* scale`` and ``+ bias`` rounded
@@ -21,7 +26,9 @@ from efficientq_tpu.pallas.qconv3d import _xla_qconv3x3
 from efficientq_tpu.pallas.qconv3d import qconv3x3_int8_ndhwc as jax_k1
 from efficientq_tpu_torch.kernels import qconv3d as K
 from efficientq_tpu_torch.kernels.build import SMEM_BLOCK, SMS
-from test_torch_port_cuda import CASES, NA, make_case, run_port
+from efficientq_tpu_torch.quant import act_codes
+from test_torch_port_cuda import (CASES, LITS_BLOCK1, NA, make_case,
+                                  run_port, tie_dense)
 
 
 def _jax(case):
@@ -137,7 +144,147 @@ def test_wrapper_dispatches_by_device():
     np.testing.assert_array_equal(
         run_port(case)[0], run_port(case, K.qconv3x3_int8_ndhwc_reference)[0])
     assert K.qconv3x3_int8_ndhwc.launches == before
+    assert K.qconv3x3_int8_ndhwc.prologue_quant_launches == 0
     with pytest.raises(ValueError, match="CUDA or"):
         K.qconv3x3_int8_ndhwc(torch.zeros(1, 2, 2, 2, 4, device="meta"),
                               torch.zeros(3, 3, 3, 4, 4, dtype=torch.int8),
                               None, 1.0, 1.0, NA)
+
+
+# K1's input quantizer (csrc/act_code.cuh: act_code, code_threshold,
+# quant_setup, code_of) emulated in NumPy float32, whose division and
+# product round to nearest as the kernel's __fdiv_rn and __fmul_rn do
+
+
+def prologue_product(x, alpha, qlvl):
+    """act_code's value before it rounds: x divided by alpha, clamped to
+    [0, 1], multiplied by qlvl - 1."""
+    with np.errstate(over="ignore"):  # a quotient past float32: inf
+        q = (np.float32(x) / np.float32(alpha)).astype(np.float32)
+    q = np.minimum(np.maximum(q, np.float32(0.0)), np.float32(1.0))
+    return (q * np.float32(qlvl - 1)).astype(np.float32)
+
+
+def prologue_divide(x, alpha, qlvl):
+    """act_code step by step: divide, clamp to [0, 1], multiply by
+    qlvl - 1, round half to even."""
+    return np.rint(prologue_product(x, alpha, qlvl))
+
+
+def prologue_thresholds(alpha, qlvl):
+    """quant_setup's thresholds: per code c the first of the 32 floats
+    around fl(fl((c - 0.5) / (qlvl - 1)) * alpha) whose code reaches c,
+    when the first does not; None where the kernel takes the divide (more
+    than 4 levels, alpha outside [2^-60, 2^60], a window that misses)."""
+    a, qmax = np.float32(alpha), np.float32(qlvl - 1)
+    if qlvl > 4 or not 2.0 ** -60 <= alpha <= 2.0 ** 60:
+        return None
+    out = []
+    for c in range(1, qlvl):
+        mid = np.float32(np.float32(np.float32(c) - np.float32(0.5)) / qmax)
+        mid = np.array([np.float32(mid * a)], np.float32).view(np.uint32)
+        window = (mid + np.arange(32, dtype=np.uint32) - np.uint32(16)).view(
+            np.float32)
+        hit = prologue_divide(window, a, qlvl) >= c
+        if not hit.any() or hit[0]:
+            return None
+        out.append(window[np.argmax(hit)])
+    return out
+
+
+def prologue_codes(x, alpha, qlvl):
+    """code_of: the count of thresholds x reaches, else act_code."""
+    t = prologue_thresholds(alpha, qlvl)
+    if t is None:
+        return prologue_divide(x, alpha, qlvl)
+    return sum((x >= ti).astype(np.float32) for ti in t)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("qlvl,alpha", [(2, 1.1), (3, 1.1), (3, 0.5),
+                                        (4, 4 / 3), (4, 0.37), (4, 1.0),
+                                        (4, 3e-18), (16, 2.5), (4, -0.8)])
+def test_prologue_quantizer_emulation_matches_act_codes(qlvl, alpha, bf16):
+    """K1's prologue quantizer, emulated step by step in float32 (divide,
+    clamp, multiply, round half to even) and by its thresholds, equals
+    act_codes on a tie-dense grid: float32 x whose quotient and product
+    land exactly on .5 ties (bfloat16 x, widened exactly, lands on them
+    where alpha is a power of two and the levels 2 or 3), their
+    neighbours, zeros, negatives and values past the clip."""
+    rng = np.random.RandomState(qlvl)
+    x = np.concatenate([tie_dense(alpha, qlvl, bf16), (rng.randn(4096) * abs(
+        alpha)).astype(np.float32)])
+    xt = torch.from_numpy(x)
+    if bf16:
+        xt = xt.to(torch.bfloat16)
+        x = xt.float().numpy()
+    want = act_codes(xt, torch.tensor(alpha), qlvl).numpy().astype(
+        np.float32)
+    np.testing.assert_array_equal(prologue_divide(x, alpha, qlvl), want)
+    thresholds = prologue_thresholds(alpha, qlvl)
+    assert (thresholds is not None) == (qlvl <= 4 and alpha > 0)
+    np.testing.assert_array_equal(prologue_codes(x, alpha, qlvl), want)
+    if alpha > 0 and (not bf16 or (qlvl in (2, 3)
+                                   and np.log2(alpha) % 1 == 0)):
+        v = prologue_product(x, alpha, qlvl)
+        assert int((v - np.floor(v) == 0.5).sum()) >= qlvl - 1
+
+
+def _bench_config(name):
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bench_torch", "configs", name)
+    with open(path) as f:
+        return json.load(f)
+
+
+def test_lits_float_input_k1_nodes_are_the_nine_block1_convs():
+    """In the LiTS serving graph K1 quantizes its own input at exactly the
+    nine block1 convs (a float input that also feeds the residual, so no
+    producer emits its codes): 9 of its 18 launches a forward add to
+    ``prologue_quant_launches``; the block2 convs read block1's codes."""
+    from bench_torch import program
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.models import build_uresq
+    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+    from efficientq_tpu_torch.ptq.deploy import serving_graph
+
+    cfg = _bench_config("lits_uresq_w4a4.json")
+    graph = build_uresq(program._config(cfg))
+    dgraph, _ = to_int8_inference(*fold_bn(graph, nnir.init(
+        graph, 0, device="cpu")))
+    flags = program.k1_flags(serving_graph(dgraph))
+    float_in = sorted(n for n, f in flags.items()
+                      if not f["input_quantized"])
+    assert len(flags) == 18
+    assert float_in == [f"u_blocks.UResBlock{i}.Layer1.block1.conv"
+                        for i in range(1, len(LITS_BLOCK1) + 1)]
+    assert all(flags[n]["epilogue_quant_for"] == n.replace("block1",
+                                                           "block2")
+               for n in float_in)
+
+
+def test_segresnet_k1_nodes_all_read_codes():
+    """In SegResNet's serving graph K6 hands every K1 conv its codes, so
+    no K1 launch quantizes a float input there."""
+    from bench_torch import segresnet_program
+    from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
+
+    cfg = _bench_config("brats_segresnet_w4a4.json")
+    dgraph, _ = to_int8_inference(*fold_bn(
+        *segresnet_program._graph_and_init(cfg)))
+    flags = segresnet_program.k1_flags(dgraph)
+    assert len(flags) == 24
+    assert all(f["input_quantized"] for f in flags.values())
+
+
+def test_captured_replays_add_the_prologue_count():
+    """A CUDA-graph replay adds its forward's prologue quantizations, as
+    it adds the launches."""
+    from efficientq_tpu_torch.eval import sliding
+
+    counted = sliding._counted()
+    assert (K.qconv3x3_int8_ndhwc, "launches") in counted
+    assert (K.qconv3x3_int8_ndhwc, "prologue_quant_launches") in counted
