@@ -215,11 +215,11 @@ Phases, each printed on its own lines:
    deployed graph on the plain K1.
 11. the serving extras on the flagship (``eval/sliding.py``,
    ``eval/autotune.py``, ``export.py``, ``kernels/library.py``): (a) the
-   captured int8 float32 path (``make_captured_volume_inferencer``, each
-   chunk's patch forward replayed from a CUDA graph) over phase 2's three
-   volumes and the captured s2d bf16 path over phase 4's: predictions
-   equal (``torch.equal``) to phases 2 and 4's eager ones, the eager
-   paths' K1 and K2 launches per forward, volumes/s of each path beside
+   captured int8 float32 path (``make_volume_inferencer``'s default on a
+   card, each chunk's patch forward replayed from a CUDA graph) over phase
+   2's three volumes and the captured s2d bf16 path over phase 4's:
+   predictions equal (``torch.equal``) to phases 2 and 4's eager ones, the
+   eager paths' K1 and K2 launches per forward, volumes/s of each path beside
    its eager one, in turns in this call, and one volume of each int8 path
    under the profiler (device busy, idle share); (b) the column grid
    (``serve_grid="column"``: 4 columns of 160 x 128 x 128 in one forward)
@@ -864,7 +864,7 @@ def phase2(seed: int):
     forwards = -(-n_patches // 2)
     kw = dict(patch_batch=2, mode="quantized", heads=slice(-1, None),
               hard_pred=True, multilabel=True)
-    infer = make_volume_inferencer(dgraph, **kw)
+    infer = make_volume_inferencer(dgraph, capture=False, **kw)
     preds, secs = [], []
     torch.cuda.synchronize()
     K.qconv3x3_int8_ndhwc.launches = 0
@@ -904,8 +904,7 @@ def phase2(seed: int):
 
     # the same serving run with the plain K1 on the card (launches no K1)
     plain = make_volume_inferencer(
-        dgraph, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        upsample=plain_k5, **kw)
+        dgraph, kernels=plain_direct(), capture=False, **kw)
     ref = plain(variables, vols[0].to(dev), PATCH, OVERLAP)
     same = int((ref == preds[0]).sum())
     frac = same / ref.numel()
@@ -1300,14 +1299,14 @@ def phase4(seed: int, served):
     direct = make_volume_inferencer(
         dgraph, patch_batch=len(starts), mode="quantized",
         heads=slice(-1, None), hard_pred=True, multilabel=True,
-        compute_dtype=torch.bfloat16)(variables, served["vols"][0].to(dev),
-                                      PATCH, OVERLAP)
+        compute_dtype=torch.bfloat16, capture=False)(
+        variables, served["vols"][0].to(dev), PATCH, OVERLAP)
     plain_k1 = make_s2d_volume_inferencer(
-        dgraph, variables, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+        dgraph, variables, kernels=kernels_with(
+            conv3x3_int8=K.qconv3x3_int8_ndhwc_reference),
         **kw)(None, vols[0], PATCH, OVERLAP)
     plain = make_s2d_volume_inferencer(
-        dgraph, variables, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5, **kw)(
+        dgraph, variables, kernels=plain_s2d(), **kw)(
         None, vols[0], PATCH, OVERLAP)
     f32 = served["infer"](variables, served["vols"][0].to(dev), PATCH,
                           OVERLAP)
@@ -1341,7 +1340,8 @@ def phase4(seed: int, served):
 
     for plain_codes in (True, False):
         got = make_s2d_volume_inferencer(
-            dgraph, variables, stem_conv=mixed(plain_codes), **kw)(
+            dgraph, variables,
+            kernels=kernels_with(stem_conv=mixed(plain_codes)), **kw)(
             None, vols[0], PATCH, OVERLAP)
         print(f"[phase4] K2 path with the plain stem's "
               f"{'int8 codes' if plain_codes else 'bf16 activation'}: "
@@ -1602,7 +1602,7 @@ def phase6(seed: int, served, s2d_preds):
     check(flagged_1x1(pg, True) == 6, "expected 6 int8 1x1 convs on K3")
     infer_a = make_volume_inferencer(
         pg, patch_batch=N_BATCH, mode="quantized", heads=slice(-1, None),
-        hard_pred=True, multilabel=True)
+        hard_pred=True, multilabel=True, capture=False)
     preds, launches["a"] = _serve(
         "(a) int8 + include_1x1, int8 float32 path",
         lambda v: infer_a(variables, v.to(dev), PATCH, OVERLAP),
@@ -1641,8 +1641,9 @@ def phase6(seed: int, served, s2d_preds):
                                                            OVERLAP),
         host, {"K1": 14, "K2": 1, "K4": 6})
     plain = make_s2d_volume_inferencer(
-        mpg, mv, qact_matmul=KM.fused_qact_matmul_reference, capture=False,
-        **kw)(None, host[0], PATCH, OVERLAP)
+        mpg, mv,
+        kernels=kernels_with(qact_matmul=KM.fused_qact_matmul_reference),
+        capture=False, **kw)(None, host[0], PATCH, OVERLAP)
     agree = float((plain == preds[0]).float().mean())
     print(f"[phase6] (c) volume 1 agrees with the same path on the plain K4 "
           f"on {agree:.8f} of {plain.numel()} voxel-classes", flush=True)
@@ -1659,9 +1660,9 @@ def phase6(seed: int, served, s2d_preds):
         return y
 
     # eager: compare reads the card from the host
-    swapped = make_s2d_volume_inferencer(mpg, mv, qact_matmul=compare,
-                                         capture=False, **kw)(
-        None, host[0], PATCH, OVERLAP)
+    swapped = make_s2d_volume_inferencer(
+        mpg, mv, kernels=kernels_with(qact_matmul=compare), capture=False,
+        **kw)(None, host[0], PATCH, OVERLAP)
     check(torch.equal(swapped, preds[0]), "(c): the comparing run differs")
     no_1x1 = make_s2d_volume_inferencer(mg, mv, **kw)(None, host[0], PATCH,
                                                       OVERLAP)
@@ -1690,8 +1691,8 @@ def phase6(seed: int, served, s2d_preds):
     with torch.inference_mode():
         with _Launches() as counted:
             logits = fq_net(x, heads=slice(-1, None))
-        ref = fq_net(x, heads=slice(-1, None),
-                     qact_matmul=KM.fused_qact_matmul_reference)
+        ref = fq_net(x, heads=slice(-1, None), kernels=kernels_with(
+            qact_matmul=KM.fused_qact_matmul_reference))
     launches["d"] = counted.counts
     check(counted.counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 6},
           f"(d): launches {counted.counts}, expected 6 K4 only")
@@ -1903,8 +1904,6 @@ def phase7(seed: int, smi: str, vol, label, dev):
     from efficientq_tpu_torch.eval.metrics import dice
     from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
                                                    patch_grid)
-    from efficientq_tpu_torch.kernels import qconv3d as K
-    from efficientq_tpu_torch.kernels import stem
     from efficientq_tpu_torch.ptq import PTQHyperParams, fold_bn, run_ptq
     from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
     from efficientq_tpu_torch.quant import project_by_iter
@@ -2007,7 +2006,7 @@ def phase7(seed: int, smi: str, vol, label, dev):
     forwards = -(-len(patch_grid(VOL_SHAPE, PATCH, OVERLAP)) // N_BATCH)
     kw = dict(patch_batch=N_BATCH, heads=slice(-1, None), hard_pred=True,
               multilabel=True)
-    infer = make_volume_inferencer(dg, mode="quantized", **kw)
+    infer = make_volume_inferencer(dg, mode="quantized", capture=False, **kw)
     launches = {}
     with _Launches() as counted:
         t0 = time.perf_counter()
@@ -2018,14 +2017,14 @@ def phase7(seed: int, smi: str, vol, label, dev):
     check(counted.counts["K1"] == 14 * forwards,
           f"calibrated int8 path: {counted.counts} over {forwards} forwards")
     plain = make_volume_inferencer(
-        dg, mode="quantized", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        upsample=plain_k5, **kw)(dv, vol.to(dev), PATCH, OVERLAP)
+        dg, mode="quantized", kernels=plain_direct(), capture=False, **kw)(
+        dv, vol.to(dev), PATCH, OVERLAP)
     check(torch.equal(plain, pred), "calibrated int8 path: K1 != plain K1")
     target = split_label_brats(label)
     d = [dice(pred[0, 0, ..., c].cpu().numpy(), target[c]) for c in range(3)]
     check(all(np.isfinite(d)), f"calibrated int8 path: Dice {d}")
     fg_fp, fv_fp = fold_bn(graph, variables)
-    fp_pred = make_volume_inferencer(fg_fp, mode="fp", **kw)(
+    fp_pred = make_volume_inferencer(fg_fp, mode="fp", capture=False, **kw)(
         nnir.to_device(fv_fp, dev), vol.to(dev), PATCH, OVERLAP)
     agree_fp = float((fp_pred == pred).float().mean())
     print(f"[phase7] on {smi}: calibrated net served on the int8 float32 "
@@ -2047,9 +2046,7 @@ def phase7(seed: int, smi: str, vol, label, dev):
     check(counted.counts["K1"] == 14 and counted.counts["K2"] == 1,
           f"calibrated s2d path: launches {counted.counts}")
     s2d_plain = make_s2d_volume_inferencer(
-        dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5,
-        capture=False, **s2d_kw)(
+        dg, dv, kernels=plain_s2d(), capture=False, **s2d_kw)(
         None, host, PATCH, OVERLAP)
     agree_s2d = float((s2d_plain == s2d_pred).float().mean())
     print(f"[phase7] calibrated net on the s2d bf16 path: launches "
@@ -2362,8 +2359,6 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
     from efficientq_tpu_torch.data.synthetic import make_synthetic_dataset
     from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
                                                    patch_grid)
-    from efficientq_tpu_torch.kernels import qconv3d as K
-    from efficientq_tpu_torch.kernels import stem
     from efficientq_tpu_torch.models import torch_io
     from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
 
@@ -2452,7 +2447,7 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
         plain = _plain_val(args, lambda g, v: make_volume_inferencer(
             g, patch_batch=min(n_patches, 8), mode="quantized",
             hard_pred=True, multilabel=True,
-            conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, upsample=plain_k5),
+            kernels=plain_direct(), capture=False),
             os.path.join(tmp, "plain_int8"))
         int8_val = {}
         for sn, want in plain.items():
@@ -2486,9 +2481,7 @@ def phase8(seed: int, smi: str, served, s2d_preds, work: str):
         args = _mission_args(argv + ["--deploy", "mixed"])
         plain = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
             g, v, multilabel=True, compute_dtype=torch.bfloat16,
-            device="cuda", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-            stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5,
-            capture=False),
+            device="cuda", kernels=plain_s2d(), capture=False),
             os.path.join(tmp, "plain_s2d"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_d, "infer", "val", f"{sn}.nii.gz"))
@@ -2607,7 +2600,6 @@ def phase9_lits(seed: int, smi: str, work: str):
     from efficientq_tpu_torch.cli import entrance
     from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
                                                    patch_grid)
-    from efficientq_tpu_torch.kernels import qconv3d as K
     from efficientq_tpu_torch.ptq import tail_sensitive_convs
 
     launches = {}
@@ -2706,8 +2698,7 @@ def phase9_lits(seed: int, smi: str, work: str):
               f"{len(flagged)} K1 x {forwards} forwards")
         plain = _plain_val(args, lambda g, v: make_volume_inferencer(
             g, patch_batch=batch, mode="quantized", hard_pred=True,
-            multilabel=False, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-            upsample=plain_k5),
+            multilabel=False, kernels=plain_direct(), capture=False),
             os.path.join(root, "plain_int8"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_c, "infer", "val", f"{sn}.nii.gz"))
@@ -2737,7 +2728,6 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
     checkpoint, then their export served on the s2d bf16 mixed path.
     Returns {path: {kernel: launches}}."""
     from efficientq_tpu_torch.cli import entrance
-    from efficientq_tpu_torch.kernels import qconv3d as K
     from efficientq_tpu_torch.kernels import stem
     from efficientq_tpu_torch.models import build_uresq, preset_config
     from efficientq_tpu_torch.ptq import tail_sensitive_convs
@@ -2825,9 +2815,7 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
               f"K2 and {len(flagged)} K1 per forward over {forwards}")
         plain = _plain_val(args, lambda g, v: make_s2d_volume_inferencer(
             g, v, multilabel=True, compute_dtype=torch.bfloat16,
-            device="cuda", conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-            stem_conv=stem.stem_s2d_conv_reference, upsample=plain_k5,
-            capture=False),
+            device="cuda", kernels=plain_s2d(), capture=False),
             os.path.join(work, "brats", "plain_knobs"))
         # K2 sums in float32 on the tensor cores, its plain version in
         # float64: a few bf16 stem outputs round one ulp apart, a code with
@@ -2855,7 +2843,8 @@ def phase9_knobs(seed: int, smi: str, work: str, brats):
         swapped = _plain_val(
             args, lambda g, v: make_s2d_volume_inferencer(
                 g, v, multilabel=True, compute_dtype=torch.bfloat16,
-                device="cuda", stem_conv=stem_checked, capture=False),
+                device="cuda", kernels=kernels_with(stem_conv=stem_checked),
+                capture=False),
             os.path.join(work, "brats", "plain_stem"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_e, "infer", "val", f"{sn}.nii.gz"))
@@ -3106,7 +3095,6 @@ def phase10_missions(seed: int, smi: str, work: str, brats):
     from efficientq_tpu_torch.cli import entrance
     from efficientq_tpu_torch.eval.sliding import (make_volume_inferencer,
                                                    patch_grid)
-    from efficientq_tpu_torch.kernels import qconv3d as K
     from efficientq_tpu_torch.quant import fake_quant_weight
 
     launches = {}
@@ -3220,8 +3208,7 @@ def phase10_missions(seed: int, smi: str, work: str, brats):
                                g, patch_batch=min(n_patches, 8),
                                mode="quantized", hard_pred=True,
                                multilabel=True,
-                               conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-                               upsample=plain_k5),
+                               kernels=plain_direct(), capture=False),
                            os.path.join(root, "plain_int8"))
         for sn, want in plain.items():
             got = _seg(os.path.join(snap_d, "infer", "val", f"{sn}.nii.gz"))
@@ -3318,8 +3305,7 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
     from efficientq_tpu_torch.cli import entrance
     from efficientq_tpu_torch.eval import autotune
     from efficientq_tpu_torch.eval.sliding import (
-        column_grid_plan, make_captured_volume_inferencer,
-        make_volume_inferencer, patch_grid)
+        column_grid_plan, make_volume_inferencer, patch_grid)
     from efficientq_tpu_torch.kernels import qconv3d as K
     from efficientq_tpu_torch.kernels import qmatmul as KM
     from efficientq_tpu_torch.models import (build_uresq, min_input_divisor,
@@ -3339,7 +3325,7 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
     launches = {}
 
     # (a) the captured paths against phases 2 and 4's eager ones
-    cap = make_captured_volume_inferencer(dgraph, **kw)
+    cap = make_volume_inferencer(dgraph, **kw)
     with _Launches() as counted:
         preds = [cap(variables, v, PATCH, OVERLAP) for v in vols]
         torch.cuda.synchronize()
@@ -3407,13 +3393,14 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
         shapes.add((tuple(a[0].shape[1:4]), a[0].shape[-1], a[1].shape[-1]))
         return y
 
-    checked = make_volume_inferencer(dgraph, conv3x3_int8=k1_checked, **ckw)(
+    checked = make_volume_inferencer(
+        dgraph, kernels=kernels_with(conv3x3_int8=k1_checked), capture=False,
+        **ckw)(
         variables, vols[0], PATCH, OVERLAP)
     plain = make_volume_inferencer(
-        dgraph, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        upsample=plain_k5, **ckw)(
+        dgraph, kernels=plain_direct(), capture=False, **ckw)(
         variables, vols[0], PATCH, OVERLAP)
-    col = make_captured_volume_inferencer(dgraph, **ckw)
+    col = make_volume_inferencer(dgraph, **ckw)
     with _Launches() as counted:
         cpreds = [col(variables, v, PATCH, OVERLAP) for v in vols]
         torch.cuda.synchronize()
@@ -3574,9 +3561,8 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
     per_set = {"eager": [], "captured": []}
     scores, captures = {}, 0
     for name in ("eager", "captured", "captured", "eager"):
-        maker = (make_captured_volume_inferencer if name == "captured"
-                 else make_volume_inferencer)
-        score_infer = maker(dgraph, **skw)
+        score_infer = make_volume_inferencer(
+            dgraph, capture=name == "captured", **skw)
 
         def score(v):  # a number read back, as a dice score is
             return float(score_infer(v, crop, PATCH, OVERLAP).float().mean())
@@ -3615,8 +3601,8 @@ def phase11(seed: int, smi: str, served, s2d_infer, s2d_preds, work: str,
                multilabel=False)
     grids = [len(patch_grid(tuple(v.shape[1:4]), LITS_PATCH, LITS_OVERLAP))
              for v in lvols]
-    eager_l = make_volume_inferencer(lg, **lkw)
-    cap_l = make_captured_volume_inferencer(lg, **lkw)
+    eager_l = make_volume_inferencer(lg, capture=False, **lkw)
+    cap_l = make_volume_inferencer(lg, **lkw)
     passes = {}
     for name, fn in (("eager", eager_l), ("captured", cap_l)):
         torch.cuda.synchronize()
@@ -3675,10 +3661,33 @@ K5_SHAPES = {
 
 def plain_k5(*args, **kw):
     """K5's plain version (``F.interpolate``, then the add), the
-    ``upsample`` hook of the plain networks."""
+    ``upsample`` entry of the plain networks' kernel record."""
     from efficientq_tpu_torch.kernels import upsample
 
     return upsample.upsample_trilinear3d_reference(*args, **kw)
+
+
+def kernels_with(**entries):
+    """The port's kernel record (``efficientq_tpu_torch/kernels``): the
+    wrappers, with ``entries`` in their place."""
+    from efficientq_tpu_torch.kernels import WRAPPERS
+
+    return WRAPPERS._replace(**entries)
+
+
+def plain_direct():
+    """The record of the plain direct networks: K1 and K5 plain."""
+    from efficientq_tpu_torch.kernels import qconv3d
+
+    return kernels_with(conv3x3_int8=qconv3d.qconv3x3_int8_ndhwc_reference,
+                        upsample=plain_k5)
+
+
+def plain_s2d():
+    """The record of the plain s2d networks: K1, K2 and K5 plain."""
+    from efficientq_tpu_torch.kernels import stem
+
+    return plain_direct()._replace(stem_conv=stem.stem_s2d_conv_reference)
 
 
 def phase12(seed: int, smi: str):
@@ -3805,7 +3814,8 @@ def phase12(seed: int, smi: str):
     served = upsample_serving(dg)
     plain = make_volume_inferencer(
         served, patch_batch=LITS_BATCH, mode="quantized",
-        heads=slice(-1, None), hard_pred=True, upsample=plain_k5)(
+        heads=slice(-1, None), hard_pred=True,
+        kernels=kernels_with(upsample=plain_k5), capture=False)(
         dv, vol, LITS_PATCH, LITS_OVERLAP)
     check(torch.equal(plain, pred),
           "LiTS main path: the prediction differs from the plain network's")
@@ -3814,7 +3824,8 @@ def phase12(seed: int, smi: str):
         logits = nnir.apply(served, dv, xb, mode="quantized",
                             heads=slice(-1, None))
         plain_logits = nnir.apply(served, dv, xb, mode="quantized",
-                                  heads=slice(-1, None), upsample=plain_k5)
+                                  heads=slice(-1, None),
+                                  kernels=kernels_with(upsample=plain_k5))
     check(torch.equal(logits, plain_logits),
           f"LiTS chunk: logits differ from the plain network's by up to "
           f"{float((logits - plain_logits).abs().max())}")

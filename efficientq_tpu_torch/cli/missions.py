@@ -299,7 +299,7 @@ def _tune_scorer(graph, tune_pairs, hub, num_mo, n_class, device):
         triple(hub.slide_overlap), score_ps))
     score_infer = make_volume_inferencer(
         graph, patch_batch=2, mode="quantized", hard_pred=True,
-        multilabel=np.asarray(tune_pairs[0][1]).ndim == 5)
+        multilabel=np.asarray(tune_pairs[0][1]).ndim == 5, capture=False)
 
     def tune_score(v):
         sm = validate_seg(graph, v, tune_pairs, t_sn, num_mo, n_class,

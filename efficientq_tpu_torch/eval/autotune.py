@@ -5,9 +5,9 @@ a batch axis, and the best chunk of patches per forward depends on the
 volume and patch geometry, the deployment and the card's memory.
 ``choose_patch_batch`` times the candidates once per signature on the card,
 each through the captured inferencer the serving path uses
-(``eval/sliding.py::make_captured_volume_inferencer``), and caches the
-choice in memory and on disk, so a production eval pays the sweep only on
-the first volume of a new geometry.
+(``eval/sliding.py::make_volume_inferencer``, ``capture=True``), and
+caches the choice in memory and on disk, so a production eval pays the
+sweep only on the first volume of a new geometry.
 
 Off a CUDA device it returns the caller's default without measuring: the
 sweep would time the CPU, which is not what serving runs on.  The disk
@@ -124,7 +124,7 @@ def choose_patch_batch(graph, variables, example_image, patch_size, overlap,
     never measure: ``min(full grid, 8)``.  Off a CUDA device 'auto' and
     'force' return ``default``.  A candidate that runs out of device
     memory is skipped; any other failure raises."""
-    from .sliding import make_captured_volume_inferencer, patch_grid
+    from .sliding import make_volume_inferencer, patch_grid
 
     vol_shape = tuple(example_image.shape[1:4])
     n_patches = (len(patch_grid(vol_shape, ops.triple(patch_size),
@@ -162,9 +162,9 @@ def choose_patch_batch(graph, variables, example_image, patch_size, overlap,
     report = []
     best, best_t = default, float("inf")
     for cand in cands:
-        infer = make_captured_volume_inferencer(
+        infer = make_volume_inferencer(
             graph, patch_batch=cand, mode=mode, heads=heads,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, capture=True)
         try:
             for _ in range(2):  # eager, then (at the latest) the capture
                 infer(*args)

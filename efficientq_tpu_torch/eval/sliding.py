@@ -3,13 +3,16 @@
 Counterpart of the JAX package's ``eval/sliding.py``: the same patch grid
 (the reference's ``l[0 : d-p : p-o] + [d-p]`` rule, duplicate terminal start
 included), the same left-to-right patch sum, and the same visit-count
-normalisation.  ``make_volume_inferencer`` runs eagerly;
-``make_captured_volume_inferencer`` takes the place of the JAX package's
-``make_jitted_volume_inferencer`` on a card: it replays each chunk's patch
-forward from a CUDA graph, so the host's per-kernel launch time is paid
-once per capture instead of once per call.  ``column_grid_plan`` and
-``serve_grid="column"`` serve full-depth columns in place of the patch
-grid's cubes.
+normalisation.  ``serve_volume`` is the one serving loop: the direct
+inferencer (``make_volume_inferencer``), the s2d one
+(``ptq/deploy.py::make_s2d_volume_inferencer``) and a serving artifact's
+(``export.py::ServingArtifact.volume_inferencer``) all run it, each with
+its own chunk forward.  ``make_volume_inferencer`` takes the place of the
+JAX package's ``make_jitted_volume_inferencer``: on a card it replays each
+chunk's patch forward from a CUDA graph (``CapturedForward``), so the
+host's per-kernel launch time is paid once per capture instead of once per
+call.  ``column_grid_plan`` and ``serve_grid="column"`` serve full-depth
+columns in place of the patch grid's cubes.
 
 Its spans (``utils/tracing.py``): ``volume.extract`` (the patch
 extraction, and a column grid's pad), ``volume.stitch`` (from the
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import nnir, ops
+from ..kernels import COUNTERS
 from ..utils.tracing import annotate, span
 
 
@@ -108,8 +112,7 @@ def sliding_window_inference(model_fn: Callable, image: torch.Tensor,
                              patch_size, overlap, patch_batch: int = 1,
                              normalize: bool = True,
                              channels_first: bool = False,
-                             extract_fn: Callable = None,
-                             vol_shape=None) -> torch.Tensor:
+                             extract_fn: Callable = None) -> torch.Tensor:
     """Run ``model_fn`` ((B, pd, ph, pw, C) -> (M, B, pd, ph, pw, C_out))
     over the overlapped patch grid of ``image`` (N, D, H, W, C), in chunks
     of ``patch_batch`` patches, and stitch: (M, N, D, H, W, C_out).  Heads
@@ -120,12 +123,10 @@ def sliding_window_inference(model_fn: Callable, image: torch.Tensor,
     result is (M, N, C_out, D, H, W).  ``extract_fn(image, starts,
     patch_size)`` replaces the patch extraction with another model-input
     space: a tuple of tensors batched on a leading P*N axis (e.g.
-    ``kernels.stem.extract_pre_s2d_patches`` on an s2d volume).  The grid
-    and the stitch then run in the coordinates of ``vol_shape``, the
-    original volume's (D, H, W)."""
+    ``ptq.deploy.s2d_extract_fn``'s, the s2d patches of the volume), which
+    ``model_fn`` takes as one tuple."""
     patch_size = ops.triple(patch_size)
-    if vol_shape is None:
-        vol_shape = tuple(image.shape[1:4])
+    vol_shape = tuple(image.shape[1:4])
     starts = patch_grid(vol_shape, patch_size, overlap)
     P = len(starts)
     dev = image.device
@@ -183,11 +184,15 @@ def _check_grid(serve_grid, stride_div):
 def serve_volume(model_fn: Callable, image: torch.Tensor, patch_size,
                  overlap, patch_batch: int, *, hard_pred: bool = False,
                  multilabel: bool = False, serve_grid: str = "patch",
-                 stride_div=None) -> torch.Tensor:
-    """One volume through ``model_fn`` on the patch grid, or with
-    ``serve_grid="column"`` on full-depth columns (``column_grid_plan``:
-    the volume zero-padded in D, the pad cropped off after the stitch),
-    then the hard prediction (see ``make_volume_inferencer``)."""
+                 stride_div=None, channels_first: bool = False,
+                 extract_fn: Callable = None) -> torch.Tensor:
+    """The serving loop every volume inferencer runs: one volume through
+    ``model_fn`` on the patch grid (``sliding_window_inference``, with its
+    ``channels_first`` and ``extract_fn``), or with ``serve_grid="column"``
+    on full-depth columns (``column_grid_plan``: the volume zero-padded in
+    D, the pad cropped off after the stitch), then the hard prediction
+    (see ``make_volume_inferencer``).  The result is channels-last either
+    way: (M, N, D, H, W) class ids or (M, N, D, H, W, C)."""
     d = image.shape[1]
     if serve_grid == "column":
         pd, patch_size, overlap = column_grid_plan(
@@ -198,101 +203,62 @@ def serve_volume(model_fn: Callable, image: torch.Tensor, patch_size,
     # hard predictions are invariant to the overlap-average division (a
     # positive per-voxel count shared by all classes): skip it
     out = sliding_window_inference(model_fn, image, patch_size, overlap,
-                                   patch_batch, normalize=not hard_pred)
-    out = out[:, :, :d]  # the column pad (a no-op on the patch grid)
-    if hard_pred:
-        with span("volume.decide", device=out.device):
-            out = ((out >= 0) if multilabel
-                   else torch.argmax(out, dim=-1)).to(torch.uint8)
-    return out
+                                   patch_batch, normalize=not hard_pred,
+                                   channels_first=channels_first,
+                                   extract_fn=extract_fn)
+    c = 2 if channels_first else -1  # the class axis
+    out = out.narrow(3 if channels_first else 2, 0, d)  # the column pad
+    if not hard_pred:
+        return out.movedim(c, -1)
+    with span("volume.decide", device=out.device):
+        if multilabel:
+            return (out >= 0).to(torch.uint8).movedim(c, -1)
+        return torch.argmax(out, dim=c).to(torch.uint8)
 
 
 def make_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
                            mode: str = "fp", heads=None,
                            hard_pred: bool = False, multilabel: bool = False,
-                           conv3x3_int8: Callable = None,
-                           compute_dtype=None, int8_matmul: Callable = None,
-                           qact_matmul: Callable = None,
-                           serve_grid: str = "patch", stride_div=None,
-                           upsample: Callable = None):
-    """Returns infer(variables, image, patch_size, overlap), eager.
+                           compute_dtype=None, serve_grid: str = "patch",
+                           stride_div=None, kernels=None, capture=None):
+    """Returns infer(variables, image, patch_size, overlap): the
+    counterpart of the JAX package's jitted volume inferencer.
 
     ``heads``: the output heads to compute (e.g. ``slice(-1, None)`` for
     final-head-only serving; the aux heads are then never evaluated).
     ``hard_pred``: return uint8 hard predictions: (M, N, D, H, W, C)
     per-class binaries when ``multilabel`` (sigmoid(x) >= 0.5 <=> x >= 0),
     else (M, N, D, H, W) argmax class ids.  ``mode``: see ``nnir.apply``
-    ('fp', 'quantized' or 'fq').  ``conv3x3_int8``, ``int8_matmul``,
-    ``qact_matmul`` and ``upsample`` replace the K1, K3, K4 and K5 wrappers
-    (see ``nnir.eval_node``).  ``compute_dtype``: see
-    ``nnir.apply``; with hard predictions the heads stay in it through the
-    stitch and the decision (the canvas traffic halves), else the logits
-    come back as float32.  ``serve_grid="column"``: full-depth column
-    serving (``column_grid_plan``), which needs ``stride_div``; the
-    predictions cover the original volume."""
+    ('fp', 'quantized' or 'fq').  ``kernels``: the ``kernels.Kernels``
+    record the graph runs on (by default the wrappers).  ``compute_dtype``:
+    see ``nnir.apply``; with hard predictions the heads stay in it through
+    the stitch and the decision (the canvas traffic halves), else the
+    logits come back as float32.  ``serve_grid="column"``: full-depth
+    column serving (``column_grid_plan``), which needs ``stride_div``; the
+    predictions cover the original volume.
+
+    ``capture``: replay each chunk's patch forward from a CUDA graph
+    (``CapturedForward``, ``infer.captured``), so the host's per-kernel
+    launch time is paid once per capture; by default (None) on a card and
+    not elsewhere.  The patch extraction and the stitch stay eager; the
+    forward of a full chunk of ``patch_batch`` patches is captured once it
+    comes twice in a row, and a ragged last chunk runs eagerly.  A graph
+    is replayed only on the variable tensors it was captured with,
+    unchanged; a new set, or one changed in place, is captured again.
+    With ``capture=True`` the image must be on a CUDA device
+    (``ValueError`` otherwise); a capture that fails raises.  Kernels that
+    read the card from the host cannot run inside a capture: serve them
+    with ``capture=False``."""
     _check_grid(serve_grid, stride_div)
     forward = _patch_forward(graph, mode, heads, hard_pred, compute_dtype,
-                             conv3x3_int8, int8_matmul, qact_matmul, upsample)
+                             kernels)
+    captured = CapturedForward(forward) if capture is not False else None
 
     def infer(variables, image, patch_size, overlap):
+        model_fn = chunk_fn(forward, captured, capture, variables,
+                            image.device)
         with torch.inference_mode():
-            return serve_volume(lambda xb: forward(variables, xb), image,
-                                patch_size, overlap, patch_batch,
-                                hard_pred=hard_pred, multilabel=multilabel,
-                                serve_grid=serve_grid, stride_div=stride_div)
-
-    return infer
-
-
-def _patch_forward(graph, mode, heads, hard_pred, compute_dtype,
-                   conv3x3_int8, int8_matmul, qact_matmul, upsample):
-    """forward(variables, xb): ``nnir.apply`` of one patch chunk."""
-    keep_hd = bool(hard_pred and compute_dtype is not None)
-
-    def forward(variables, xb):
-        return nnir.apply(graph, variables, xb, mode=mode, heads=heads,
-                          conv3x3_int8=conv3x3_int8, int8_matmul=int8_matmul,
-                          qact_matmul=qact_matmul, upsample=upsample,
-                          compute_dtype=compute_dtype,
-                          keep_head_dtype=keep_hd)
-
-    return forward
-
-
-def make_captured_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
-                                    mode: str = "fp", heads=None,
-                                    hard_pred: bool = False,
-                                    multilabel: bool = False,
-                                    conv3x3_int8: Callable = None,
-                                    compute_dtype=None,
-                                    int8_matmul: Callable = None,
-                                    qact_matmul: Callable = None,
-                                    serve_grid: str = "patch",
-                                    stride_div=None,
-                                    upsample: Callable = None):
-    """``make_volume_inferencer`` with the patch forward replayed from CUDA
-    graphs (``CapturedForward``): the counterpart of the JAX package's
-    jitted volume inferencer, with the same arguments and results.  The
-    patch extraction and the stitch stay eager; the forward of a full
-    chunk of ``patch_batch`` patches is captured once it comes twice in a
-    row, and a ragged last chunk runs eagerly (``CapturedForward``).  A
-    graph is replayed only on the variable tensors it was captured with,
-    unchanged; a new set, or one changed in place, is captured again.
-    The image must be on a CUDA device (``ValueError`` otherwise: on the
-    CPU use ``make_volume_inferencer``); a capture that fails raises.
-    ``infer.captured`` is the ``CapturedForward``."""
-    _check_grid(serve_grid, stride_div)
-    captured = CapturedForward(_patch_forward(
-        graph, mode, heads, hard_pred, compute_dtype, conv3x3_int8,
-        int8_matmul, qact_matmul, upsample))
-
-    def infer(variables, image, patch_size, overlap):
-        if image.device.type != "cuda":
-            raise ValueError(f"a captured inferencer serves CUDA tensors, "
-                             f"got one on {image.device}")
-        captured.use(variables)
-        with torch.inference_mode():
-            return serve_volume(captured, image, patch_size, overlap,
+            return serve_volume(model_fn, image, patch_size, overlap,
                                 patch_batch, hard_pred=hard_pred,
                                 multilabel=multilabel, serve_grid=serve_grid,
                                 stride_div=stride_div)
@@ -301,30 +267,35 @@ def make_captured_volume_inferencer(graph: nnir.Graph, patch_batch: int = 4,
     return infer
 
 
-def volume_inferencer_for(device, graph: nnir.Graph, **kw):
-    """The captured inferencer on a CUDA ``device``, the eager one
-    elsewhere (the caller asked for the CPU)."""
-    maker = (make_captured_volume_inferencer
-             if torch.device(device).type == "cuda"
-             else make_volume_inferencer)
-    return maker(graph, **kw)
+def _patch_forward(graph, mode, heads, hard_pred, compute_dtype, kernels):
+    """forward(variables, *inputs): ``nnir.apply`` of one patch chunk (the
+    inputs of an s2d graph are the pair of its patches and parities)."""
+    keep_hd = bool(hard_pred and compute_dtype is not None)
+
+    def forward(variables, *xb):
+        return nnir.apply(graph, variables, xb[0] if len(xb) == 1 else xb,
+                          mode=mode, heads=heads, kernels=kernels,
+                          compute_dtype=compute_dtype,
+                          keep_head_dtype=keep_hd)
+
+    return forward
 
 
-def _counted():
-    """The counters a replay must add to, as (owner, attribute): each
-    kernel wrapper's ``launches``, K1's ``prologue_quant_launches`` and the
-    GroupNorm nodes' ``elements``."""
-    from ..kernels.groupnorm import group_norm
-    from ..kernels.qconv3d import qconv3x3_int8_ndhwc
-    from ..kernels.qmatmul import fused_int8_matmul, fused_qact_matmul
-    from ..kernels.stem import stem_s2d_conv
-    from ..kernels.upsample import upsample_trilinear3d
-
-    return tuple((fn, "launches") for fn in (
-        qconv3x3_int8_ndhwc, stem_s2d_conv, fused_int8_matmul,
-        fused_qact_matmul, upsample_trilinear3d, group_norm)) + (
-        (qconv3x3_int8_ndhwc, "prologue_quant_launches"),
-        (group_norm, "elements"))
+def chunk_fn(forward, captured, capture, variables, device) -> Callable:
+    """``serve_volume``'s ``model_fn`` for one volume on ``device``:
+    ``forward(variables, *chunk)``, replayed by ``captured`` (its
+    ``CapturedForward``) where ``capture`` says so (None: on a card)."""
+    if capture is None:
+        capture = device.type == "cuda"
+    if capture:
+        if device.type != "cuda":
+            raise ValueError(f"a captured inferencer serves CUDA tensors, "
+                             f"got one on {device}")
+        captured.use(variables)
+        fn = captured
+    else:
+        fn = functools.partial(forward, variables)
+    return lambda c: fn(*c) if isinstance(c, tuple) else fn(c)
 
 
 def _leaf_key(v):
@@ -373,11 +344,11 @@ class CapturedForward:
     tensor meanwhile.
 
     The capture follows an eager call of the same signature, which warmed
-    up the libraries.  Its own increments of the counters of ``_counted``
-    (the kernel wrappers' launches, K1's prologue quantizations, the
-    GroupNorm elements) are taken back and added again at each replay, so
-    the counts are those of the forwards that ran.  A replay's output is a
-    copy of the graph's static output."""
+    up the libraries.  Its own increments of the counters of
+    ``kernels.COUNTERS`` (the kernel wrappers' launches, K1's prologue
+    quantizations, the GroupNorm elements) are taken back and added again
+    at each replay, so the counts are those of the forwards that ran.  A
+    replay's output is a copy of the graph's static output."""
 
     def __init__(self, forward: Callable):
         self.forward = forward
@@ -412,22 +383,21 @@ class CapturedForward:
         for s, t in zip(static_in, inputs):
             s.copy_(t)
         graph.replay()
-        for (owner, attr), n in zip(_counted(), delta):
+        for (owner, attr), n in zip(COUNTERS, delta):
             setattr(owner, attr, getattr(owner, attr) + n)
         return static_out.clone()
 
     def _capture(self, sig, inputs):
         static_in = [t.clone() for t in inputs]
-        counted = _counted()
-        before = [getattr(owner, attr) for owner, attr in counted]
+        before = [getattr(owner, attr) for owner, attr in COUNTERS]
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
                 static_out = self.forward(self._held[0], *static_in)
         finally:
             delta = [getattr(owner, attr) - b
-                     for (owner, attr), b in zip(counted, before)]
-            for (owner, attr), b in zip(counted, before):
+                     for (owner, attr), b in zip(COUNTERS, before)]
+            for (owner, attr), b in zip(COUNTERS, before):
                 setattr(owner, attr, b)
         self.captures += 1
         return sig, graph, static_in, static_out, delta

@@ -39,9 +39,10 @@ import torch
 
 from .. import nnir, ops
 from ..data.prefetch import device_feed
+from ..ptq.deploy import make_s2d_volume_inferencer, serving_rewrites
 from ..utils.tracing import span
 from .metrics import SegMetricMC
-from .sliding import column_grid_plan, patch_grid, volume_inferencer_for
+from .sliding import column_grid_plan, make_volume_inferencer, patch_grid
 
 
 def _check_serving(artifact, mesh, serve_grid, stride_div, serve_stem,
@@ -88,17 +89,14 @@ def _build_infer(graph, variables, x, patch_size, overlap, *, mode,
                  device, artifact=None, serve_grid="patch", stride_div=None,
                  tune_serving="auto"):
     """The volume inferencer of the first volume ``x``: the artifact's,
-    the s2d stem's or the direct one; captured on a card.  The direct
-    one serves the graph with its upsamples on K5 and its GroupNorms on K6
-    (``ptq.deploy.serving_graph``; the s2d and artifact paths apply it
-    themselves)."""
+    the s2d stem's or the direct one; captured on a card.  Each serves the
+    graph of ``ptq.deploy.serving_rewrites`` (the s2d path and the
+    artifacts call it themselves)."""
     if artifact is not None:
         return artifact.volume_inferencer(patch_batch=patch_batch,
                                           hard_pred=True,
                                           multilabel=multilabel)
-    from ..ptq.deploy import make_s2d_volume_inferencer, serving_graph
-
-    served = serving_graph(graph)
+    served = serving_rewrites(graph, variables)[0]
     auto = patch_batch in ("auto", 0, None)
     if serve_stem == "s2d":
         infer = make_s2d_volume_inferencer(
@@ -125,12 +123,12 @@ def _build_infer(graph, variables, x, patch_size, overlap, *, mode,
                                 mode=mode, heads=heads,
                                 compute_dtype=compute_dtype,
                                 tune=tune_serving)
-    return volume_inferencer_for(device, served, patch_batch=pb, mode=mode,
-                                 heads=heads, hard_pred=True,
-                                 multilabel=multilabel,
-                                 compute_dtype=compute_dtype,
-                                 serve_grid=serve_grid,
-                                 stride_div=stride_div)
+    return make_volume_inferencer(served, patch_batch=pb, mode=mode,
+                                  heads=heads, hard_pred=True,
+                                  multilabel=multilabel,
+                                  compute_dtype=compute_dtype,
+                                  serve_grid=serve_grid,
+                                  stride_div=stride_div)
 
 
 def _readback(preds: torch.Tensor, stream):
@@ -220,7 +218,7 @@ def validate_seg(
 
     Returns one SegMetricMC per head (index -1 = final output).  On a
     card the patch forward replays from CUDA graphs
-    (``make_captured_volume_inferencer``).  ``patch_batch="auto"`` takes
+    (``make_volume_inferencer``'s ``capture``).  ``patch_batch="auto"`` takes
     the autotuner's choice (``eval/autotune.py``, ``tune_serving``: a
     measured sweep on a card, 2 on the CPU, ``min(full grid, 8)`` with
     ``"off"``); with ``serve_grid="column"`` every column in one forward;

@@ -50,8 +50,8 @@ MANIFEST_NAME = "manifest.json"
 
 
 class _PatchModel(nn.Module):
-    """The final-head patch forward with the weights as buffers and the
-    kernel hooks op-backed (``kernels/library.py``)."""
+    """The final-head patch forward with the weights as buffers, on the
+    op-backed kernel record (``kernels/library.py::OPS``)."""
 
     def __init__(self, graph, variables, mode, compute_dtype, heads):
         super().__init__()
@@ -60,11 +60,12 @@ class _PatchModel(nn.Module):
         self.heads = heads
 
     def forward(self, xb):
-        from .kernels.library import HOOKS
+        from .kernels.library import OPS
 
         return nnir.apply(self.net.graph, self.net.variables, xb,
                           mode=self.net.mode, heads=self.heads,
-                          compute_dtype=self.compute_dtype, **HOOKS)[-1:]
+                          compute_dtype=self.compute_dtype,
+                          kernels=OPS)[-1:]
 
 
 class _S2DPatchModel(_PatchModel):
@@ -82,12 +83,12 @@ def export_patch_model(graph, variables, patch_size, n_mod: int, *,
     ``"symbolic"`` or the pinned int batch size.  ``compute_dtype`` bakes a
     low-precision serving dtype (--serve_dtype bf16) into the program; the
     head comes out float32 either way."""
-    from .ptq.deploy import serving_graph
+    from .ptq.deploy import serving_rewrites
 
     patch_size = tuple(ops.triple(patch_size))
     device = torch.device(device)
-    model = _PatchModel(serving_graph(graph),
-                        nnir.to_device(variables, device), mode,
+    served, variables, _, _ = serving_rewrites(graph, variables)
+    model = _PatchModel(served, nnir.to_device(variables, device), mode,
                         compute_dtype, slice(-1, None))
 
     def example(b):
@@ -121,19 +122,16 @@ def export_s2d_model(graph, variables, patch_size, n_mod: int, *,
     (``serve_stem='s2d'`` and ``stem_geometry``).  Returns ``(exported,
     batch, stem_attrs)``, or None when the graph has no eligible stem (use
     ``--deploy int8|mixed`` first)."""
-    from .ptq.deploy import (channels_first_tail, s2d_stem_serving,
-                             serving_graph)
+    from .ptq.deploy import serving_rewrites
 
     patch_size = tuple(ops.triple(patch_size))
     device = torch.device(device)
-    stem0 = next((n for n in graph.nodes
-                  if n.op == "conv" and n.inputs == (graph.input_name,)),
-                 None)
-    g2, v2, stem = s2d_stem_serving(channels_first_tail(graph), variables)
+    g2, v2, _, stem = serving_rewrites(graph, variables, s2d=True,
+                                       heads=slice(-1, None))
     if stem is None:
         return None
-    model = _S2DPatchModel(serving_graph(g2), nnir.to_device(v2, device),
-                           "quantized", compute_dtype, None)
+    model = _S2DPatchModel(g2, nnir.to_device(v2, device), "quantized",
+                           compute_dtype, None)
     pd, ph, pw = patch_size
     b = int(patch_batch)
     stack = torch.zeros((b, pd // 2 + 1, ph // 2, pw // 2, 8 * n_mod),
@@ -141,7 +139,7 @@ def export_s2d_model(graph, variables, patch_size, n_mod: int, *,
     parities = torch.zeros((b,), dtype=torch.int32, device=device)
     exported = torch.export.export(model, (stack, parities), strict=False)
     stem_attrs = {k: (list(v) if isinstance(v, tuple) else v)
-                  for k, v in stem0.attrs.items()
+                  for k, v in stem.attrs.items()
                   if k in ("kernel_size", "stride", "padding", "dilation",
                            "groups")}
     return exported, b, stem_attrs
@@ -173,7 +171,7 @@ class ServingArtifact:
         self.exported = exported
         self.manifest = manifest
         self._module = None
-        self._captured = None
+        self._captured = self._weights = None
 
     @property
     def batch(self):
@@ -231,25 +229,23 @@ class ServingArtifact:
 
     def _model_fn(self, device):
         """The patch forward of a chunk on ``device``: replayed from CUDA
-        graphs on a card (one ``CapturedForward`` per artifact), eager
-        elsewhere."""
-        if torch.device(device).type != "cuda":
-            fn = self.patch_model_fn()
-        else:
-            if self._captured is None:
-                from .eval.sliding import CapturedForward
+        graphs on a card (one ``CapturedForward`` per artifact, on the
+        program's weights), eager elsewhere."""
+        from .eval.sliding import CapturedForward, chunk_fn
 
-                run = self.patch_model_fn()
-                self._captured = CapturedForward(lambda _v, *xs: run(*xs))
-                self._captured.use(list(self.module().state_dict().values()))
-            fn = self._captured
-        return lambda xb: fn(*xb) if isinstance(xb, tuple) else fn(xb)
+        if self._captured is None:
+            run = self.patch_model_fn()
+            self._captured = CapturedForward(lambda _v, *xs: run(*xs))
+            self._weights = list(self.module().state_dict().values())
+        return chunk_fn(self._captured.forward, self._captured, None,
+                        self._weights, torch.device(device))
 
     def volume_inferencer(self, patch_batch: Optional[int] = None,
                           hard_pred: bool = True, multilabel: bool = False):
-        """Whole-volume sliding-window inference from the artifact, the
-        counterpart of ``eval.sliding.make_captured_volume_inferencer`` (the
-        same hard-prediction rules; the program emits the final head only):
+        """Whole-volume sliding-window inference from the artifact: the
+        serving loop ``eval.sliding.serve_volume`` with the program as its
+        chunk forward (the direct inferencer's hard-prediction rules; the
+        program emits the final head only), as
         ``infer(variables, image, patch_size, overlap)`` with ``variables``
         ignored, so ``eval/validate.py`` drives it unchanged.  On a card the
         patch forward replays from CUDA graphs.
@@ -257,80 +253,55 @@ class ServingArtifact:
         Column artifacts (manifest ``serve_grid='column'``): the patch D is
         the export-pinned column depth; volumes pad up to it (deeper ones
         need a new export) and the caller's patch and overlap give way to
-        the manifest's."""
+        the manifest's.  s2d artifacts (manifest ``serve_stem='s2d'``): the
+        volume goes to the artifact's device as float32 and to s2d space
+        there (``ptq.deploy.s2d_extract_fn``, driven by the manifest's
+        stem geometry), and the program's head is channels-first; geometry
+        the s2d grid cannot serve (odd H/W starts or extents) raises,
+        naming the direct artifact exported beside it."""
         from .eval.sliding import serve_volume
+        from .ptq.deploy import s2d_extract_fn
 
         if patch_batch is None or patch_batch == "auto" or patch_batch <= 0:
             patch_batch = self.batch if self.batch != "symbolic" else 4
-        if self.manifest.get("serve_stem") == "s2d":
-            return self._s2d_volume_inferencer(int(patch_batch), hard_pred,
-                                               multilabel)
+        s2d = self.manifest.get("serve_stem") == "s2d"
         column = self.manifest.get("serve_grid") == "column"
         col_d = int(self.manifest.get("column_depth", 0))
+        stem_attrs = {k: (tuple(v) if isinstance(v, list) else v)
+                      for k, v in self.manifest.get("stem_geometry",
+                                                    {}).items()}
 
         def infer(variables, image, patch_size, overlap):
             del variables
-            d = image.shape[1]
-            if column:
-                if d > col_d:
+            grid, extract = {}, None
+            if s2d:
+                image = torch.as_tensor(image).to(self.platforms[0],
+                                                  torch.float32)
+                extract = s2d_extract_fn(tuple(image.shape[1:4]),
+                                         patch_size, overlap, stem_attrs)
+                if extract is None:
                     raise ValueError(
-                        f"volume depth {d} exceeds the artifact's pinned "
-                        f"column depth {col_d}: re-export with a larger "
-                        f"--export_column_depth")
+                        f"volume {tuple(image.shape[1:4])} has odd H/W grid "
+                        f"geometry the s2d artifact cannot serve: use the "
+                        f"direct serving artifact exported alongside "
+                        f"(serving_artifact.zip)")
+            elif column:
+                if image.shape[1] > col_d:
+                    raise ValueError(
+                        f"volume depth {image.shape[1]} exceeds the "
+                        f"artifact's pinned column depth {col_d}: re-export "
+                        f"with a larger --export_column_depth")
+                # the pinned depth as the column plan's stride multiple
                 patch_size = self.patch_size
                 overlap = tuple(self.manifest["overlap"])
-                image = F.pad(image, (0, 0, 0, 0, 0, 0, 0, col_d - d))
+                grid = dict(serve_grid="column", stride_div=col_d)
             with torch.inference_mode():
-                out = serve_volume(self._model_fn(image.device),
-                                   image, patch_size, overlap,
-                                   int(patch_batch), hard_pred=hard_pred,
-                                   multilabel=multilabel)
-            return out[:, :, :d]
-
-        return infer
-
-    def _s2d_volume_inferencer(self, patch_batch: int, hard_pred: bool,
-                               multilabel: bool):
-        """Serving loop of an s2d artifact: the volume to the artifact's
-        device as float32, the s2d transform and patch slicing there
-        (``kernels/stem.py``, driven by the manifest's geometry), the
-        exported channels-first forward, the stitch.  The direct
-        inferencer's call contract.  Geometry the s2d grid cannot serve
-        (odd H/W starts or extents) raises, naming the direct artifact
-        exported beside it."""
-        from .eval.sliding import patch_grid, sliding_window_inference
-        from .kernels.stem import (extract_pre_s2d_patches, s2d_need_planes,
-                                   s2d_supported, s2d_volume)
-
-        stem_attrs = {k: (tuple(v) if isinstance(v, list) else v)
-                      for k, v in self.manifest["stem_geometry"].items()}
-        dev = torch.device(self.platforms[0])
-
-        def infer(variables_ignored, image, patch_size, overlap):
-            del variables_ignored
-            image = torch.as_tensor(image)
-            patch_size = tuple(ops.triple(patch_size))
-            overlap = tuple(ops.triple(overlap))
-            vol_shape = tuple(image.shape[1:4])
-            starts = patch_grid(vol_shape, patch_size, overlap)
-            if not s2d_supported(starts, patch_size, vol_shape, stem_attrs):
-                raise ValueError(
-                    f"volume {vol_shape} has odd H/W grid geometry the s2d "
-                    f"artifact cannot serve: use the direct serving "
-                    f"artifact exported alongside (serving_artifact.zip)")
-            with torch.inference_mode():
-                svol = s2d_volume(image.to(dev, torch.float32),
-                                  s2d_need_planes(starts, patch_size))
-                out = sliding_window_inference(
-                    self._model_fn(dev), svol, patch_size,
-                    overlap, patch_batch, normalize=not hard_pred,
-                    channels_first=True, extract_fn=extract_pre_s2d_patches,
-                    vol_shape=vol_shape)
-                if hard_pred and not multilabel:
-                    return torch.argmax(out, dim=2).to(torch.uint8)
-                if hard_pred:
-                    out = (out >= 0).to(torch.uint8)
-                return out.movedim(2, -1)
+                return serve_volume(self._model_fn(image.device), image,
+                                    patch_size, overlap, int(patch_batch),
+                                    hard_pred=hard_pred,
+                                    multilabel=multilabel,
+                                    channels_first=s2d, extract_fn=extract,
+                                    **grid)
 
         return infer
 

@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from .qmatmul import _on_device
+from . import on_device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -169,7 +169,7 @@ def _launch(x, gamma, beta, g, eps, relu, quant_alpha, qlvl):
     scale = torch.empty((n, c), **f32)
     if x.numel() == 0:
         return out
-    rc = _on_device(x.get_device(), _lib(), x.data_ptr(), out.data_ptr(),
+    rc = on_device(x.get_device(), _lib(), x.data_ptr(), out.data_ptr(),
                     gamma.data_ptr(), beta.data_ptr(),
                     None if alpha is None else alpha.data_ptr(),
                     part.data_ptr(), mean.data_ptr(), scale.data_ptr(), n,

@@ -14,8 +14,8 @@ launch) and its CPU implementation the plain PyTorch version; a fake
 trace through them without running them.  An op schema takes tensors,
 numbers and flags only: the wrappers' optional epilogue arguments are
 flattened into tensors, ints and bools, and a thin adapter of the
-wrapper's own signature (``qconv3x3_int8`` ...) calls the op, so
-``nnir.apply``'s kernel hooks take it.  The eager serving path keeps
+wrapper's own signature (``qconv3x3_int8`` ...) calls the op; ``OPS`` is
+the ``Kernels`` record of these adapters.  The eager serving path keeps
 calling the wrappers directly (no dispatcher between them and the card).
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import Tensor
 
-from . import groupnorm, qconv3d, qmatmul, stem, upsample
+from . import Kernels, groupnorm, qconv3d, qmatmul, stem, upsample
 
 _F32 = torch.float32
 
@@ -109,8 +109,8 @@ def qconv3x3_int8(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
                   quant_qlvl: int = 0, x_quantized: bool = False,
                   residual_relu: bool = False, pool: bool = False,
                   w_packed=None, out_dtype=torch.float32):
-    """``effq::qconv3x3_int8`` with the K1 wrapper's signature (the
-    ``conv3x3_int8`` hook of ``nnir.apply``)."""
+    """``effq::qconv3x3_int8`` with the K1 wrapper's signature (``OPS``'s
+    ``conv3x3_int8``)."""
     y, pooled = torch.ops.effq.qconv3x3_int8(
         x, w_codes, bias, _scalar(alpha_act, x), _scalar(scale, x),
         int(qlvl_act), int(dilation), residual,
@@ -151,8 +151,7 @@ def _(x, parities, w_even, w_odd, bias, alpha_next, qlvl_next, out_bf16,
 
 def stem_s2d_conv(x, parities, w_even, w_odd, bias, alpha_next,
                   qlvl_next: int, out_dtype=torch.float32, w_packed=None):
-    """``effq::stem_s2d_conv`` with the K2 wrapper's signature (the
-    ``stem_conv`` hook)."""
+    """``effq::stem_s2d_conv`` with the K2 wrapper's signature."""
     return torch.ops.effq.stem_s2d_conv(
         x, parities, w_even, w_odd, bias, _scalar(alpha_next, x),
         int(qlvl_next), out_dtype == torch.bfloat16, w_packed)
@@ -182,8 +181,7 @@ def _(x, w_codes, bias, alpha_act, scale, qlvl_act, w_packed):
 
 def fused_int8_matmul(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
                       w_packed=None):
-    """``effq::fused_int8_matmul`` with the K3 wrapper's signature (the
-    ``int8_matmul`` hook)."""
+    """``effq::fused_int8_matmul`` with the K3 wrapper's signature."""
     return torch.ops.effq.fused_int8_matmul(
         x, w_codes, bias, _scalar(alpha_act, x), _scalar(scale, x),
         int(qlvl_act), w_packed)
@@ -210,8 +208,7 @@ def _(x, w, bias, alpha_act, qlvl_act):
 
 
 def fused_qact_matmul(x, w, bias, alpha_act, qlvl_act: int):
-    """``effq::fused_qact_matmul`` with the K4 wrapper's signature (the
-    ``qact_matmul`` hook)."""
+    """``effq::fused_qact_matmul`` with the K4 wrapper's signature."""
     return torch.ops.effq.fused_qact_matmul(x, w, bias,
                                             _scalar(alpha_act, x),
                                             int(qlvl_act))
@@ -250,8 +247,7 @@ def _(x, scale_factor, skip, channels_first):
 
 def upsample_trilinear3d(x, scale_factor, skip=None,
                          channels_first: bool = False):
-    """``effq::upsample_trilinear3d`` with the K5 wrapper's signature (the
-    ``upsample`` hook)."""
+    """``effq::upsample_trilinear3d`` with the K5 wrapper's signature."""
     from ..ops import triple
 
     return torch.ops.effq.upsample_trilinear3d(
@@ -283,14 +279,12 @@ def _(x, gamma, beta, num_groups, eps, relu, quant_alpha, quant_qlvl):
 
 def group_norm(x, gamma, beta, num_groups: int, eps: float = 1e-5,
                relu: bool = False, quant_alpha=None, quant_qlvl: int = 0):
-    """``effq::group_norm`` with the K6 wrapper's signature (the
-    ``group_norm`` hook)."""
+    """``effq::group_norm`` with the K6 wrapper's signature."""
     return torch.ops.effq.group_norm(
         x, gamma, beta, int(num_groups), float(eps), bool(relu),
         _scalar(quant_alpha if quant_qlvl else 0.0, x), int(quant_qlvl))
 
 
-# the kernel hooks of nnir.apply, op-backed
-HOOKS = dict(conv3x3_int8=qconv3x3_int8, stem_conv=stem_s2d_conv,
-             int8_matmul=fused_int8_matmul, qact_matmul=fused_qact_matmul,
-             upsample=upsample_trilinear3d, group_norm=group_norm)
+# the kernel record of an exported program (kernels/__init__.py), op-backed
+OPS = Kernels(qconv3x3_int8, stem_s2d_conv, fused_int8_matmul,
+              fused_qact_matmul, upsample_trilinear3d, group_norm)

@@ -39,6 +39,7 @@ import torch
 
 from .. import ops
 from ..quant import act_codes, fake_quant_act
+from . import alpha_arg, on_device, vector_arg
 from .build import SMEM_BLOCK, SMEM_SM, SMS
 
 _P = ctypes.c_void_p
@@ -392,23 +393,6 @@ def _check_x(x, what, aligned=True):
     return x.clone() if aligned and x.data_ptr() % 16 else x
 
 
-def _vector(v, n, like, what):
-    """A contiguous (n,) float32 vector on the device of tensor ``like``, or
-    None: ``v`` itself when it is one already."""
-    if v is None:
-        return None
-    if (isinstance(v, torch.Tensor) and v.dtype == torch.float32
-            and v.get_device() == like.get_device() and v.shape == (n,)
-            and v.is_contiguous()):
-        return v
-    v = torch.as_tensor(v, device=like.device, **_F32)
-    if v.dim() == 0:
-        v = v.expand(n)
-    if tuple(v.shape) != (n,):
-        raise ValueError(f"{what} {tuple(v.shape)} != ({n},)")
-    return v.contiguous()
-
-
 def _scale(scale, n, like):
     """(float32 tensor or None, value, stride) of K3's scale: one value on
     the device of tensor ``like`` passes by pointer with stride 0 (not
@@ -419,30 +403,7 @@ def _scale(scale, n, like):
         if t is not scale or t.get_device() != like.get_device():
             return None, float(t), 0
         return (t if t.dtype == torch.float32 else t.float()), 0.0, 0
-    return _vector(t, n, like, "scale"), 0.0, 1
-
-
-def _alpha(alpha, like):
-    """(float32 tensor or None, value) of the activation clip: a one-element
-    tensor on the device of tensor ``like`` passes by pointer (its value
-    stays on the card), anything else by value, so no tensor is made from a
-    number."""
-    if isinstance(alpha, torch.Tensor):
-        if alpha.numel() != 1:
-            raise ValueError(f"alpha_act {tuple(alpha.shape)}: one value")
-        if alpha.get_device() == like.get_device():
-            return (alpha if alpha.dtype == torch.float32 else alpha.float(),
-                    0.0)
-    return None, float(alpha)
-
-
-def _on_device(index, fn, *args):
-    """fn(*args, the current stream of CUDA device ``index``), with the
-    device made current only when it is not."""
-    if index == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    with torch.cuda.device(index):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    return vector_arg(t, n, like, "scale"), 0.0, 1
 
 
 def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act,
@@ -474,11 +435,11 @@ def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act,
                          f"pack_weights_1x1 gives ({n}, {kp}) int8 on "
                          f"{x.device}")
     scale_t, scale_v, scale_stride = _scale(scale, n, x)
-    bias_v = _vector(bias, n, x, "bias")
-    alpha, alpha_v = _alpha(alpha_act, x)
+    bias_v = vector_arg(bias, n, x, "bias")
+    alpha, alpha_v = alpha_arg(alpha_act, x)
     call = _k3_call(m, k, n, x.dtype == torch.bfloat16, int(qlvl_act), plan)
     y = x.new_empty((m, n), dtype=torch.float32)
-    rc = _on_device(index, _int8_lib(), x.data_ptr(), w_packed.data_ptr(),
+    rc = on_device(index, _int8_lib(), x.data_ptr(), w_packed.data_ptr(),
                     None if scale_t is None else scale_t.data_ptr(), scale_v,
                     scale_stride,
                     None if bias_v is None else bias_v.data_ptr(),
@@ -520,11 +481,11 @@ def _launch_f32(x, w, bias, alpha_act, qlvl_act, plan=None):
                          f"do not fit x {tuple(x.shape)} on {x.device}")
     n = w.shape[1]
     w = w.contiguous()
-    bias_v = _vector(bias, n, x, "bias")
-    alpha, alpha_v = _alpha(alpha_act, x)
+    bias_v = vector_arg(bias, n, x, "bias")
+    alpha, alpha_v = alpha_arg(alpha_act, x)
     call = _k4_call(m, k, n, x.dtype == torch.bfloat16, int(qlvl_act), plan)
     y = x.new_empty((m, n), dtype=torch.float32)
-    rc = _on_device(index, _f32_lib(), x.data_ptr(), w.data_ptr(),
+    rc = on_device(index, _f32_lib(), x.data_ptr(), w.data_ptr(),
                     None if bias_v is None else bias_v.data_ptr(),
                     None if alpha is None else alpha.data_ptr(), alpha_v,
                     y.data_ptr(), call)

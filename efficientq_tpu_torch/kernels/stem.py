@@ -39,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import ops
+from . import alpha_arg, on_device, vector_arg
 from .build import SMEM_BLOCK, SMEM_SM, SMS
-from .qmatmul import _alpha, _on_device, _vector
 
 # (tap, phase) -> original kernel index along one axis, for a patch whose
 # start is even / odd on that axis.  Output voxel z' taps original offsets
@@ -133,8 +133,7 @@ def s2d_need_planes(starts, patch_size) -> int:
 def extract_pre_s2d_patches(svol: torch.Tensor, starts, patch_size
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``extract_s2d_patches`` for a volume already in s2d space (made by
-    ``s2d_volume(image, s2d_need_planes(starts, patch_size))``).  Use with
-    ``sliding_window_inference(extract_fn=..., vol_shape=<original>)``."""
+    ``s2d_volume(image, s2d_need_planes(starts, patch_size))``)."""
     need = s2d_need_planes(starts, patch_size)
     if svol.shape[1] < need:
         raise ValueError(f"s2d volume {tuple(svol.shape)} has fewer than "
@@ -152,7 +151,8 @@ def extract_s2d_patches(image: torch.Tensor, starts, patch_size
     the z taps of output plane t.  Even-z-start patches begin with a
     physical zero plane (their kd=0 tap at z'=0 is the conv's zero
     padding); odd-z-start patches start one plane early in real data, which
-    the kernel masks."""
+    the kernel masks.  The serving loop's s2d extraction
+    (``ptq.deploy.s2d_extract_fn``)."""
     svol = s2d_volume(image, min_planes=s2d_need_planes(starts, patch_size))
     return _slice_s2d(svol, starts, patch_size)
 
@@ -426,11 +426,11 @@ def _launch(x, parities, w_even, w_odd, bias, alpha_next, qlvl_next,
     if (parities.dtype != torch.int32 or parities.get_device() != index
             or not parities.is_contiguous()):
         parities = parities.to(device=x.device, dtype=torch.int32)
-    bias_v = _vector(bias, o, x, "bias")
-    alpha, alpha_v = _alpha(alpha_next, x)
+    bias_v = vector_arg(bias, o, x, "bias")
+    alpha, alpha_v = alpha_arg(alpha_next, x)
     y = x.new_empty((b, d1 - 1, h, w, o), dtype=out_dtype)
     q = x.new_empty((b, d1 - 1, h, w, o), dtype=torch.int8)
-    rc = _on_device(index, _lib(), x.data_ptr(), parities.data_ptr(),
+    rc = on_device(index, _lib(), x.data_ptr(), parities.data_ptr(),
                     w_packed.data_ptr(), bias_v.data_ptr(),
                     None if alpha is None else alpha.data_ptr(), alpha_v,
                     y.data_ptr(), q.data_ptr(), call)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import ops
-from .qmatmul import _on_device
+from . import on_device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -174,7 +174,7 @@ def _launch(x, f, skip, cf: bool):
     operands = [t for t in (x, skip, y) if t is not None]
     vec = _vec(out_shape[4] if cf else c, operands, out_dtype, cf)
     call = _k5_call(tuple(x.shape), f, cf, vec)
-    rc = _on_device(index, _lib(), x.data_ptr(),
+    rc = on_device(index, _lib(), x.data_ptr(),
                     None if skip is None else skip.data_ptr(), y.data_ptr(),
                     call, int(cf), int(x.dtype == torch.bfloat16), skip_kind,
                     vec)

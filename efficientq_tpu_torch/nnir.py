@@ -53,11 +53,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import ops
+from .kernels import WRAPPERS, Kernels
 from .kernels.groupnorm import group_norm as _k6, group_norm_reference
-from .kernels.qconv3d import qconv3x3_int8_ndhwc
-from .kernels.qmatmul import fused_int8_matmul, qconv1x1_ndhwc
-from .kernels.stem import stem_s2d_conv
-from .kernels.upsample import upsample_trilinear3d
+from .kernels.qmatmul import qconv1x1_ndhwc
 from .quant import (act_codes, fake_quant_act, fake_quant_act_k,
                     fake_quant_weight)
 
@@ -256,8 +254,7 @@ def _int8_conv(qa: torch.Tensor, codes: torch.Tensor, a, qcfg: QCfg):
     return y.to(torch.float32)
 
 
-def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
-               int8_matmul: Callable, qact_matmul: Callable,
+def _eval_conv(node: Node, params, ins, mode: str, kernels: Kernels,
                compute_dtype=None):
     a = node.attrs
     p = params[node.name]
@@ -266,8 +263,7 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
     if (a.get("pallas") and mode in QUANT_MODES and qcfg is not None
             and qcfg.q_act):
         if not (a.get("int8") and a["kernel_size"] == (3, 3, 3)):
-            return _eval_fused_1x1(node, p, x, mode, int8_matmul,
-                                   qact_matmul)
+            return _eval_fused_1x1(node, p, x, mode, kernels)
         # the deployed hot path: the int8 3^3 conv with its fused
         # epilogues (kernels/qconv3d.py; flags from kernels/qmatmul.py and
         # kernels/epilogue.py), emitting compute_dtype; at a compute dtype
@@ -276,7 +272,7 @@ def _eval_conv(node: Node, params, ins, mode: str, conv3x3_int8: Callable,
         res = ins[1] if a.get("residual") else None
         if res is not None and compute_dtype is not None:
             res = res.to(compute_dtype)
-        return conv3x3_int8(
+        return kernels.conv3x3_int8(
             x, p["kernel_int8"], p.get("bias"), p["alpha_act"], p["scale"],
             qcfg.qlvl_act, dilation=a["dilation"][0], residual=res,
             quant_alpha=(params[quant_for]["alpha_act"] if quant_for
@@ -334,8 +330,7 @@ def _quantize_operands(x, p, a, mode: str):
     return x, kernel
 
 
-def _eval_fused_1x1(node: Node, p, x, mode: str, int8_matmul: Callable,
-                    qact_matmul: Callable):
+def _eval_fused_1x1(node: Node, p, x, mode: str, kernels: Kernels):
     """A flagged 1x1x1 conv (``to_pallas_inference(include_1x1=True)``):
     int8 nodes on K3, the others on K4 through ``qconv1x1_ndhwc`` (weights
     fake-quantized first in 'fq').  Both take the float activation, whatever
@@ -347,17 +342,17 @@ def _eval_fused_1x1(node: Node, p, x, mode: str, int8_matmul: Callable,
                          f"float input itself and cannot take int8 codes")
     if a.get("int8"):
         # K3's packed weights (made at deploy time) go as the seventh
-        # argument, so a hook with K3's positional signature takes them too
+        # argument, so an entry with K3's positional signature takes them too
         n, d, h, w, c = x.shape
-        y = int8_matmul(x.reshape(-1, c), p["kernel_int8"].reshape(c, -1),
-                        p.get("bias"), p["alpha_act"], p["scale"],
-                        qcfg.qlvl_act, p.get("kernel_packed"))
+        y = kernels.int8_matmul(
+            x.reshape(-1, c), p["kernel_int8"].reshape(c, -1), p.get("bias"),
+            p["alpha_act"], p["scale"], qcfg.qlvl_act, p.get("kernel_packed"))
         return y.reshape(n, d, h, w, -1)
     kernel = p["kernel"]
     if mode == "fq" and qcfg.q_weight:
         kernel = fake_quant_weight(kernel, p["alpha_w"], qcfg.qlvl_w)
     return qconv1x1_ndhwc(x, kernel, p.get("bias"), p["alpha_act"],
-                          qcfg.qlvl_act, matmul=qact_matmul)
+                          qcfg.qlvl_act, matmul=kernels.qact_matmul)
 
 
 def _eval_conv_cf(node: Node, params, x, mode: str, compute_dtype=None):
@@ -375,33 +370,26 @@ def _eval_conv_cf(node: Node, params, x, mode: str, compute_dtype=None):
 
 
 def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
-              ins, *, mode: str = "fp", conv3x3_int8: Callable = None,
-              stem_conv: Callable = None, int8_matmul: Callable = None,
-              qact_matmul: Callable = None, upsample: Callable = None,
-              group_norm: Callable = None, compute_dtype=None):
-    """Evaluate one inference-mode node.  The kernel hooks replace, for the
-    flagged nodes, the int8 3^3 conv (``conv3x3_int8``, default: the K1
-    wrapper), the s2d stem (``stem_conv``, K2), the int8 1x1 matmul
-    (``int8_matmul``, K3), the fake-quant 1x1 matmul (``qact_matmul``,
-    K4), the serving upsample (``upsample``, K5, the ``upsample_k5``
-    nodes of ``ptq.deploy.upsample_serving``) and the serving GroupNorm
-    (``group_norm``, K6, the ``group_norm_k6`` nodes of
-    ``ptq.deploy.group_norm_serving``); each takes its wrapper's
-    signature (e.g. its plain version).  Every GroupNorm node, either
-    kind, adds the elements it normalizes to ``group_norm.elements`` of
-    ``kernels/groupnorm.py``."""
+              ins, *, mode: str = "fp", kernels: Optional[Kernels] = None,
+              compute_dtype=None):
+    """Evaluate one inference-mode node.  ``kernels`` (``kernels.Kernels``,
+    by default the wrappers) runs the flagged nodes: the int8 3^3 convs
+    (K1), the s2d stem (K2), the int8 1x1 convs (K3), the fake-quant 1x1
+    convs (K4), the serving upsamples (K5, the ``upsample_k5`` nodes of
+    ``ptq.deploy.upsample_serving``) and the serving GroupNorms (K6, the
+    ``group_norm_k6`` nodes of ``ptq.deploy.group_norm_serving``).  Every
+    GroupNorm node, either kind, adds the elements it normalizes to
+    ``group_norm.elements`` of ``kernels/groupnorm.py``."""
+    kernels = kernels or WRAPPERS
     if node.op == "conv":
-        return _eval_conv(node, params, ins, mode,
-                          conv3x3_int8 or qconv3x3_int8_ndhwc,
-                          int8_matmul or fused_int8_matmul, qact_matmul,
-                          compute_dtype)
+        return _eval_conv(node, params, ins, mode, kernels, compute_dtype)
     if node.op == "conv_cf":
         return _eval_conv_cf(node, params, ins[0], mode, compute_dtype)
     if node.op == "upsample_cf":
         return ops.upsample3d_cf(ins[0], node.attrs["scale_factor"])
     if node.op == "upsample_k5":
         # inputs (x) or (x, skip): the TransUp skip added in K5's epilogue
-        return (upsample or upsample_trilinear3d)(
+        return kernels.upsample(
             ins[0], node.attrs["scale_factor"],
             ins[1] if len(ins) > 1 else None, node.attrs["channels_first"])
     if node.op == "stem_s2d":
@@ -411,7 +399,7 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
         # consumer's int8 codes)
         xs, par = ins[0]
         p = params[node.name]
-        return (stem_conv or stem_s2d_conv)(
+        return kernels.stem_conv(
             xs, par, p["w_even"], p["w_odd"], p["bias"], p["alpha_next"],
             node.attrs["qlvl_next"], out_dtype=compute_dtype or torch.float32,
             w_packed=p.get("kernel_packed"))
@@ -421,7 +409,7 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
         return ops.batch_norm(ins[0], p["scale"], p["bias"], s["mean"],
                               s["var"], node.attrs["eps"])
     if node.op in ("group_norm", "group_norm_k6"):
-        return _eval_group_norm(node, params, ins[0], group_norm)
+        return _eval_group_norm(node, params, ins[0], kernels)
     if node.op == "relu":
         return ops.relu(ins[0])
     if node.op == "maxpool":
@@ -438,9 +426,9 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
     raise ValueError(f"unknown op {node.op}")
 
 
-def _eval_group_norm(node: Node, params, x, group_norm: Callable = None):
+def _eval_group_norm(node: Node, params, x, kernels: Kernels):
     """A ``group_norm`` node (the plain version, on any device) or a
-    ``group_norm_k6`` node of the serving rewrite (K6, or the hook): its
+    ``group_norm_k6`` node of the serving rewrite (``kernels``'s K6): its
     ReLU (``relu``) and its consumer's act-quant (``quant_for``,
     ``quant_qlvl``: int8 codes out) fused in."""
     a = node.attrs
@@ -450,7 +438,7 @@ def _eval_group_norm(node: Node, params, x, group_norm: Callable = None):
         return group_norm_reference(x, p["scale"], p["bias"],
                                     a["num_groups"], a["eps"])
     quant_for = a.get("quant_for")
-    return (group_norm or _k6)(
+    return kernels.group_norm(
         x, p["scale"], p["bias"], a["num_groups"], a["eps"],
         bool(a.get("relu")),
         params[quant_for]["alpha_act"] if quant_for else None,
@@ -588,6 +576,7 @@ def live_nodes(graph: Graph, outputs: Sequence[str]) -> set:
 
 def apply(graph: Graph, variables: Dict[str, Any], x, *,
           mode: str = "fp", heads: Optional[slice] = None,
+          kernels: Optional[Kernels] = None,
           conv3x3_int8: Callable = None, stem_conv: Callable = None,
           int8_matmul: Callable = None, qact_matmul: Callable = None,
           upsample: Callable = None, group_norm: Callable = None,
@@ -600,7 +589,10 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     mode: 'fp' (plain convs), 'quantized' (fake-quant activations and
     stored quantized weights) or 'fq' (fake-quant activations and weights
     quantized on the fly); int8-deployed nodes run on integer codes in
-    both quantized modes.  The kernel hooks: see ``eval_node``.
+    both quantized modes.  ``kernels``: the ``kernels.Kernels`` record
+    (see ``eval_node``; by default the wrappers); each of the six keywords
+    named after its entries (``conv3x3_int8=``, ``upsample=`` ...)
+    replaces that one entry.
     ``heads`` selects output heads (e.g. ``slice(-1, None)`` for the final
     head only); only the nodes those heads reach are evaluated.
     ``compute_dtype`` (e.g. ``torch.bfloat16``): low-precision serving (see
@@ -615,7 +607,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
 
     ``train=True`` returns (heads, {bn node: {"mean", "var"}}), the
     running stats after this batch; ``seed`` seeds the dropout masks (see
-    the module docstring).  It takes no kernel hooks.  ``remat=N`` (N > 0,
+    the module docstring).  It takes no kernel record.  ``remat=N`` (N > 0,
     train mode only) runs the graph in N-node segments under
     ``torch.utils.checkpoint`` (all heads), with the same values as
     ``remat=0``; it is ignored under ``capture``, as in the JAX package.
@@ -632,10 +624,13 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
     if remat and not train:
         raise ValueError("remat applies to the training forward only "
                          "(train=True)")
-    hooks = (conv3x3_int8, stem_conv, int8_matmul, qact_matmul, upsample,
-             group_norm)
-    if train and any(h is not None for h in hooks):
+    swaps = {k: v for k, v in dict(
+        conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
+        int8_matmul=int8_matmul, qact_matmul=qact_matmul, upsample=upsample,
+        group_norm=group_norm).items() if v is not None}
+    if train and (kernels is not None or swaps):
         raise ValueError("the training forward takes no kernel hooks")
+    kernels = (kernels or WRAPPERS)._replace(**swaps)
     if remat and capture is None:
         with ops.conv_precision(tf32):
             return _apply_remat(graph, variables, x, seed=seed, mode=mode,
@@ -664,10 +659,7 @@ def apply(graph: Graph, variables: Dict[str, Any], x, *,
                     new_state[node.name] = ns
             else:
                 values[node.name] = eval_node(
-                    node, params, st, ins, mode=mode,
-                    conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
-                    int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                    upsample=upsample, group_norm=group_norm,
+                    node, params, st, ins, mode=mode, kernels=kernels,
                     compute_dtype=compute_dtype)
             if capture and node.name in capture:
                 captured[node.name] = values[node.name]
@@ -712,8 +704,6 @@ class GraphModule(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor, heads: Optional[slice] = None,
-                conv3x3_int8: Callable = None, int8_matmul: Callable = None,
-                qact_matmul: Callable = None) -> torch.Tensor:
+                kernels: Optional[Kernels] = None) -> torch.Tensor:
         return apply(self.graph, self.variables, x, mode=self.mode,
-                     heads=heads, conv3x3_int8=conv3x3_int8,
-                     int8_matmul=int8_matmul, qact_matmul=qact_matmul)
+                     heads=heads, kernels=kernels)

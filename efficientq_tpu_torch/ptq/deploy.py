@@ -15,35 +15,33 @@ The JAX package builds the fused-kernel graph only on a TPU; the port
 builds it on every device, so the CPU tests run the same graph the card
 runs (on the CPU the K1 wrapper takes its plain version).
 
-Serving rewrites: ``channels_first_tail`` (the final head emitted NCDHW),
-``s2d_stem_serving`` (the init conv as the fused space-to-depth stem, K2),
-which ``make_s2d_volume_inferencer`` applies for ``--serve_stem s2d``, and
+Serving rewrites: ``channels_first_tail`` (the final head emitted NCDHW)
+and ``s2d_stem_serving`` (the init conv as the fused space-to-depth stem,
+K2), which the s2d path applies (``--serve_stem s2d``), and
 ``upsample_serving`` (every upsample on K5, the TransUp skip add fused in)
 and ``group_norm_serving`` (every GroupNorm on K6, with its ReLU and its
 consumer's act-quant fused in), which every serving path applies last,
-together, as ``serving_graph`` (``eval/validate.py::_build_infer``,
+together, as ``serving_graph``.  ``serving_rewrites`` chooses them for
+every serving path (``eval/validate.py::_build_infer``,
 ``make_s2d_volume_inferencer``, ``export.py``).  Training, QAT and
 calibration graphs keep ``ops.upsample3d`` and the plain GroupNorm.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Callable, Collection, Dict, Optional, Tuple
+from typing import Collection, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import nnir, ops
-from ..eval.sliding import (CapturedForward, make_volume_inferencer,
-                            patch_grid, sliding_window_inference,
-                            volume_inferencer_for)
+from ..eval.sliding import (CapturedForward, _patch_forward, chunk_fn,
+                            make_volume_inferencer, patch_grid, serve_volume)
 from ..kernels.epilogue import _quant_absorbs_relu, fuse_int8_epilogues
 from ..kernels.qconv3d import pack_weights
 from ..kernels.qmatmul import pack_weights_1x1, to_pallas_inference
-from ..kernels.stem import (extract_pre_s2d_patches, pack_stem_weights,
-                            s2d_need_planes, s2d_stem_weights, s2d_supported,
-                            s2d_volume)
+from ..kernels.stem import (extract_s2d_patches, pack_stem_weights,
+                            s2d_stem_weights, s2d_supported)
 from ..nnir import Graph, Node
 
 
@@ -388,130 +386,117 @@ def s2d_stem_serving(graph: Graph, variables):
                 "state": variables.get("state", {})}, g2.node(stem.name)
 
 
+def serving_rewrites(graph: Graph, variables, *, s2d: bool = False,
+                     heads=None):
+    """The graph a serving path runs: (graph', variables', channels_first,
+    stem).  Every path gets ``serving_graph`` (K5, K6) last.  With ``s2d``
+    (``--serve_stem s2d``) the final head first turns channels-first
+    (``channels_first_tail``) where the path serves it alone
+    (``heads=slice(-1, None)``, or a graph of one head), and the init conv
+    becomes the s2d stem (``s2d_stem_serving``), whose node is ``stem``.
+    Without an eligible stem, or without ``s2d``, the result is the direct
+    path's: (``serving_graph(graph)``, ``variables``, False, None)."""
+    if s2d:
+        g, cf = graph, False
+        if heads == slice(-1, None) or len(graph.outputs) == 1:
+            g = channels_first_tail(graph)
+            cf = g is not graph
+        g, v, stem = s2d_stem_serving(g, variables)
+        if stem is not None:
+            return serving_graph(g), v, cf, stem
+    return serving_graph(graph), variables, False, None
+
+
+def s2d_extract_fn(vol_shape, patch_size, overlap, stem_attrs):
+    """The s2d volume preparation, for the live s2d path and the s2d
+    artifact: ``serve_volume``'s ``extract_fn`` that takes the volume
+    (float32, on the card) to space-to-depth planes and the grid's s2d
+    patches with their parities (``kernels.stem.extract_s2d_patches``), or
+    None where the grid of ``vol_shape`` has odd H/W starts or extents, or
+    the stem (``stem_attrs``) another geometry, which K2 cannot serve."""
+    patch_size = ops.triple(patch_size)
+    starts = patch_grid(vol_shape, patch_size, overlap)
+    if not s2d_supported(starts, patch_size, tuple(vol_shape), stem_attrs):
+        return None
+    return extract_s2d_patches
+
+
 def make_s2d_volume_inferencer(graph: Graph, variables, *,
                                patch_batch="auto", hard_pred: bool = True,
                                multilabel: bool = False,
                                compute_dtype=torch.bfloat16, heads=None,
-                               device="cuda",
-                               conv3x3_int8: Callable = None,
-                               stem_conv: Callable = None,
-                               int8_matmul: Callable = None,
-                               qact_matmul: Callable = None,
-                               upsample: Callable = None,
-                               capture: bool = True):
+                               device="cuda", kernels=None, capture=None):
     """s2d serving (``--serve_stem s2d``): the init conv runs as the fused
-    space-to-depth stem K2 (``s2d_stem_serving``), the interior int8 convs
-    on K1 at ``compute_dtype``.
+    space-to-depth stem K2, the interior int8 convs on K1 at
+    ``compute_dtype`` (``serving_rewrites(s2d=True)``).
 
     ``graph`` / ``variables``: the int8 deployment (``to_int8_inference``),
-    without the channels-first tail: it is applied here, when the caller
-    serves the final head only (``heads=slice(-1, None)``) or the graph has
-    one head, and then ``serving_graph``.  The weights go to ``device``
-    once.
+    without the channels-first tail, which the rewrites apply.  The
+    weights go to ``device`` once.
 
     Returns ``infer(variables_ignored, image, patch_size, overlap)`` that
     takes a host (N, D, H, W, C) volume (NumPy or a CPU tensor) and
     returns what ``eval.sliding.make_volume_inferencer`` returns, or None
     when the graph has no eligible stem.  The volume goes to the card as
-    float32 and is transformed to s2d space there (see ``PERF.md`` for the
-    placement's times).  A volume whose grid the s2d path cannot serve
-    (odd H/W starts or extents) is served by the direct inferencer at the
-    same compute dtype.  On a card each chunk's patch forward replays from
-    a CUDA graph (``eval.sliding.CapturedForward``, ``infer.captured``)
-    unless ``capture=False``: then it runs eagerly, as kernel hooks that
-    read the card from the host need (a capture cannot take them).
+    float32 and is transformed to s2d space there (``s2d_extract_fn``;
+    see ``PERF.md`` for the placement's times).  A volume whose grid the
+    s2d path cannot serve (odd H/W starts or extents) is served by the
+    direct inferencer at the same compute dtype.  ``capture``: as
+    ``make_volume_inferencer``'s (``infer.captured``).
     ``patch_batch="auto"`` runs the whole grid as one batch; a device
     out-of-memory halves it and retries, and later volumes keep the
-    smaller batch.  ``conv3x3_int8``, ``stem_conv``, ``int8_matmul``,
-    ``qact_matmul`` and ``upsample`` replace the kernel wrappers (see
-    ``nnir.eval_node``).  The graph may be the mixed deployment
+    smaller batch.  ``kernels``: the ``kernels.Kernels`` record (by
+    default the wrappers).  The graph may be the mixed deployment
     (``only_kernel_sizes={(3, 3, 3)}``) and carry the 1x1 flags of
     ``to_pallas_inference(include_1x1=True)``."""
-    stem0 = next((n for n in graph.nodes
-                  if n.op == "conv" and n.inputs == (graph.input_name,)),
-                 None)
-    cf = False
-    g_in = graph
-    if heads == slice(-1, None) or len(graph.outputs) == 1:
-        g_cf = channels_first_tail(graph)
-        if g_cf is not graph:
-            g_in, cf = g_cf, True
-    g2, v2, stem = s2d_stem_serving(g_in, variables)
+    g2, v2, cf, stem = serving_rewrites(graph, variables, s2d=True,
+                                        heads=heads)
     if stem is None:
         return None
-    g2 = serving_graph(g2)
     dev = torch.device(device)
     v2 = nnir.to_device(v2, dev)
     v_direct = nnir.to_device(variables, dev)
     auto = patch_batch in ("auto", 0, None)
-    keep_hd = bool(hard_pred and compute_dtype is not None)
-    direct = dict(patch_batch=8 if auto else int(patch_batch),
-                  mode="quantized", heads=heads, hard_pred=hard_pred,
-                  multilabel=multilabel, conv3x3_int8=conv3x3_int8,
-                  int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                  upsample=upsample, compute_dtype=compute_dtype)
-    g_direct = serving_graph(graph)
-    fallback = (volume_inferencer_for(dev, g_direct, **direct) if capture
-                else make_volume_inferencer(g_direct, **direct))
-
-    def forward(variables, xs, parities):
-        return nnir.apply(g2, variables, (xs, parities), mode="quantized",
-                          heads=None if cf else heads,
-                          conv3x3_int8=conv3x3_int8, stem_conv=stem_conv,
-                          int8_matmul=int8_matmul, qact_matmul=qact_matmul,
-                          upsample=upsample, compute_dtype=compute_dtype,
-                          keep_head_dtype=keep_hd)
-
-    # on a card the patch forward replays from a CUDA graph (the parities
-    # are made once per grid, outside it)
-    captured = (CapturedForward(forward)
-                if capture and dev.type == "cuda" else None)
-    if captured is not None:
-        captured.use(v2)
-
-    def model_fn(xb):
-        return (captured or functools.partial(forward, v2))(*xb)
-
-    def run(svol, patch_size, overlap, vol_shape, pb):
-        out = sliding_window_inference(
-            model_fn, svol, patch_size, overlap, pb, normalize=not hard_pred,
-            channels_first=cf, extract_fn=extract_pre_s2d_patches,
-            vol_shape=vol_shape)
-        if hard_pred and not multilabel:
-            return torch.argmax(out, dim=2 if cf else -1).to(torch.uint8)
-        if hard_pred:
-            out = (out >= 0).to(torch.uint8)
-        return out.movedim(2, -1) if cf else out
-
+    fallback = make_volume_inferencer(
+        serving_rewrites(graph, variables)[0],
+        patch_batch=8 if auto else int(patch_batch),
+        mode="quantized", heads=heads, hard_pred=hard_pred,
+        multilabel=multilabel, compute_dtype=compute_dtype, kernels=kernels,
+        capture=capture)
+    forward = _patch_forward(g2, "quantized", None if cf else heads,
+                             hard_pred, compute_dtype, kernels)
+    captured = CapturedForward(forward) if capture is not False else None
     pb_cap = [None]
 
     def infer(variables_ignored, image, patch_size, overlap):
         del variables_ignored  # the weights are in the rewritten graph
         image = torch.as_tensor(image)
-        patch_size = ops.triple(patch_size)
-        overlap = ops.triple(overlap)
-        vol_shape = tuple(image.shape[1:4])
-        starts = patch_grid(vol_shape, patch_size, overlap)
-        if not s2d_supported(starts, patch_size, vol_shape, stem0.attrs):
+        extract = s2d_extract_fn(tuple(image.shape[1:4]), patch_size,
+                                 overlap, stem.attrs)
+        if extract is None:
             return fallback(v_direct, image.to(dev), patch_size, overlap)
-        pb = (len(starts) * image.shape[0] if auto else int(patch_batch))
+        pb = (len(patch_grid(image.shape[1:4], patch_size, overlap))
+              * image.shape[0] if auto else int(patch_batch))
         if pb_cap[0] is not None:
             pb = min(pb, pb_cap[0])
-        with torch.inference_mode():
-            svol = s2d_volume(image.to(dev, torch.float32),
-                              s2d_need_planes(starts, patch_size))
-            while True:
-                try:
-                    return run(svol, patch_size, overlap, vol_shape, pb)
-                except torch.cuda.OutOfMemoryError:
-                    if pb <= 1:
-                        raise
-                    if captured is not None:
-                        captured.graph = None  # free the larger graph
-                    pb = max(1, pb // 2)
-                    pb_cap[0] = pb
-                    print(f"serve_stem=s2d: device out of memory, retrying "
-                          f"at patch_batch={pb}")
+        image = image.to(dev, torch.float32)
+        model_fn = chunk_fn(forward, captured, capture, v2, dev)
+        while True:
+            try:
+                with torch.inference_mode():
+                    return serve_volume(model_fn, image, patch_size, overlap,
+                                        pb, hard_pred=hard_pred,
+                                        multilabel=multilabel,
+                                        channels_first=cf, extract_fn=extract)
+            except torch.cuda.OutOfMemoryError:
+                if pb <= 1:
+                    raise
+                if captured is not None:
+                    captured.graph = None  # free the larger graph
+                pb = max(1, pb // 2)
+                pb_cap[0] = pb
+                print(f"serve_stem=s2d: device out of memory, retrying "
+                      f"at patch_batch={pb}")
 
     infer.captured = captured
     return infer

@@ -85,7 +85,8 @@ def select_calibration(graph, variables, candidate_imgs: Sequence[np.ndarray],
                           multilabel_fusetype=multilabel_fusetype,
                           infer=make_volume_inferencer(
                               fg, patch_batch=2, mode="quantized",
-                              hard_pred=True, multilabel=multilabel),
+                              hard_pred=True, multilabel=multilabel,
+                              capture=False),
                           device=device)
         score = float(sm[-1].get_metric()["dsc"])
         seconds["candidates"].append((t1 - t0, time.perf_counter() - t1))

@@ -46,6 +46,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (INT8_OPS, N_BATCH, ONE_BY_ONE, S2D_BATCH,  # noqa: E402
                         _bound, _graph_ms, _int_mm_call, _median_ms,
                         _ptxas_lines, gpu_line)
+from efficientq_tpu_torch import kernels  # noqa: E402
 from efficientq_tpu_torch.kernels import build  # noqa: E402
 from efficientq_tpu_torch.kernels import qmatmul as KM  # noqa: E402
 from efficientq_tpu_torch.quant import act_codes  # noqa: E402
@@ -114,7 +115,7 @@ def _direct(x, wp, n, b, alpha, scale, plan, y, fn=None):
     (a build's launch function; the kernel's own by default)."""
     call = KM._k3_call(x.shape[0], x.shape[1], n, x.dtype == torch.bfloat16,
                        4, plan)
-    rc = KM._on_device(
+    rc = kernels.on_device(
         x.get_device(), fn or KM._int8_lib(), x.data_ptr(), wp.data_ptr(),
         scale.data_ptr(), 0.0, 0, b.data_ptr(), alpha.data_ptr(), 0.0,
         y.data_ptr(), call)

@@ -43,6 +43,7 @@ sys.path.insert(0, ROOT)
 
 from chip_smoke import (FP32_OPS, N_BATCH, ONE_BY_ONE, S2D_BATCH,  # noqa: E402
                         _bound, _graph_ms, _median_ms, _ptxas_lines, gpu_line)
+from efficientq_tpu_torch import kernels  # noqa: E402
 from efficientq_tpu_torch.kernels import build  # noqa: E402
 from efficientq_tpu_torch.kernels import qmatmul as KM  # noqa: E402
 from efficientq_tpu_torch.quant import fake_quant_act  # noqa: E402
@@ -113,7 +114,7 @@ def _direct(x, w, b, alpha, plan, y, fn=None):
     (a build's launch function; the kernel's own by default)."""
     call = KM._k4_call(x.shape[0], x.shape[1], w.shape[1],
                        x.dtype == torch.bfloat16, 4, plan)
-    rc = KM._on_device(
+    rc = kernels.on_device(
         x.get_device(), fn or KM._f32_lib(), x.data_ptr(), w.data_ptr(),
         b.data_ptr(), alpha.data_ptr(), 0.0, y.data_ptr(), call)
     if rc != 0:

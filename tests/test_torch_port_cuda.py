@@ -70,6 +70,7 @@ import torch
 from efficientq_tpu_torch import nnir, ops
 from efficientq_tpu_torch.data import synthetic
 from efficientq_tpu_torch.eval import sliding
+from efficientq_tpu_torch.kernels import WRAPPERS
 from efficientq_tpu_torch.kernels import qconv3d as K
 from efficientq_tpu_torch.kernels import qmatmul as KM
 from efficientq_tpu_torch.kernels import stem as K2
@@ -569,13 +570,14 @@ def _serve_int8(cuda):
 def test_cuda_serving_slice_matches_plain_k1(cuda):
     dg, net, vol, kw = _serve_int8(cuda)
     before = K.qconv3x3_int8_ndhwc.launches
-    got = sliding.make_volume_inferencer(dg, **kw)(
+    got = sliding.make_volume_inferencer(dg, capture=False, **kw)(
         net.variables, vol, (32, 32, 32), (8, 8, 8))
     n_forwards = -(-len(sliding.patch_grid((36, 40, 44), 32, 8)) // 2)
     assert K.qconv3x3_int8_ndhwc.launches - before == 6 * n_forwards
     ref = sliding.make_volume_inferencer(
-        dg, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference, **kw)(
-        net.variables, vol, (32, 32, 32), (8, 8, 8))
+        dg, kernels=WRAPPERS._replace(
+            conv3x3_int8=K.qconv3x3_int8_ndhwc_reference),
+        capture=False, **kw)(net.variables, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 36, 40, 44, 3) and got.dtype == torch.uint8
     assert torch.equal(got, ref)
 
@@ -595,11 +597,11 @@ def test_cuda_serving_slice_include_1x1_equals_unflagged(cuda):
     n_k3 = _live_1x1_flags(pg)
     assert n_k3 > 0
     before = KM.fused_int8_matmul.launches
-    got = sliding.make_volume_inferencer(pg, **kw)(
+    got = sliding.make_volume_inferencer(pg, capture=False, **kw)(
         net.variables, vol, (32, 32, 32), (8, 8, 8))
     n_forwards = -(-len(sliding.patch_grid((36, 40, 44), 32, 8)) // 2)
     assert KM.fused_int8_matmul.launches - before == n_k3 * n_forwards
-    ref = sliding.make_volume_inferencer(dg, **kw)(
+    ref = sliding.make_volume_inferencer(dg, capture=False, **kw)(
         net.variables, vol, (32, 32, 32), (8, 8, 8))
     assert torch.equal(got, ref)
 
@@ -868,8 +870,9 @@ def test_cuda_s2d_slice_matches_plain_kernels(cuda):
     assert K.qconv3x3_int8_ndhwc.launches - k1 == 6
     # eager: the plain K2 reads the parities on the host
     plain = deploy.make_s2d_volume_inferencer(
-        dg, dv, conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
-        stem_conv=K2.stem_s2d_conv_reference, capture=False, **kw)
+        dg, dv, kernels=WRAPPERS._replace(
+            conv3x3_int8=K.qconv3x3_int8_ndhwc_reference,
+            stem_conv=K2.stem_s2d_conv_reference), capture=False, **kw)
     ref = plain(None, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 39, 48, 48, 3) and got.dtype == torch.uint8
     assert float((got == ref).float().mean()) >= 0.999
@@ -1239,7 +1242,8 @@ def test_cuda_mixed_k4_slice_matches_plain_k4(cuda):
         None, vol, (32, 32, 32), (8, 8, 8))
     assert KM.fused_qact_matmul.launches - before == n_k4  # 1 forward
     ref = deploy.make_s2d_volume_inferencer(
-        pg, mv, qact_matmul=KM.fused_qact_matmul_reference, **kw)(
+        pg, mv, kernels=WRAPPERS._replace(
+            qact_matmul=KM.fused_qact_matmul_reference), **kw)(
         None, vol, (32, 32, 32), (8, 8, 8))
     assert got.shape == (1, 1, 39, 48, 48, 3) and got.dtype == torch.uint8
     assert float((got == ref).float().mean()) >= 0.999
@@ -1441,7 +1445,7 @@ def test_cuda_validate_seg_pipeline_equals_one_volume_at_a_time(cuda):
         got.append(out)
         return out
 
-    infer = sliding.make_volume_inferencer(dg, **kw)
+    infer = sliding.make_volume_inferencer(dg, capture=False, **kw)
     before = K.qconv3x3_int8_ndhwc.launches
     sm = validate_seg(dg, net.variables, Loader(data), None, n_mo, 3,
                       patch_size=(32, 32, 32), overlap=(8, 8, 8),
@@ -1606,8 +1610,8 @@ def test_cuda_captured_int8_equals_eager(grid, pb, cuda):
     dg, net, vol, kw = _serve_int8(cuda)
     kw = dict(kw, patch_batch=pb, serve_grid=grid,
               stride_div=8 if grid == "column" else None)
-    eager = sliding.make_volume_inferencer(dg, **kw)
-    infer = sliding.make_captured_volume_inferencer(dg, **kw)
+    eager = sliding.make_volume_inferencer(dg, capture=False, **kw)
+    infer = sliding.make_volume_inferencer(dg, **kw)
     want = eager(net.variables, vol, (32, 32, 32), (8, 8, 8))
     n = len(sliding.patch_grid(
         (40 if grid == "column" else 36, 40, 44),
@@ -1658,8 +1662,8 @@ def test_cuda_captured_follows_changed_variables(cuda):
     new variable set, are each followed by a capture of their own and the
     eager result."""
     dg, net, vol, kw = _serve_int8(cuda)
-    infer = sliding.make_captured_volume_inferencer(dg, **kw)
-    eager = sliding.make_volume_inferencer(dg, **kw)
+    infer = sliding.make_volume_inferencer(dg, **kw)
+    eager = sliding.make_volume_inferencer(dg, capture=False, **kw)
     v = net.variables
     args = (vol, (32, 32, 32), (8, 8, 8))
     first = infer(v, *args)
@@ -1743,7 +1747,7 @@ def test_cuda_artifact_equals_captured_path(cuda, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         art.check_platform("cpu")
     infer = art.volume_inferencer(patch_batch=2, multilabel=True)
-    want = sliding.make_captured_volume_inferencer(dg, **kw)(
+    want = sliding.make_volume_inferencer(dg, **kw)(
         net.variables, vol, (32, 32, 32), (8, 8, 8))
     forwards = -(-len(sliding.patch_grid((36, 40, 44), 32, 8)) // 2)
     for _ in range(2):
@@ -1773,6 +1777,6 @@ def test_cuda_autotune_sweeps_then_hits_the_cache(cuda, tmp_path,
     def boom(*a, **k):
         raise AssertionError("measured on a cache hit")
 
-    monkeypatch.setattr(sliding, "make_captured_volume_inferencer", boom)
+    monkeypatch.setattr(sliding, "make_volume_inferencer", boom)
     assert autotune.choose_patch_batch(dg, net.variables, vol, 32, 8,
                                        tune="auto", **kw) == pb

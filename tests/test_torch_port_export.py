@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from efficientq_tpu import export as jexport
 from efficientq_tpu import nnir as jnnir
@@ -39,7 +40,9 @@ from efficientq_tpu_torch.kernels.qmatmul import to_pallas_inference
 from efficientq_tpu_torch.models import (UResQConfig, build_uresq,
                                          min_input_divisor, torch_io)
 from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
-from efficientq_tpu_torch.ptq.deploy import make_s2d_volume_inferencer
+from efficientq_tpu_torch.ptq.deploy import (make_s2d_volume_inferencer,
+                                             serving_rewrites)
+from efficientq_tpu_torch.utils import tracing
 
 CFG = dict(num_mod=4, num_classes=3, depth_config=[1, 1, 1],
            width_config=[4, 8, 4], dilation_config=[1, 1, 1],
@@ -268,6 +271,44 @@ def test_column_artifact_end_to_end(nets, tmp_path):
     with pytest.raises(ValueError, match="column depth"):
         art.volume_inferencer()(None, _x(9, 1, (depth + 1, 24, 24)), PATCH,
                                 OVERLAP)
+
+
+@pytest.mark.parametrize("path", ["direct", "s2d", "artifact",
+                                  "artifact_s2d"])
+def test_each_serving_path_records_the_volume_spans(nets, artifact, path,
+                                                    tmp_path):
+    """Every serving path runs the one serving loop, so each records the
+    same spans of a volume (``utils/tracing.py``): its extraction, its
+    chunks, its stitch and its decision."""
+    dg, dv = nets["port"]
+    vol = _x(11, 1, (20, 24, 24))
+    if path == "direct":
+        infer = sliding.make_volume_inferencer(
+            serving_rewrites(dg, dv)[0], patch_batch=4, mode="quantized",
+            heads=slice(-1, None), hard_pred=True, multilabel=True)
+    elif path == "s2d":
+        infer = make_s2d_volume_inferencer(dg, dv, patch_batch=4,
+                                           multilabel=True, device="cpu",
+                                           heads=slice(-1, None))
+    elif path == "artifact":
+        infer = artifact[1].volume_inferencer(patch_batch=4,
+                                              multilabel=True)
+    else:
+        ep, b, stem_attrs = export.export_s2d_model(
+            dg, dv, PATCH, 4, patch_batch=4, device="cpu")
+        infer = _save(tmp_path / "s2d.zip", ep, {
+            "patch_size": list(PATCH), "overlap": list(OVERLAP),
+            "serve_stem": "s2d", "channels_first": True,
+            "stem_geometry": stem_attrs, "batch": b}).volume_inferencer(
+            patch_batch=4, multilabel=True)
+    with profile(activities=[ProfilerActivity.CPU]):
+        pred = infer(dv, vol, PATCH, OVERLAP)
+    assert pred.shape == (1, 1, 20, 24, 24, 3) and pred.dtype == torch.uint8
+    names = [s["name"] for s in tracing.record()["spans"]]
+    n_chunks = -(-len(sliding.patch_grid((20, 24, 24), PATCH, OVERLAP)) // 4)
+    assert sorted(names) == sorted(
+        ["volume.extract", "volume.stitch", "volume.decide"]
+        + ["volume.chunk"] * n_chunks)
 
 
 def test_formats_refuse_each_other(nets, artifact, tmp_path):

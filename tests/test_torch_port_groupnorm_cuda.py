@@ -31,6 +31,7 @@ import torch
 
 from efficientq_tpu_torch import nnir
 from efficientq_tpu_torch.eval import sliding, validate
+from efficientq_tpu_torch.kernels import WRAPPERS
 from efficientq_tpu_torch.kernels import groupnorm as K6
 from efficientq_tpu_torch.kernels import library
 from efficientq_tpu_torch.kernels import qconv3d as K1
@@ -234,7 +235,8 @@ def test_cuda_brats_study_launches_k6_before_every_k1(cuda):
                          heads=slice(-1, None))
         want = nnir.apply(
             served, dv, xb, mode="quantized", heads=slice(-1, None),
-            conv3x3_int8=K1.qconv3x3_int8_ndhwc_reference,
-            upsample=K5.upsample_trilinear3d_reference,
-            group_norm=K6.group_norm_reference)
+            kernels=WRAPPERS._replace(
+                conv3x3_int8=K1.qconv3x3_int8_ndhwc_reference,
+                upsample=K5.upsample_trilinear3d_reference,
+                group_norm=K6.group_norm_reference))
     assert torch.equal(got, want)

@@ -283,8 +283,7 @@ def test_segresnet_k1_nodes_all_read_codes():
 def test_captured_replays_add_the_prologue_count():
     """A CUDA-graph replay adds its forward's prologue quantizations, as
     it adds the launches."""
-    from efficientq_tpu_torch.eval import sliding
+    from efficientq_tpu_torch.kernels import COUNTERS as counted
 
-    counted = sliding._counted()
     assert (K.qconv3x3_int8_ndhwc, "launches") in counted
     assert (K.qconv3x3_int8_ndhwc, "prologue_quant_launches") in counted

@@ -32,6 +32,7 @@ from efficientq_tpu.ptq import fold_bn as jfold
 from efficientq_tpu.ptq.deploy import to_int8_inference as jdeploy
 from efficientq_tpu_torch import nnir
 from efficientq_tpu_torch.eval import sliding
+from efficientq_tpu_torch.kernels import WRAPPERS
 from efficientq_tpu_torch.kernels import qmatmul as K
 from efficientq_tpu_torch.models import build_uresq, preset_config
 from efficientq_tpu_torch.ptq import fold_bn, to_int8_inference
@@ -162,14 +163,17 @@ def test_k4_plan_edges():
 def test_k4_vector_and_alpha_pass_through():
     """The wrapper's helpers copy nothing that is already in the kernel's
     form and make no tensor from a number."""
+    from efficientq_tpu_torch import kernels
+
     b = torch.randn(5)
-    assert K._vector(b, 5, b, "bias") is b
-    assert torch.equal(K._vector(2.0, 3, b, "scale"), torch.full((3,), 2.0))
+    assert kernels.vector_arg(b, 5, b, "bias") is b
+    assert torch.equal(kernels.vector_arg(2.0, 3, b, "scale"),
+                       torch.full((3,), 2.0))
     alpha = torch.tensor(0.9)
-    assert K._alpha(alpha, b)[0] is alpha
-    assert K._alpha(0.9, b) == (None, 0.9)
+    assert kernels.alpha_arg(alpha, b)[0] is alpha
+    assert kernels.alpha_arg(0.9, b) == (None, 0.9)
     with pytest.raises(ValueError, match="one value"):
-        K._alpha(torch.ones(2), b)
+        kernels.alpha_arg(torch.ones(2), b)
     call = K._k4_call(700, 32, 64, True, 4)
     plan = K._k4_plan(700, 32, 64, True)
     assert call is K._k4_call(700, 32, 64, True, 4)  # cached
@@ -292,7 +296,7 @@ def test_flagged_int8_forward_passes_packed_weights(tiny):
         return K.fused_int8_matmul_reference(*a)
 
     nnir.apply(tg, tv, torch.from_numpy(_x(1)), mode="quantized",
-               int8_matmul=hook)
+               kernels=WRAPPERS._replace(int8_matmul=hook))
     assert got and all(w is not None and w.dtype == torch.int8
                        and w.shape[1] % 32 == 0 for w in got)
 
@@ -424,13 +428,13 @@ def _x(seed=0, shape=(1, 16, 16, 16, 2)):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
 
 
-def _apply_pair(jg, jv, tg, tv, mode, x, compute_dtype=None, **hooks):
+def _apply_pair(jg, jv, tg, tv, mode, x, compute_dtype=None, kernels=None):
     want = np.asarray(jnnir.apply(
         jg, jv, jnp.asarray(x), mode=mode,
         precision=jax.lax.Precision.HIGHEST,
         compute_dtype=None if compute_dtype is None else jnp.bfloat16))
     got = nnir.apply(tg, tv, torch.from_numpy(x), mode=mode,
-                     compute_dtype=compute_dtype, **hooks).numpy()
+                     compute_dtype=compute_dtype, kernels=kernels).numpy()
     assert got.shape == want.shape and got.dtype == want.dtype == np.float32
     return got, want
 
@@ -450,8 +454,9 @@ def test_flagged_forward_matches_jax(tiny, name):
 
     got, want = _apply_pair(
         jg, jv, tg, tv, "quantized", _x(1),
-        int8_matmul=spy(K.fused_int8_matmul_reference),
-        qact_matmul=spy(K.fused_qact_matmul_reference))
+        kernels=WRAPPERS._replace(
+            int8_matmul=spy(K.fused_int8_matmul_reference),
+            qact_matmul=spy(K.fused_qact_matmul_reference)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     n_ones = sum(1 for n in tg.nodes if n.attrs.get("pallas")
                  and n.attrs["kernel_size"] == (1, 1, 1)

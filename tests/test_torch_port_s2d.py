@@ -37,6 +37,7 @@ from efficientq_tpu.ptq import fold_bn as jfold
 from efficientq_tpu.quant import fake_quant_weight as jfqw
 from efficientq_tpu_torch import nnir, ops
 from efficientq_tpu_torch.eval import sliding
+from efficientq_tpu_torch.kernels import WRAPPERS
 from efficientq_tpu_torch.kernels import qconv3d as K
 from efficientq_tpu_torch.kernels import stem
 from efficientq_tpu_torch.models import UResQConfig, build_uresq, torch_io
@@ -307,7 +308,7 @@ def test_s2d_stem_node_carries_packed_weights(s2d_graphs):
     img = torch.from_numpy(_volume(3, (32, 32, 32)))
     xs, par = stem.extract_s2d_patches(img, [(0, 0, 0)], PATCH)
     nnir.apply(tsg, tsv, (xs, par), mode="quantized", compute_dtype=BF16,
-               stem_conv=spy)
+               kernels=WRAPPERS._replace(stem_conv=spy))
     assert seen["w_packed"] is p["kernel_packed"]
 
 

@@ -35,6 +35,8 @@ import torch.nn.functional as F
 from efficientq_tpu_torch import models, nnir
 from efficientq_tpu_torch.cli import definer, entrance
 from efficientq_tpu_torch.data.synthetic import make_synthetic_dataset
+from efficientq_tpu_torch.eval import sliding
+from efficientq_tpu_torch.kernels import WRAPPERS
 from efficientq_tpu_torch.kernels import groupnorm as K6
 from efficientq_tpu_torch.models import (SegResNetConfig, build_segresnet,
                                          build_uresq, preset_config,
@@ -179,6 +181,31 @@ def test_int8_deployment_equals_the_quantized_reference():
     # order: its logits differ by a few ulps
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 4 * 2.0 ** -23 * scale
+
+
+def test_a_serving_path_takes_the_plain_k6_by_the_record():
+    """The volume inferencer serves on the kernel record it is given: with
+    K6's plain version in its ``group_norm`` entry, each of the 25
+    GroupNorms of every chunk's forward goes to it, and the prediction is
+    the default record's."""
+    sg, dv = _deployed(CFG, _weights(CFG))
+    calls = []
+
+    def plain_k6(x, *args):
+        calls.append(x.shape[0])
+        return K6.group_norm_reference(x, *args)
+
+    vol = _ndhwc(_volume(1, (40, 32, 32)))  # 2 patches: one chunk
+    kw = dict(patch_batch=2, mode="quantized", heads=slice(-1, None),
+              hard_pred=True, multilabel=True)
+    got = sliding.make_volume_inferencer(
+        sg, kernels=WRAPPERS._replace(group_norm=plain_k6), **kw)(
+        dv, vol, (32, 32, 32), (8, 8, 8))
+    assert calls == [2] * 25
+    want = sliding.make_volume_inferencer(sg, **kw)(dv, vol, (32, 32, 32),
+                                                    (8, 8, 8))
+    assert got.shape == (1, 1, 40, 32, 32, 3)
+    assert torch.equal(got, want)
 
 
 def test_serving_rewrite_routes_every_group_norm_to_k6():

@@ -144,15 +144,14 @@ def test_column_equals_patch_when_depth_fits(deployed):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("maker", ["make_volume_inferencer",
-                                   "make_captured_volume_inferencer"])
+@pytest.mark.parametrize("capture", [False, True])
 @pytest.mark.parametrize("kw,match", [
     (dict(serve_grid="column"), "stride_div"),
     (dict(serve_grid="volume"), "serve_grid")])
-def test_inferencer_grid_errors_match_jax(deployed, maker, kw, match):
+def test_inferencer_grid_errors_match_jax(deployed, capture, kw, match):
     (jdg, _), (tdg, _) = deployed
     with pytest.raises(ValueError, match=match) as ours:
-        getattr(sliding, maker)(tdg, **kw)
+        sliding.make_volume_inferencer(tdg, capture=capture, **kw)
     with pytest.raises(ValueError) as theirs:
         jsliding.make_jitted_volume_inferencer(jdg, **kw)
     assert str(ours.value) == str(theirs.value)
@@ -160,11 +159,15 @@ def test_inferencer_grid_errors_match_jax(deployed, maker, kw, match):
 
 def test_captured_inferencer_refuses_cpu_tensors(deployed):
     _, (tdg, tdv) = deployed
-    infer = sliding.make_captured_volume_inferencer(tdg, mode="quantized")
+    vol = torch.from_numpy(_vol(0, (16, 16, 16)))
+    infer = sliding.make_volume_inferencer(tdg, mode="quantized",
+                                           capture=True)
     with pytest.raises(ValueError, match="CUDA"):
-        infer(tdv, torch.from_numpy(_vol(0, (16, 16, 16))), PATCH, OVERLAP)
-    assert sliding.volume_inferencer_for("cpu", tdg).__qualname__.startswith(
-        "make_volume_inferencer")
+        infer(tdv, vol, PATCH, OVERLAP)
+    # by default a CPU tensor is served eagerly: no capture is attempted
+    default = sliding.make_volume_inferencer(tdg, mode="quantized")
+    default(tdv, vol, PATCH, OVERLAP)
+    assert default.captured.captures == 0 and default.captured._held is None
 
 
 class _Artifact:
@@ -252,7 +255,7 @@ def test_autotune_off_the_card_returns_default(deployed, tune, monkeypatch,
     def boom(*a, **k):
         raise AssertionError("measured off the card")
 
-    monkeypatch.setattr(sliding, "make_captured_volume_inferencer", boom)
+    monkeypatch.setattr(sliding, "make_volume_inferencer", boom)
     x = torch.from_numpy(_vol(0, (20, 24, 24)))
     assert autotune.choose_patch_batch(tdg, tdv, x, PATCH, OVERLAP,
                                        tune=tune, default=3) == 3

@@ -59,6 +59,7 @@ from efficientq_tpu.train import schedule as jschedule
 from efficientq_tpu_torch import nnir, ops, quant
 from efficientq_tpu_torch.data import transforms as T
 from efficientq_tpu_torch.data.datahub import DataHub
+from efficientq_tpu_torch.kernels import REFERENCES
 from efficientq_tpu_torch.models import UResQConfig, build_uresq, torch_io
 from efficientq_tpu_torch.train import Trainer, losses, schedule
 
@@ -363,6 +364,8 @@ def test_remat_inference_exact(n):
         nnir.apply(g, v, x, remat=-1)
     with pytest.raises(ValueError, match="train=True"):
         nnir.apply(g, v, x, remat=n)
+    with pytest.raises(ValueError, match="hooks"):
+        nnir.apply(g, v, x, train=True, kernels=REFERENCES)
     with pytest.raises(ValueError, match="hooks"):
         nnir.apply(g, v, x, train=True, conv3x3_int8=lambda *a, **k: None)
 

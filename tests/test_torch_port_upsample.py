@@ -173,7 +173,7 @@ def test_rewritten_deployment_equals_the_unrewritten(tiny, compute_dtype):
     want = nnir.apply(tail, dv, x, mode="quantized",
                       compute_dtype=compute_dtype)
     got = nnir.apply(upsample_serving(tail), dv, x, mode="quantized",
-                     compute_dtype=compute_dtype, **library.HOOKS)
+                     compute_dtype=compute_dtype, kernels=library.OPS)
     assert torch.equal(got, want)
 
 
@@ -185,7 +185,8 @@ def test_serving_runs_k5_and_training_and_calibration_do_not(tiny,
         calls.append(a[1])
         return K5.upsample_trilinear3d(*a, **kw)
 
-    monkeypatch.setattr(nnir, "upsample_trilinear3d", counted)
+    monkeypatch.setattr(nnir, "WRAPPERS",
+                        nnir.WRAPPERS._replace(upsample=counted))
     dg, dv = tiny
     vol = torch.from_numpy(np.random.RandomState(4).rand(
         1, 20, 18, 12, 1).astype(np.float32))
