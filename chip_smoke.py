@@ -250,7 +250,9 @@ Phases, each printed on its own lines:
    on an NCDHW tensor; then a 256 x 256 x 128 LiTS volume through the
    main path (``validate._build_infer``, captured) on the LiTS preset's
    int8 deployment: 5 K5 and 18 K1 launches a chunk (9 of them
-   quantizing a float input, ``prologue_quant_launches``), the prediction
+   quantizing a float input, ``prologue_quant_launches``; 12 of a chunk of
+   8 and 8 of the last chunk of 3 on K1's overlapped pipeline,
+   ``overlapped_launches``), the prediction
    and one chunk's logits identical to the same network on K5's plain
    version.  The
    plain networks of phases 2, 4, 7, 8, 9, 10 and 11 run K5's plain
@@ -266,7 +268,8 @@ Phases, each printed on its own lines:
    and the act-quant as torch ops; then a BraTS study of 155 x 240 x 240
    through the main path (``validate._build_infer``, captured) on the
    full-width SegResNet's int8 deployment: 25 K6, 24 K1 and 3 K5 launches
-   a chunk, no K1 launch quantizing a float input (K6 hands K1 codes).
+   a chunk, no K1 launch quantizing a float input (K6 hands K1 codes), all
+   24 on K1's overlapped pipeline (``overlapped_launches``).
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
 path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
@@ -347,6 +350,11 @@ LITS_STAGES = [(64, 32), (32, 64), (16, 128), (8, 256), (4, 512), (8, 256),
                (16, 128), (32, 64), (64, 32)]
 LITS_BATCH = 8
 LITS_QLVL = 16
+# K1 launches on the overlapped pipeline in a LiTS chunk of 8 patches and
+# in the ragged chunk of 3 that ends a 256 x 256 x 128 volume's 27, and in
+# a SegResNet chunk of 8 (tests/test_torch_port_qconv3d.py pins them)
+LITS_OVERLAPPED = {8: 12, 3: 8}
+SEG_OVERLAPPED = 24
 # K1 at the kernel's tile edges (phase 1): (N, extents, C, O, dilation)
 WIDE_CASES = [(3, (32, 32, 32), 40, 72, 2), (1, (6, 16, 16), 64, 264, 1),
               (1, (8, 16, 16), 256, 256, 1), (1, (5, 6, 7), 72, 40, 1),
@@ -674,7 +682,8 @@ def k1_lits(seed: int):
                   f"bound)  plain {tp:.4f} ms  cuDNN bf16 conv of the codes "
                   f"{tl:.4f} ms (device {gl:.4f} ms; K1 / cuDNN device "
                   f"{gk / gl:.2f})  bound {bound:.4f} ms ({by})  tiles: "
-                  f"brick {plan.brick}, grid {plan.grid}", flush=True)
+                  f"brick {plan.brick}, grid {plan.grid}, sums {plan.sums}",
+                  flush=True)
             del xl, wl
         del x, w, res, qa, variants
         torch.cuda.empty_cache()
@@ -1178,7 +1187,8 @@ def phase3(seed: int):
                   f"{bound:.4f} ms ({by16}: {cost16[0] / 1e6:.1f} MB, "
                   f"{cost16[1] / 1e9:.1f} G int8 operations)  tiles: brick "
                   f"{plan.brick}, grid {plan.grid}, "
-                  f"{plan.smem} B shared", flush=True)
+                  f"{plan.smem} B shared, {plan.sums} sums buffers",
+                  flush=True)
             print(f"[phase3]   device time (CUDA graph replay): K1 bf16 out "
                   f"{gk:.4f} ms ({cost16[1] / gk / 1e9:.1f} TOP/s, "
                   f"{bound / gk:.1%} of the bound)  cuDNN {gl:.4f} ms (K1 / "
@@ -3797,20 +3807,23 @@ def phase12(seed: int, smi: str):
     infer(dv, vol, LITS_PATCH, LITS_OVERLAP)  # captures the full chunks
     torch.cuda.synchronize()
     K5.upsample_trilinear3d.launches = 0
-    k1 = (K1.qconv3x3_int8_ndhwc.launches,
-          K1.qconv3x3_int8_ndhwc.prologue_quant_launches)
+    k1_counts = ("launches", "prologue_quant_launches", "overlapped_launches")
+    k1 = [getattr(K1.qconv3x3_int8_ndhwc, k) for k in k1_counts]
     pred = infer(dv, vol, LITS_PATCH, LITS_OVERLAP)
     torch.cuda.synchronize()
     launches = K5.upsample_trilinear3d.launches
     check(launches == 5 * chunks,
           f"LiTS main path: K5 launched {launches} times, expected "
           f"{5 * chunks} ({chunks} chunks)")
-    k1 = (K1.qconv3x3_int8_ndhwc.launches - k1[0],
-          K1.qconv3x3_int8_ndhwc.prologue_quant_launches - k1[1])
-    check(k1 == (18 * chunks, 9 * chunks),
+    k1 = tuple(getattr(K1.qconv3x3_int8_ndhwc, k) - b
+               for k, b in zip(k1_counts, k1))
+    n_patches = len(patch_grid(LITS_VOL, LITS_PATCH, LITS_OVERLAP))
+    overlapped = sum(LITS_OVERLAPPED[min(LITS_BATCH, n_patches - i)]
+                     for i in range(0, n_patches, LITS_BATCH))
+    check(k1 == (18 * chunks, 9 * chunks, overlapped),
           f"LiTS main path: K1 launched {k1[0]} times, {k1[1]} of them "
-          f"quantizing a float input; expected {18 * chunks} and "
-          f"{9 * chunks}")
+          f"quantizing a float input, {k1[2]} on the overlapped pipeline; "
+          f"expected {18 * chunks}, {9 * chunks} and {overlapped}")
     served = upsample_serving(dg)
     plain = make_volume_inferencer(
         served, patch_batch=LITS_BATCH, mode="quantized",
@@ -3832,8 +3845,9 @@ def phase12(seed: int, smi: str):
     print(f"[phase12] on {smi}: a {LITS_VOL} LiTS volume through "
           f"_build_infer (captured, {chunks} chunks of {LITS_BATCH}): K5 "
           f"launches {launches}, K1 {k1[0]} ({k1[1]} quantizing their float "
-          f"input, the block1 convs); the prediction and one chunk's logits "
-          f"equal the plain network's (torch.equal)", flush=True)
+          f"input, the block1 convs; {k1[2]} overlapped_launches); the "
+          f"prediction and one chunk's logits equal the plain network's "
+          f"(torch.equal)", flush=True)
     del dv, vol, pred, plain, xb, logits, plain_logits, infer
     torch.cuda.empty_cache()
     numbers = dict(max_abs_err=max_err, per_patch_graph_ms=tot["graph_ms"]
@@ -3954,18 +3968,22 @@ def phase13(seed: int, smi: str):
                 K5.upsample_trilinear3d)
     before = [fn.launches for fn in counters]
     prologue = K1.qconv3x3_int8_ndhwc.prologue_quant_launches
+    overlapped = K1.qconv3x3_int8_ndhwc.overlapped_launches
     infer(dv, vol, SEG_PATCH, OVERLAP)
     torch.cuda.synchronize()
     launches = [fn.launches - b for fn, b in zip(counters, before)]
     prologue = K1.qconv3x3_int8_ndhwc.prologue_quant_launches - prologue
-    check(launches == [25, 24, 3] and prologue == 0,
+    overlapped = K1.qconv3x3_int8_ndhwc.overlapped_launches - overlapped
+    check(launches == [25, 24, 3] and prologue == 0
+          and overlapped == SEG_OVERLAPPED,
           f"SegResNet main path: K6, K1 and K5 launched {launches} times a "
-          f"chunk, K1 quantized {prologue} float inputs; expected "
-          f"[25, 24, 3] and 0 (K6 hands K1 its codes)")
+          f"chunk, K1 quantized {prologue} float inputs and took the "
+          f"overlapped pipeline {overlapped} times; expected [25, 24, 3], 0 "
+          f"(K6 hands K1 its codes) and {SEG_OVERLAPPED}")
     print(f"[phase13] on {smi}: a {SEG_VOL} BraTS study through "
           f"_build_infer (captured, one chunk of {SEG_BATCH}): K6, K1, K5 "
-          f"launches {launches}, K1 prologue quantizations {prologue}",
-          flush=True)
+          f"launches {launches}, K1 prologue quantizations {prologue}, K1 "
+          f"overlapped_launches {overlapped}", flush=True)
     del dv, vol, infer
     torch.cuda.empty_cache()
     numbers = dict(per_patch_graph_ms=tot["graph_ms"] / SEG_BATCH, **tot,

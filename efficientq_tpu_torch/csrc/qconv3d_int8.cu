@@ -42,9 +42,13 @@
 // residual in, bf16 y and pool out, about 0.10 ms per conv at B = 8
 // against 0.06 ms of operations).  So the multiply-adds run on the tensor
 // cores and each activation byte comes from device memory about once.
-// What holds this kernel back today (chip_smoke.py phase 3): the epilogue
-// runs as its own phase between barriers, so it does not overlap the tap
-// loop; at 64^3 x 32 it takes about as long as the 27 taps.
+// Where a block walks many bricks, the epilogue of one brick runs on warps
+// of its own while the next brick's taps run (the overlapped pipeline
+// below), so the kernel takes about the longer of the two phases, not
+// their sum.  What bounds it then (scripts/k1_ablation.py): the tap loop,
+// whose every warp reloads its B fragments from shared memory at every
+// tap, and the 4 epilogue warps, about even; the int8 tensor cores and
+// device memory are far from busy.
 //
 // Design.  An implicit GEMM, M = output voxels, N = O, K = 27 taps x C.
 //  - Tensor cores: mma.sync.m16n8k32 s8 x s8 -> s32, fragments loaded with
@@ -72,7 +76,8 @@
 //    kernels/qconv3d.py) and walk (brick, chunk) steps with two stages of
 //    cp.async (16 bytes, .cg): step s + 1's halo, and its weights when
 //    C > 32, load while step s's 27 taps run.  With C <= 32 the weights
-//    stay resident for all of the block's bricks.
+//    stay resident for all of the block's bricks.  A thread's halo rows
+//    step by a fixed count, walked with carries rather than divides.
 //  - Channel counts that are not a multiple of 16 (C = 3 in the tests)
 //    stage their halo with plain byte loads instead of cp.async.
 //  - Float input: qconv3d_int8_kernel_quantize, launched just before the
@@ -87,11 +92,35 @@
 //    memory (one block an SM instead of two): measured on an H100 at the
 //    LiTS block1 convs, 1.5 times the pass and the convolution together
 //    (PERF.md section 6).
-//  - Epilogue: the int32 sums of a brick go to the spent stage's shared
-//    memory, and the block runs the epilogue over them element-wise, 4
-//    channels a thread, so the residual, y and the int8 codes move in
-//    coalesced 4- to 16-byte vectors; the pool then takes the max of the
-//    stored values of each cell from the same tile.
+//  - Epilogue: the int32 sums of a brick go to shared memory, and the
+//    epilogue runs over them element-wise, 4 channels a thread (the same 4
+//    for all of a thread's rows, so it reads their scale and bias once), so
+//    the residual, y and the int8 codes move in coalesced 4- to 16-byte
+//    vectors; the next conv's codes come from act_code.cuh's quantizer
+//    (thresholds at up to 4 levels, the same bits as the divide).  The
+//    pool then takes the max of the stored values of each cell from the
+//    same tile.  Its row loop is not unrolled: a fully unrolled epilogue
+//    outgrew the instruction cache and its warps waited on instruction
+//    fetch (2.2-2.6 times slower on an H100, PERF.md section 6).
+//  - Two pipelines, chosen by the tile plan (kernels/qconv3d.py, from the
+//    bricks a block walks): taking turns (above), the block's warps load,
+//    run the taps, store the sums into the spent stage and run the
+//    epilogue themselves between barriers; overlapped (the 4 x 8 brick,
+//    where every block walks two or more bricks), one block an SM has 16
+//    warps in three roles.  8 MMA warps wait for a step's stage (an
+//    mbarrier, FULL), run its 27 taps, release it (EMPTY) and, at a
+//    brick's last step, store its sums into one of one or two sums buffers
+//    of their own; 4 producer warps issue every cp.async (the weights, the
+//    halo of each step, and after a brick's last step its residual into a
+//    tile beside its sums buffer, RFULL / REMPTY); 4 epilogue warps take a
+//    full sums buffer and its residual tile and run the epilogue, so brick
+//    b's epilogue runs while brick b + 1's taps do.  The MMA and epilogue
+//    warps hand the sums buffers over with named barriers (bar.arrive /
+//    bar.sync, FULL and EMPTY per buffer); the roles share no barrier but
+//    the one after the mbarriers are set.  Waiting warps sleep in
+//    mbarrier.try_wait rather than poll.  Fewer producer warps left the MMA
+//    warps waiting for their loads; a 17th warp would cut every warp's
+//    registers to 96 (PERF.md, the warp splits measured).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,6 +137,22 @@ constexpr int HS = 48;                  // halo row stride: 32 bytes + 16
 constexpr int SR = BN + 4;              // staged sums row stride, words
 constexpr int SMEM_MAX = 232448;        // a block's opt-in shared memory
 constexpr int QUANT_BLOCKS = 132 * 8;   // the prologue pass: 8 an SM
+// named barriers of the overlapped pipeline (0 is __syncthreads): the
+// epilogue warps' pool, and per sums buffer k FULL + k (its sums are
+// stored) and EMPTY + k (its epilogue is done)
+constexpr int BAR_EPI = 2, BAR_FULL = 3, BAR_EMPTY = 5;
+constexpr int MBAR_BYTES = 128;  // the overlapped pipeline's 8 mbarriers
+// the overlapped pipeline's epilogue and producer warps, beside its 8 MMA
+// warps (the 4 x 8 brick): 16 warps, so 4 a scheduler at 128 registers
+constexpr int EPI_WARPS = 4, LOAD_WARPS = 4;
+
+// threads of a block of the kernel below: the MMA threads, one warp per
+// 2 x 2 x 8 sub-brick, and the overlapped pipeline's epilogue and producer
+// warps
+template <int BZ, int BY, bool OVERLAP>
+__host__ __device__ constexpr int block_threads() {
+  return BZ * BY * 8 + (OVERLAP ? 32 * (EPI_WARPS + LOAD_WARPS) : 0);
+}
 
 struct Args {
   const int8_t* qa;
@@ -128,10 +173,21 @@ struct Args {
   int bricks;         // N * nbz * nby * nbx
   int halo_bytes;     // one halo buffer, a multiple of 128
   int stage_bytes;    // one pipeline stage, a multiple of 128
+  int nsums;          // sums buffers of the overlapped pipeline (1 or 2)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// named barrier `id` of `count` threads: wait for it, or arrive without
+// waiting
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // byte offset of 16-byte half j of 32-byte weight row r, swizzled so that
@@ -152,6 +208,51 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// mbarriers in shared memory (the overlapped pipeline's stage ring):
+// `count` arrivals complete a phase; a wait for parity p returns once the
+// phase of parity p has completed (at once for parity 1 on a fresh one)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrives on bar once every cp.async the thread has issued has landed
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// The waiting thread sleeps until the phase completes (or 1 ms passes),
+// rather than polling: a polling warp would take issue slots and shared
+// memory accesses from the warps at work beside it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        " .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        " selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity), "r"(1000000)
+        : "memory");
+  } while (!done);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -234,7 +335,9 @@ __device__ __forceinline__ void store4(void* p, long long e, bool bf16,
       *reinterpret_cast<uint2*>(q) = u;
     } else {
       const __nv_bfloat16 b[4] = {lo.x, lo.y, hi.x, hi.y};
-      for (int j = 0; j < n; ++j) q[j] = b[j];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < n) q[j] = b[j];
     }
     v[0] = __low2float(lo);
     v[1] = __high2float(lo);
@@ -245,8 +348,226 @@ __device__ __forceinline__ void store4(void* p, long long e, bool bf16,
     if (vec) {
       *reinterpret_cast<float4*>(q) = make_float4(v[0], v[1], v[2], v[3]);
     } else {
-      for (int j = 0; j < n; ++j) q[j] = v[j];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < n) q[j] = v[j];
     }
+  }
+}
+
+// The epilogue's threads: thread et of ET takes output channels o .. o + 3
+// (o = n0 + 4 * (et % 8), nv of them below O) at the brick's rows m = et /
+// 8 + i * ET / 8, i < M * (BN / 4) / ET.
+struct Group {
+  int c, o, nv;     // channel offset in the block's tile, channel, count
+  bool vec;         // nv == 4 and the group is aligned: vector accesses
+  float scale[4];   // the channels' scale and bias (0 past nv)
+  float bias[4];
+};
+
+__device__ __forceinline__ Group channel_group(const Args& a, int n0,
+                                               int et) {
+  Group gr;
+  gr.c = 4 * (et & 7);
+  gr.o = n0 + gr.c;
+  gr.nv = min(4, a.O - gr.o);
+  gr.vec = (a.O & 3) == 0 && gr.nv == 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    gr.scale[j] = j < gr.nv ? __ldg(a.scale + (gr.o + j) * a.scale_stride)
+                            : 0.0f;
+    gr.bias[j] = j < gr.nv && a.bias ? __ldg(a.bias + gr.o + j) : 0.0f;
+  }
+  return gr;
+}
+
+// row m of the thread's i-th group and its element offset in y (NDHWC,
+// channel o), or -1 where the voxel lies past the volume or no channel of
+// the group exists
+template <int BZ, int BY, int ET>
+__device__ __forceinline__ long long group_at(const Args& a, const Group& gr,
+                                              int et, int i, int n, int z0,
+                                              int y0, int x0, int& m) {
+  m = (et >> 3) + i * (ET / 8);
+  const int z = z0 + m / (BY * BX), y = y0 + (m / BX) % BY, x = x0 + m % BX;
+  if (gr.nv <= 0 || z >= a.D || y >= a.H || x >= a.W) return -1;
+  return (((static_cast<long long>(n) * a.D + z) * a.H + y) * a.W + x) *
+             a.O + gr.o;
+}
+
+// The residual of each group loaded as the epilogue reaches it.
+struct Inline {
+  __device__ __forceinline__ void get(const Args& a, const Group& gr, int,
+                                      long long at, float (&v)[4]) const {
+    load4(a.residual, at, a.res_bf16, gr.vec, gr.nv, v);
+  }
+};
+
+// The residual of the brick's rows from the tile the producer warps staged
+// in shared memory: row m, the block's BN channels (float32, or bfloat16
+// with res_bf16), widened to float32.
+struct Staged {
+  const uint8_t* tile;
+
+  __device__ __forceinline__ void get(const Args& a, const Group& gr, int m,
+                                      long long, float (&v)[4]) const {
+    if (a.res_bf16) {
+      const uint2 u =
+          *reinterpret_cast<const uint2*>(tile + (m * BN + gr.c) * 2);
+      v[0] = __uint_as_float(u.x << 16);
+      v[1] = __uint_as_float(u.x & 0xffff0000u);
+      v[2] = __uint_as_float(u.y << 16);
+      v[3] = __uint_as_float(u.y & 0xffff0000u);
+    } else {
+      const float4 f =
+          *reinterpret_cast<const float4*>(tile + (m * BN + gr.c) * 4);
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+    }
+  }
+};
+
+// Whether the producer stages the residual (16-byte rows of channels, so
+// O * its element size is a multiple of 16).
+__device__ __forceinline__ bool residual_staged(const Args& a) {
+  return a.residual && a.O % (a.res_bf16 ? 8 : 4) == 0;
+}
+
+// The residual of brick b into tile (M rows of BN channels), thread t of
+// T: 16-byte chunks of a row, zeros past the volume and past O.  A
+// thread's chunk q of a row is fixed and its rows step by RS (T / chunks a
+// row, a multiple of 8), so x stays and y and z advance with one carry.
+template <int BZ, int BY, int T>
+__device__ __forceinline__ void load_residual_tile(const Args& a,
+                                                   uint8_t* tile, int b,
+                                                   int n0, int t) {
+  static_assert(T % 64 == 0, "a thread's rows step by a multiple of 8");
+  constexpr int M = BZ * BY * BX;
+  int n, z0, y0, x0;
+  brick_origin<BZ, BY>(a, b, n, z0, y0, x0);
+  const int esize = a.res_bf16 ? 2 : 4, per_row = BN * esize / 16;
+  const int rs = T / per_row;  // rows a step: 16 (float32) or 32 (bf16)
+  const int ch = n0 + (t % per_row) * (16 / esize);
+  int m = t / per_row;
+  const int dx = m % BX;
+  int dy = (m / BX) % BY, dz = m / (BY * BX);
+  const long long sy = static_cast<long long>(a.W) * a.O,
+                  sz = static_cast<long long>(a.H) * sy;
+  long long at =
+      (((static_cast<long long>(n) * a.D + z0 + dz) * a.H + y0 + dy) * a.W +
+       x0 + dx) * a.O + ch;
+  const bool in_x = x0 + dx < a.W && ch < a.O;
+  const uint32_t base = smem_u32(tile);
+  const uint8_t* const res = static_cast<const uint8_t*>(a.residual);
+  for (; m < M; m += rs) {
+    const bool ok = in_x && z0 + dz < a.D && y0 + dy < a.H;
+    cp_async16(base + (m * per_row + t % per_row) * 16,
+               ok ? res + at * esize : res, ok);
+    dy += rs / BX;  // rs / BX < BY: one carry at most
+    at += (rs / BX) * sy;
+    if (dy >= BY) {
+      dy -= BY;
+      ++dz;
+      at += sz - BY * sy;
+    }
+  }
+}
+
+// The quant epilogue's quantizer, the next conv's act_code of y: by
+// thresholds at up to 4 levels (act_code.cuh); the whole warp calls it.
+__device__ __forceinline__ Quant next_quant(const Args& a) {
+  return quant_setup(a.quant_qlvl ? *a.qalpha : 1.0f,
+                     a.quant_qlvl ? a.quant_qlvl : 2);
+}
+
+// The epilogue of one brick for thread et of ET: y = sums * scale + bias,
+// + the residual (from `res`, relu'd with res_relu), then the next conv's
+// codes (act_code of y by `q`) or y stored, then (sync_pool() first, a barrier of the ET
+// threads) the VALID 2x2x2 max of the stored values.  sums: the brick's
+// int32 sums, row m at m * SR words, which the pool overwrites with the
+// stored values.
+template <int BZ, int BY, int ET, typename Res, typename SyncPool>
+__device__ __forceinline__ void epilogue_brick(
+    const Args& a, int* sums, const Group& gr, int et, int n, int z0, int y0,
+    int x0, const Res& res, const Quant& q, SyncPool sync_pool) {
+  constexpr int M = BZ * BY * BX, ROWS = M * (BN / 4) / ET;
+  static_assert(M * (BN / 4) % ET == 0, "every thread takes ROWS rows");
+  // a row at a time: the code of an unrolled epilogue outgrows the
+  // instruction cache that its warps share with the MMA and producer warps
+  // running other code (unrolled twice or four times it is no faster)
+#pragma unroll 1
+  for (int i = 0; i < ROWS; ++i) {
+    int m;
+    const long long at =
+        group_at<BZ, BY, ET>(a, gr, et, i, n, z0, y0, x0, m);
+    const int4 acc4 = *reinterpret_cast<const int4*>(sums + m * SR + gr.c);
+    const int iv[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = j < gr.nv ? __fadd_rn(__fmul_rn(__int2float_rn(iv[j]),
+                                             gr.scale[j]),
+                                   gr.bias[j])
+                       : 0.0f;
+    if (at >= 0) {
+      if (a.residual) {
+        float r[4];
+        res.get(a, gr, m, at, r);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = __fadd_rn(v[j], a.res_relu ? fmaxf(r[j], 0.0f) : r[j]);
+      }
+      if (a.quant_qlvl) {
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          packed |= (static_cast<uint32_t>(code_of(v[j], q)) & 0xffu)
+                    << (8 * j);
+        int8_t* dst = a.out_i8 + at;
+        if (gr.vec) {
+          *reinterpret_cast<uint32_t*>(dst) = packed;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < gr.nv) dst[j] = static_cast<int8_t>(packed >> (8 * j));
+        }
+      } else {
+        store4(a.out_y, at, a.out_bf16, gr.vec, gr.nv, v);
+      }
+    } else if (a.out_bf16) {  // a voxel past the edge: round as stored
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = __bfloat162float(__float2bfloat16_rn(v[j]));
+    }
+    if (a.out_pool)  // the stored values, for the pool
+      *reinterpret_cast<float4*>(sums + m * SR + gr.c) =
+          make_float4(v[0], v[1], v[2], v[3]);
+  }
+  if (!a.out_pool) return;
+  sync_pool();
+  const float* const ys = reinterpret_cast<const float*>(sums);
+  const int Dp = a.D / 2, Hp = a.H / 2, Wp = a.W / 2;
+  constexpr int CY = BY / 2, CX = BX / 2;
+  for (int e = et; e < (M / 8) * (BN / 4); e += ET) {
+    const int cell = e / (BN / 4), c = 4 * (e % (BN / 4)), o = gr.o - gr.c + c;
+    const int cz = cell / (CY * CX), cy = (cell / CX) % CY, cx = cell % CX;
+    const int zc = z0 / 2 + cz, yc = y0 / 2 + cy, xc = x0 / 2 + cx;
+    const int nv = min(4, a.O - o);
+    if (nv <= 0 || zc >= Dp || yc >= Hp || xc >= Wp) continue;
+    float mx[4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int m = ((2 * cz + (k >> 2)) * BY + 2 * cy + ((k >> 1) & 1)) *
+                        BX + 2 * cx + (k & 1);
+      const float4 f = *reinterpret_cast<const float4*>(ys + m * SR + c);
+      const float w4[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mx[j] = k ? fmaxf(mx[j], w4[j]) : w4[j];
+    }
+    const long long at =
+        (((static_cast<long long>(n) * Dp + zc) * Hp + yc) * Wp + xc) *
+            a.O + o;
+    // exact: each max is one of the stored values
+    store4(a.out_pool, at, a.out_bf16, (a.O & 3) == 0 && nv == 4, nv, mx);
   }
 }
 
@@ -295,21 +616,215 @@ qconv3d_int8_kernel_quantize(const void* x, const float* alpha, int qlvl,
   }
 }
 
-template <int BZ, int BY, bool VEC>
-__global__ void __launch_bounds__(BZ * BY * 8, 512 / (BZ * BY * 8))
+// The weights of input-channel chunk `chunk` into dst (27 x BN rows of 32
+// bytes, swizzled), thread t of T: cp.async, zeros past O.
+template <int T>
+__device__ __forceinline__ void load_weights(const Args& a, uint8_t* dst,
+                                             int n0, int chunk, int t) {
+  const uint32_t base = smem_u32(dst);
+  const int c0 = chunk * CK;
+  for (int e = t; e < 27 * BN * 2; e += T) {
+    const int j = e & 1, row = e >> 1;  // row = tap * BN + n
+    const int tap = row / BN, o = n0 + row % BN;
+    const bool ok = o < a.O;
+    const int8_t* src =
+        ok ? a.w + (static_cast<long long>(tap) * a.O + o) * a.Cp + c0 +
+                 16 * j
+           : a.w;
+    cp_async16(base + wslot(row, j), src, ok);
+  }
+}
+
+// The halo of brick b, chunk `chunk`, into dst (rows of HS bytes, zeros
+// outside the volume and past C), thread t of T: its 16-byte halves are
+// t, t + T, ...  With T even its half j = t & 1 is fixed and its rows step
+// by T / 2, whose (z, y, x) it walks with carries, not a divide a row.
+// C % 16 == 0 (VEC): cp.async, else byte loads and a 16-byte store.
+template <int BZ, int BY, bool VEC, int T>
+__device__ __forceinline__ void load_halo(const Args& a, uint8_t* dst, int b,
+                                          int chunk, int t) {
+  static_assert(T % 2 == 0, "a thread's half of a row is fixed");
+  constexpr int STEP = T / 2;
+  int n, z0, y0, x0;
+  brick_origin<BZ, BY>(a, b, n, z0, y0, x0);
+  const uint32_t base = smem_u32(dst);
+  const int j = t & 1, c = chunk * CK + 16 * j;
+  const int plane = a.EY * a.EX, rows = a.EZ * plane;
+  int row = t >> 1;
+  int hx = row % a.EX, hy = (row / a.EX) % a.EY, hz = row / plane;
+  const int dx = STEP % a.EX, dy = (STEP / a.EX) % a.EY, dz = STEP / plane;
+  for (; row < rows; row += STEP) {
+    const int z = halo_coord(z0, hz, a.sz, BZ, a.dil);
+    const int y = halo_coord(y0, hy, a.sy, BY, a.dil);
+    const int x = halo_coord(x0, hx, a.sx, BX, a.dil);
+    const bool in = z >= 0 && z < a.D && y >= 0 && y < a.H && x >= 0 &&
+                    x < a.W;
+    const long long vox =
+        ((static_cast<long long>(n) * a.D + z) * a.H + y) * a.W + x;
+    const uint32_t at = row * HS + 16 * j;
+    if (VEC) {  // C % 16 == 0: 16-byte halves are all in or all out
+      const bool ok = in && c < a.C;
+      cp_async16(base + at, ok ? a.qa + vox * a.C + c : a.qa, ok);
+    } else {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (in) {
+        const int8_t* src = a.qa + vox * a.C;
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          if (c + k < a.C)
+            v[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                             src[c + k]))
+                         << (8 * (k & 3));
+      }
+      *reinterpret_cast<uint4*>(dst + at) = make_uint4(v[0], v[1], v[2],
+                                                       v[3]);
+    }
+    hx += dx;  // the next row: dx < EX and dy < EY, so one carry each
+    const bool cx = hx >= a.EX;
+    if (cx) hx -= a.EX;
+    hy += dy + cx;
+    const bool cy = hy >= a.EY;
+    if (cy) hy -= a.EY;
+    hz += dz + cy;
+  }
+}
+
+// The overlapped pipeline's producer warps (thread t of T): the resident
+// weights (C <= 32) first, then for each (brick, chunk) step s its halo
+// and (C > 32) its weights into stage s & 1 once the MMA warps have
+// released it (EMPTY), announced on FULL when they have landed; after a
+// brick's last step, its residual into tile j % nsums once the epilogue
+// warps have released it (REMPTY), announced on RFULL: the MMA warps'
+// next loads are out before it waits.
+template <int BZ, int BY, bool VEC, int T>
+__device__ __forceinline__ void producer_warps(const Args& a, uint8_t* smem,
+                                               uint8_t* wres, uint8_t* tiles,
+                                               uint64_t* bars, int n0,
+                                               int steps, int t) {
+  uint64_t *full = bars, *empty = bars + 2, *rfull = bars + 4,
+           *rempty = bars + 6;
+  const bool staged = residual_staged(a);
+  if (a.nchunks == 1) load_weights<T>(a, wres, n0, 0, t);
+  for (int s = 0; s < steps; ++s) {
+    const int k = s & 1, b = blockIdx.x + (s / a.nchunks) * gridDim.x;
+    mbar_wait(empty + k, ((s >> 1) & 1) ^ 1);  // step s - 2 is done
+    uint8_t* const stage = smem + k * a.stage_bytes;
+    load_halo<BZ, BY, VEC, T>(a, stage, b, s % a.nchunks, t);
+    if (a.nchunks > 1)
+      load_weights<T>(a, stage + a.halo_bytes, n0, s % a.nchunks, t);
+    if (VEC) {
+      mbar_arrive_on_copies(full + k);
+    } else {  // the byte loads' stores are ordered by the arrive itself
+      cp_async_wait_all();
+      mbar_arrive(full + k);
+    }
+    if (staged && s % a.nchunks == a.nchunks - 1) {
+      const int j = s / a.nchunks, r = j % a.nsums;
+      mbar_wait(rempty + r, ((j / a.nsums) & 1) ^ 1);  // brick j - nsums
+      load_residual_tile<BZ, BY, T>(a, tiles + r * (BZ * BY * BX * BN * 4),
+                                    b, n0, t);
+      mbar_arrive_on_copies(rfull + r);
+    }
+  }
+  cp_async_wait_all();
+}
+
+// The overlapped pipeline's epilogue warps (thread et of ET, beside the
+// M MMA threads): for each of the block's bricks, (FULL) its sums from
+// buffer j % nsums and (RFULL) its staged residual, the epilogue, and
+// (EMPTY, REMPTY) the buffers handed back.  EMPTY is arrived at once per
+// brick the MMA warps store (first for the buffers' first bricks), so both
+// roles pass each barrier the same number of times.
+template <int BZ, int BY, int ET>
+__device__ __forceinline__ void epilogue_warps(const Args& a, int* sums,
+                                               const uint8_t* tiles,
+                                               uint64_t* bars, int et, int n0,
+                                               int bricks_here) {
+  constexpr int M = BZ * BY * BX, ALL = M + ET;
+  uint64_t *rfull = bars + 4, *rempty = bars + 6;
+  const Group gr = channel_group(a, n0, et);
+  const Quant q = next_quant(a);
+  const bool staged = residual_staged(a);
+  for (int k = 0; k < a.nsums && k < bricks_here; ++k)
+    bar_arrive(BAR_EMPTY + k, ALL);
+  for (int j = 0; j < bricks_here; ++j) {
+    int n, z0, y0, x0;
+    brick_origin<BZ, BY>(a, blockIdx.x + j * gridDim.x, n, z0, y0, x0);
+    const int k = j % a.nsums;
+    bar_sync(BAR_FULL + k, ALL);
+    auto sync_pool = [] { bar_sync(BAR_EPI, ET); };
+    if (staged) {
+      mbar_wait(rfull + k, (j / a.nsums) & 1);
+      epilogue_brick<BZ, BY, ET>(a, sums + k * (M * SR), gr, et, n, z0, y0,
+                                 x0, Staged{tiles + k * (M * BN * 4)}, q,
+                                 sync_pool);
+      mbar_arrive(rempty + k);
+    } else {
+      epilogue_brick<BZ, BY, ET>(a, sums + k * (M * SR), gr, et, n, z0, y0,
+                                 x0, Inline(), q, sync_pool);
+    }
+    if (j + a.nsums < bricks_here) bar_arrive(BAR_EMPTY + k, ALL);
+  }
+}
+
+// OVERLAP: the overlapped pipeline (8 MMA, EPI_WARPS epilogue and
+// LOAD_WARPS producer warps), else the one whose warps take turns at
+// loads, taps and epilogue
+template <int BZ, int BY, bool VEC, bool OVERLAP>
+__global__ void __launch_bounds__(
+    BZ * BY * 8 + (OVERLAP ? 32 * (EPI_WARPS + LOAD_WARPS) : 0),
+    OVERLAP ? 1 : 512 / (BZ * BY * 8))
 qconv3d_int8_kernel(const Args a) {
   constexpr int THREADS = BZ * BY * 8;  // one warp per 2 x 2 x 8 sub-brick
   constexpr int M = BZ * BY * BX;       // output voxels per brick
   extern __shared__ __align__(128) uint8_t smem[];
   // stage k (k = 0, 1) at smem + k * stage_bytes: the halo, then (C > 32)
-  // the chunk's weights; with C <= 32 the weights sit after both stages
+  // the chunk's weights; with C <= 32 the weights sit after both stages;
+  // then, overlapped, the sums buffers (M rows of SR words each), as many
+  // residual tiles (M rows of BN float32) and the 8 mbarriers
   uint8_t* const wres = smem + 2 * a.stage_bytes;
+  int* const sums_buf =
+      reinterpret_cast<int*>(wres + (a.nchunks > 1 ? 0 : WBYTES));
+  uint8_t* const tiles = reinterpret_cast<uint8_t*>(sums_buf +
+                                                    a.nsums * (M * SR));
+  uint64_t* const bars =  // FULL, EMPTY, RFULL, REMPTY: 2 each
+      reinterpret_cast<uint64_t*>(tiles + a.nsums * (M * BN * 4));
+  uint64_t *const full = bars, *const empty = bars + 2;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int bricks_here =
+      (a.bricks - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int steps = bricks_here * a.nchunks;
+  if constexpr (OVERLAP) {
+    constexpr int LOADER = THREADS + 32 * EPI_WARPS;  // its first thread
+    if (tid == LOADER) {
+      for (int k = 0; k < 2; ++k) {
+        mbar_init(bars + k, 32 * LOAD_WARPS);          // FULL
+        mbar_init(bars + 2 + k, THREADS);              // EMPTY
+        mbar_init(bars + 4 + k, 32 * LOAD_WARPS);      // RFULL
+        mbar_init(bars + 6 + k, 32 * EPI_WARPS);       // REMPTY
+      }
+    }
+    // the mbarriers are set before any warp uses them: the one barrier of
+    // all the block's warps, before their roles part
+    __syncthreads();
+    if (tid >= THREADS && tid < LOADER) {
+      epilogue_warps<BZ, BY, 32 * EPI_WARPS>(a, sums_buf, tiles, bars,
+                                             tid - THREADS, n0, bricks_here);
+      return;
+    }
+    if (tid >= LOADER) {
+      producer_warps<BZ, BY, VEC, 32 * LOAD_WARPS>(a, smem, wres, tiles,
+                                                    bars, n0, steps,
+                                                    tid - LOADER);
+      return;
+    }
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wz = warp / (BY / 2), wy = warp % (BY / 2);
-  const int n0 = blockIdx.y * BN;
-  const int halo_rows = a.EZ * a.EY * a.EX;
 
   // ldmatrix roles.  A (m-tile mt): lanes 0-7 rows (2wz+mt, 2wy, x) bytes
   // 0-15, lanes 8-15 rows (.., 2wy+1, x), lanes 16-31 the same at bytes
@@ -330,71 +845,13 @@ qconv3d_int8_kernel(const Args a) {
   const int tz = a.sz * a.EY * a.EX * HS, ty = a.sy * a.EX * HS,
             tx = a.sx * HS;
 
-  const float qa_alpha = a.quant_qlvl ? *a.qalpha : 1.0f;
-  const float qmax = static_cast<float>(a.quant_qlvl - 1);
-
-  auto load_weights = [&](uint8_t* dst, int chunk) {
-    const uint32_t base = smem_u32(dst);
-    const int c0 = chunk * CK;
-    for (int e = tid; e < 27 * BN * 2; e += THREADS) {
-      const int j = e & 1, row = e >> 1;  // row = tap * BN + n
-      const int tap = row / BN, o = n0 + row % BN;
-      const bool ok = o < a.O;
-      const int8_t* src =
-          ok ? a.w + (static_cast<long long>(tap) * a.O + o) * a.Cp + c0 +
-                   16 * j
-             : a.w;
-      cp_async16(base + wslot(row, j), src, ok);
-    }
-  };
-
-  auto load_halo = [&](uint8_t* dst, int b, int chunk) {
-    int n, z0, y0, x0;
-    brick_origin<BZ, BY>(a, b, n, z0, y0, x0);
-    const uint32_t base = smem_u32(dst);
-    const int c0 = chunk * CK;
-    for (int e = tid; e < halo_rows * 2; e += THREADS) {
-      const int j = e & 1, row = e >> 1;
-      const int hx = row % a.EX, r2 = row / a.EX;
-      const int hy = r2 % a.EY, hz = r2 / a.EY;
-      const int z = halo_coord(z0, hz, a.sz, BZ, a.dil);
-      const int y = halo_coord(y0, hy, a.sy, BY, a.dil);
-      const int x = halo_coord(x0, hx, a.sx, BX, a.dil);
-      const bool in = z >= 0 && z < a.D && y >= 0 && y < a.H && x >= 0 &&
-                      x < a.W;
-      const int c = c0 + 16 * j;
-      const long long vox =
-          ((static_cast<long long>(n) * a.D + z) * a.H + y) * a.W + x;
-      const uint32_t at = row * HS + 16 * j;
-      if (VEC) {  // C % 16 == 0: 16-byte halves are all in or all out
-        const bool ok = in && c < a.C;
-        cp_async16(base + at, ok ? a.qa + vox * a.C + c : a.qa, ok);
-      } else {
-        uint32_t v[4] = {0u, 0u, 0u, 0u};
-        if (in) {
-          const int8_t* src = a.qa + vox * a.C;
-#pragma unroll
-          for (int k = 0; k < 16; ++k)
-            if (c + k < a.C)
-              v[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                               src[c + k]))
-                           << (8 * (k & 3));
-        }
-        *reinterpret_cast<uint4*>(dst + at) = make_uint4(v[0], v[1], v[2],
-                                                         v[3]);
-      }
-    }
-  };
-
-  const int bricks_here =
-      (a.bricks - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-  const int steps = bricks_here * a.nchunks;
-  auto issue = [&](int s) {  // the loads of step s into stage s & 1
-    const int b = blockIdx.x + (s / a.nchunks) * gridDim.x;
-    const int chunk = s % a.nchunks;
+  auto issue = [&](int s) {  // taking turns: the loads of step s
     uint8_t* const stage = smem + (s & 1) * a.stage_bytes;
-    load_halo(stage, b, chunk);
-    if (a.nchunks > 1) load_weights(stage + a.halo_bytes, chunk);
+    load_halo<BZ, BY, VEC, THREADS>(
+        a, stage, blockIdx.x + (s / a.nchunks) * gridDim.x, s % a.nchunks,
+        tid);
+    if (a.nchunks > 1)
+      load_weights<THREADS>(a, stage + a.halo_bytes, n0, s % a.nchunks, tid);
   };
 
   int acc[2][4][4];
@@ -405,14 +862,21 @@ qconv3d_int8_kernel(const Args a) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0;
 
-  if (a.nchunks == 1) load_weights(wres, 0);  // resident for every brick
-  issue(0);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) issue(s + 1);
+  if constexpr (!OVERLAP) {
+    if (a.nchunks == 1)  // resident for every brick
+      load_weights<THREADS>(a, wres, n0, 0, tid);
+    issue(0);
     cp_async_commit();
-    cp_async_wait_1();  // step s's group has landed
-    __syncthreads();
+  }
+  for (int s = 0; s < steps; ++s) {
+    if constexpr (OVERLAP) {
+      mbar_wait(full + (s & 1), (s >> 1) & 1);  // step s's loads landed
+    } else {
+      if (s + 1 < steps) issue(s + 1);
+      cp_async_commit();
+      cp_async_wait_1();  // step s's group has landed
+      __syncthreads();
+    }
 
     uint8_t* const stage = smem + (s & 1) * a.stage_bytes;
     const uint32_t hs = smem_u32(stage);
@@ -447,13 +911,19 @@ qconv3d_int8_kernel(const Args a) {
         for (int nt = 0; nt < 4; ++nt)
           mma_s8(acc[mt][nt], af[tap & 1][mt], bf[tap & 1][nt]);
     }
+    if constexpr (OVERLAP) mbar_arrive(empty + (s & 1));  // stage read
 
     if (s % a.nchunks == a.nchunks - 1) {  // the brick is summed: epilogue
-      // the stage's halo and weights are spent: the int32 sums go there
-      // (row m of the brick, BN + 4 words), and the epilogue runs over
-      // them element-wise, 4 channels a thread, coalesced along the rows
-      __syncthreads();
-      int* const sums = reinterpret_cast<int*>(stage);
+      const int j = s / a.nchunks;  // the block's j-th brick
+      // the int32 sums go to row m of the brick, BN + 4 words: overlapped
+      // to sums buffer j % nsums once its last epilogue is done, else to
+      // the spent stage's halo and weights
+      int* const sums = OVERLAP ? sums_buf + (j % a.nsums) * (M * SR)
+                                : reinterpret_cast<int*>(stage);
+      if constexpr (OVERLAP)
+        bar_sync(BAR_EMPTY + j % a.nsums, THREADS + 32 * EPI_WARPS);
+      else
+        __syncthreads();
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -470,105 +940,26 @@ qconv3d_int8_kernel(const Args a) {
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
           for (int k = 0; k < 4; ++k) acc[mt][nt][k] = 0;
-      __syncthreads();
-      int n, z0, y0, x0;
-      brick_origin<BZ, BY>(a, blockIdx.x + (s / a.nchunks) * gridDim.x, n,
-                           z0, y0, x0);
-      const bool quad = (a.O & 3) == 0;  // 4-channel groups are aligned
-      for (int e = tid; e < M * (BN / 4); e += THREADS) {
-        const int m = e / (BN / 4), c = 4 * (e % (BN / 4)), o = n0 + c;
-        const int z = z0 + m / (BY * BX), y = y0 + (m / BX) % BY,
-                  x = x0 + m % BX;
-        const int nv = min(4, a.O - o);  // channels of the group that exist
-        const int4 acc4 = *reinterpret_cast<const int4*>(sums + m * SR + c);
-        const int iv[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = j < nv ? __fadd_rn(
-                              __fmul_rn(__int2float_rn(iv[j]),
-                                        __ldg(a.scale +
-                                              (o + j) * a.scale_stride)),
-                              a.bias ? __ldg(a.bias + o + j) : 0.0f)
-                        : 0.0f;
-        if (nv > 0 && z < a.D && y < a.H && x < a.W) {
-          const long long at =
-              (((static_cast<long long>(n) * a.D + z) * a.H + y) * a.W + x) *
-                  a.O + o;
-          const bool vec = quad && nv == 4;
-          if (a.residual) {
-            float r[4];
-            load4(a.residual, at, a.res_bf16, vec, nv, r);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              v[j] = __fadd_rn(v[j], a.res_relu ? fmaxf(r[j], 0.0f) : r[j]);
-          }
-          if (a.quant_qlvl) {
-            uint32_t packed = 0u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float u = fminf(fmaxf(__fdiv_rn(v[j], qa_alpha), 0.0f), 1.0f);
-              u = rintf(__fmul_rn(u, qmax));
-              packed |= (static_cast<uint32_t>(static_cast<int>(u)) & 0xffu)
-                        << (8 * j);
-            }
-            int8_t* dst = a.out_i8 + at;
-            if (vec) {
-              *reinterpret_cast<uint32_t*>(dst) = packed;
-            } else {
-              for (int j = 0; j < nv; ++j)
-                dst[j] = static_cast<int8_t>(packed >> (8 * j));
-            }
-          } else {
-            store4(a.out_y, at, a.out_bf16, vec, nv, v);
-          }
-        } else if (a.out_bf16) {  // a voxel past the edge: round as stored
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[j] = __bfloat162float(__float2bfloat16_rn(v[j]));
-        }
-        if (a.out_pool)  // the stored values, for the pool
-          *reinterpret_cast<float4*>(sums + m * SR + c) =
-              make_float4(v[0], v[1], v[2], v[3]);
-      }
-      if (a.out_pool) {  // VALID 2x2x2 max of the stored values
+      if constexpr (OVERLAP) {  // the epilogue warps take it from here
+        __threadfence_block();
+        bar_arrive(BAR_FULL + j % a.nsums, THREADS + 32 * EPI_WARPS);
+      } else {  // the block runs the epilogue itself
         __syncthreads();
-        const float* const ys = reinterpret_cast<const float*>(sums);
-        const int Dp = a.D / 2, Hp = a.H / 2, Wp = a.W / 2;
-        constexpr int CY = BY / 2, CX = BX / 2;
-        for (int e = tid; e < (M / 8) * (BN / 4); e += THREADS) {
-          const int cell = e / (BN / 4), c = 4 * (e % (BN / 4)), o = n0 + c;
-          const int cz = cell / (CY * CX), cy = (cell / CX) % CY,
-                    cx = cell % CX;
-          const int zc = z0 / 2 + cz, yc = y0 / 2 + cy, xc = x0 / 2 + cx;
-          const int nv = min(4, a.O - o);
-          if (nv <= 0 || zc >= Dp || yc >= Hp || xc >= Wp) continue;
-          float mx[4];
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const int m = ((2 * cz + (k >> 2)) * BY + 2 * cy + ((k >> 1) & 1)) *
-                              BX + 2 * cx + (k & 1);
-            const float4 f = *reinterpret_cast<const float4*>(ys + m * SR + c);
-            const float w4[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mx[j] = k ? fmaxf(mx[j], w4[j]) : w4[j];
-          }
-          const long long at =
-              (((static_cast<long long>(n) * Dp + zc) * Hp + yc) * Wp + xc) *
-                  a.O + o;
-          // exact: each max is one of the stored values
-          store4(a.out_pool, at, a.out_bf16, quad && nv == 4, nv, mx);
-        }
+        int n, z0, y0, x0;
+        brick_origin<BZ, BY>(a, blockIdx.x + j * gridDim.x, n, z0, y0, x0);
+        epilogue_brick<BZ, BY, THREADS>(
+            a, sums, channel_group(a, n0, tid), tid, n, z0, y0, x0, Inline(),
+            next_quant(a), [] { __syncthreads(); });
       }
     }
-    __syncthreads();  // stage s & 1 is free for step s + 2
+    if constexpr (!OVERLAP) __syncthreads();  // stage s & 1 is free
   }
 }
 
-template <int BZ, int BY, bool VEC>
+template <int BZ, int BY, bool VEC, bool OVERLAP>
 int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
   static bool configured = false;  // once per instantiation
-  auto kernel = qconv3d_int8_kernel<BZ, BY, VEC>;
+  auto kernel = qconv3d_int8_kernel<BZ, BY, VEC, OVERLAP>;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -579,7 +970,8 @@ int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  kernel<<<grid, BZ * BY * 8, smem, stream>>>(a);
+  constexpr int threads = block_threads<BZ, BY, OVERLAP>();
+  kernel<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -595,7 +987,9 @@ int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
 // else float32.  scale is (O,) with scale_per_channel, else one value.  x
 // (codes when C % 16 == 0; floats always), qa and w are 16-byte aligned,
 // residual 8-byte aligned.  The tile plan (brick_z x brick_y x 8 voxels,
-// grid_x x grid_y blocks) is kernels/qconv3d.py::_tile_plan's.  Launches
+// grid_x x grid_y blocks, and sums_buffers: 0 for the pipeline that takes
+// turns, 1 or 2 for the overlapped one, 4 x 8 bricks only) is
+// kernels/qconv3d.py::_tile_plan's.  Launches
 // on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a plan it does not take; it does not
 // synchronise.
@@ -610,7 +1004,7 @@ extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
                                    int res_bf16, int out_bf16,
                                    int scale_per_channel, int brick_z,
                                    int brick_y, int grid_x, int grid_y,
-                                   void* stream) {
+                                   int sums_buffers, void* stream) {
   Args a;
   a.qa = static_cast<const int8_t*>(x_qlvl ? qa : x);
   a.w = static_cast<const int8_t*>(w);
@@ -640,15 +1034,24 @@ extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
   a.nbx = (W + BX - 1) / BX;
   const long long bricks = static_cast<long long>(N) * a.nbz * a.nby * a.nbx;
   a.halo_bytes = (a.EZ * a.EY * a.EX * HS + 127) / 128 * 128;
-  // a stage holds the halo and the chunk's weights (C > 32), and at the
-  // epilogue the brick's y at float32 (rows of BN * 4 + 16 bytes)
-  const int staged = brick_z * brick_y * BX * (BN * 4 + 16);
+  // a stage holds the halo and the chunk's weights (C > 32), and, taking
+  // turns, at the epilogue the brick's sums or y (rows of BN * 4 + 16
+  // bytes), which the overlapped pipeline keeps in buffers of their own
+  const int staged = brick_z * brick_y * BX * SR * 4;
+  // overlapped, a sums buffer's brick also has a residual tile (float32)
+  const int tile = brick_z * brick_y * BX * BN * 4;
   const int loads = a.halo_bytes + (a.nchunks > 1 ? WBYTES : 0);
-  a.stage_bytes = ((loads > staged ? loads : staged) + 127) / 128 * 128;
-  const int smem = 2 * a.stage_bytes + (a.nchunks > 1 ? 0 : WBYTES);
+  const int stage = sums_buffers || loads > staged ? loads : staged;
+  a.stage_bytes = (stage + 127) / 128 * 128;
+  a.nsums = sums_buffers;
+  const int smem = 2 * a.stage_bytes + (a.nchunks > 1 ? 0 : WBYTES) +
+                   sums_buffers * (staged + tile) +
+                   (sums_buffers ? MBAR_BYTES : 0);
+  const bool overlap = sums_buffers > 0;
   if (bricks > 0x7fffffffLL || grid_x < 1 || grid_x > bricks ||
       grid_y != (O + BN - 1) / BN || smem > SMEM_MAX || dil < 1 ||
-      x_qlvl < 0 || (x_qlvl && !(x_alpha && qa)))
+      x_qlvl < 0 || (x_qlvl && !(x_alpha && qa)) || sums_buffers < 0 ||
+      sums_buffers > 2 || (overlap && !(brick_z == 4 && brick_y == 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   a.bricks = static_cast<int>(bricks);
   const dim3 grid(static_cast<unsigned>(grid_x),
@@ -671,10 +1074,13 @@ extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const bool vec = C % 16 == 0;
+  if (overlap)
+    return vec ? launch<4, 8, true, true>(a, grid, smem, s)
+               : launch<4, 8, false, true>(a, grid, smem, s);
 #define K1_CASE(BZ, BY)                                          \
   if (brick_z == BZ && brick_y == BY)                            \
-    return vec ? launch<BZ, BY, true>(a, grid, smem, s)          \
-               : launch<BZ, BY, false>(a, grid, smem, s);
+    return vec ? launch<BZ, BY, true, false>(a, grid, smem, s)   \
+               : launch<BZ, BY, false, false>(a, grid, smem, s);
   K1_CASE(4, 8)
   K1_CASE(4, 4)
   K1_CASE(2, 4)

@@ -346,9 +346,10 @@ class CapturedForward:
     The capture follows an eager call of the same signature, which warmed
     up the libraries.  Its own increments of the counters of
     ``kernels.COUNTERS`` (the kernel wrappers' launches, K1's prologue
-    quantizations, the GroupNorm elements) are taken back and added again
-    at each replay, so the counts are those of the forwards that ran.  A
-    replay's output is a copy of the graph's static output."""
+    quantizations and overlapped launches, the GroupNorm elements) are
+    taken back and added again at each replay, so the counts are those of
+    the forwards that ran.  A replay's output is a copy of the graph's
+    static output."""
 
     def __init__(self, forward: Callable):
         self.forward = forward

@@ -90,7 +90,9 @@ REFERENCES = Kernels(qconv3d.qconv3x3_int8_ndhwc_reference,
                      upsample.upsample_trilinear3d_reference,
                      groupnorm.group_norm_reference)
 # (owner, attribute) of every count the wrappers keep: each launch, K1's
-# prologue quantizations and the elements the GroupNorm nodes normalize
+# prologue quantizations and overlapped launches, and the elements the
+# GroupNorm nodes normalize
 COUNTERS = tuple((fn, "launches") for fn in WRAPPERS) + (
     (qconv3d.qconv3x3_int8_ndhwc, "prologue_quant_launches"),
+    (qconv3d.qconv3x3_int8_ndhwc, "overlapped_launches"),
     (groupnorm.group_norm, "elements"))

@@ -6,9 +6,17 @@ Counterpart of the JAX package's ``pallas/qconv3d.py::qconv3x3_int8_ndhwc``
 (``mma.sync`` m16n8k32, int32 accumulation) over a shared-memory halo tile
 that all 27 taps read, loaded with ``cp.async`` in two stages; its header
 says what bounds it.  It is built with nvcc and bound with ctypes
-(kernels/build.py).  ``_tile_plan`` picks its brick and grid per call.
-Beside it, ``qconv3x3_int8_ndhwc_reference`` is the plain PyTorch version
-of the same function, op for op the JAX package's ``_xla_qconv3x3``.
+(kernels/build.py).  ``_tile_plan`` picks its brick and grid per call,
+and its pipeline: where every block walks two or more 4 x 8 x 8 bricks,
+four epilogue warps of the block run one brick's epilogue while its eight
+MMA warps run the next brick's taps, and four producer warps issue the
+loads of both (``TilePlan.sums`` > 0), so a call takes about the longer of
+the two phases; elsewhere the block's warps take turns.  What bounds K1
+then is its tap loop, which reloads the weights' fragments from shared
+memory for every warp and tap, and the four epilogue warps (the csrc
+header).  Beside it, ``qconv3x3_int8_ndhwc_reference`` is the plain
+PyTorch version of the same function, op for op the JAX package's
+``_xla_qconv3x3``.
 
 ``qconv3x3_int8_ndhwc`` takes the plain version for tensors on the CPU
 only; for CUDA tensors it launches the kernel or raises.  Each launch adds
@@ -20,7 +28,8 @@ the same launch call) that reads x once and writes its int8 codes once for
 the convolution; the JAX package's kernel reads codes that one XLA fusion
 makes before it, and ``act_codes`` in eager PyTorch is five full-size
 passes.  Each such launch also adds one to
-``qconv3x3_int8_ndhwc.prologue_quant_launches``.
+``qconv3x3_int8_ndhwc.prologue_quant_launches``, and each launch on the
+overlapped pipeline one to ``qconv3x3_int8_ndhwc.overlapped_launches``.
 """
 from __future__ import annotations
 
@@ -40,8 +49,14 @@ from .build import SMEM_BLOCK, SMEM_SM, SMS
 _BN, _CK, _BX = 32, 32, 8
 _HS = 48  # bytes per staged halo row: 32 channels + 16 (no bank conflicts)
 # brick extents (z, y) the kernel is built for, largest first; one warp
-# per 2 x 2 x 8 sub-brick
+# per 2 x 2 x 8 sub-brick; the overlapped pipeline is built for the first
 _BRICKS = ((4, 8), (4, 4), (2, 4), (2, 2))
+# threads an SM holds at the kernel's launch bounds (<= 128 registers each)
+_THREADS_SM = 512
+_MBAR_BYTES = 128  # the overlapped pipeline's stage mbarriers
+# the overlapped pipeline's epilogue and producer warps beside its 8 MMA
+# warps (csrc/qconv3d_int8.cu, EPI_WARPS and LOAD_WARPS)
+_EPI_WARPS, _LOAD_WARPS = 4, 4
 
 
 def pack_weights(w_codes: torch.Tensor) -> torch.Tensor:
@@ -144,6 +159,7 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
 
 qconv3x3_int8_ndhwc.launches = 0
 qconv3x3_int8_ndhwc.prologue_quant_launches = 0
+qconv3x3_int8_ndhwc.overlapped_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -154,27 +170,32 @@ def _lib():
     from . import build
 
     fn = build.load("qconv3d_int8.cu").qconv3d_int8_launch
-    fn.argtypes = [_P] * 11 + [_I] * 18 + [_P]  # else ints pass as 32-bit
+    fn.argtypes = [_P] * 11 + [_I] * 19 + [_P]  # else ints pass as 32-bit
     fn.restype = _I
     return fn
 
 
-def _smem_bytes(brick, c, dil):
+def _smem_bytes(brick, c, dil, sums=0):
     """Dynamic shared memory of one block, as the launch computes it: two
     pipeline stages, each the halo ((bz + 2s) x (by + 2s) x (8 + 2s) rows
     of 48 bytes, s = min(dil, extent) per axis) and, when C spans more
-    than one 32-channel chunk, the chunk's 27 x 32 x 32 bytes of weights;
-    a stage also holds the brick's float32 y at the epilogue (rows of
-    32 x 4 + 16 bytes).  With one chunk the weights stay resident after
-    the two stages."""
+    than one 32-channel chunk, the chunk's 27 x 32 x 32 bytes of weights.
+    With one chunk the weights stay resident after the two stages.  The
+    brick's int32 sums (rows of 32 x 4 + 16 bytes) go to a spent stage,
+    which must hold them, or on the overlapped pipeline to ``sums`` buffers
+    of their own after the rest, each with a tile of the brick's residual
+    (32 channels of float32), followed by the pipeline's mbarriers."""
     rows = 1
     for b in brick:
         rows *= b + 2 * min(dil, b)
     up = lambda n: -(-n // 128) * 128  # noqa: E731
     weights = 27 * _BN * _CK
     loads = up(rows * _HS) + (weights if c > _CK else 0)
-    stage = up(max(loads, brick[0] * brick[1] * brick[2] * (_BN * 4 + 16)))
-    return 2 * stage + (0 if c > _CK else weights)
+    staged = brick[0] * brick[1] * brick[2] * (_BN * 4 + 16)
+    stage = loads if sums else up(max(loads, staged))
+    tile = brick[0] * brick[1] * brick[2] * _BN * 4
+    return (2 * stage + (0 if c > _CK else weights) + sums * (staged + tile)
+            + (_MBAR_BYTES if sums else 0))
 
 
 class TilePlan(NamedTuple):
@@ -185,6 +206,8 @@ class TilePlan(NamedTuple):
     n_bricks: int
     threads: int                  # per block
     smem: int                     # dynamic shared memory per block, bytes
+    sums: int                     # the overlapped pipeline's sums buffers
+                                  # (1 or 2), or 0: warps take turns
 
 
 @functools.lru_cache(maxsize=1024)
@@ -198,7 +221,14 @@ def _tile_plan(n, d, h, w, c, o, dil) -> TilePlan:
     fits a block and that still gives every SM a block (larger bricks
     reload the weights for more voxels), else the smallest; ``grid[0]`` is
     as many blocks as the SMs hold at once (persistent blocks), at most
-    one per brick."""
+    one per brick.
+
+    The 4 x 8 x 8 brick takes the overlapped pipeline where every block of
+    its grid then walks two or more bricks (``n_bricks >= 2 * grid[0]``)
+    and the block's shared memory holds two sums buffers (with their
+    residual tiles), else one: 8 MMA, 4 epilogue and 4 producer warps, one
+    block an SM.  Where blocks walk fewer there is little to overlap, and
+    the blocks that take turns are twice as many an SM."""
     gy = -(-o // _BN)
     for bz, by in _BRICKS:
         brick = (bz, by, _BX)
@@ -208,12 +238,19 @@ def _tile_plan(n, d, h, w, c, o, dil) -> TilePlan:
         if smem <= SMEM_BLOCK and n_bricks * gy >= SMS:
             break
     threads = bz * by * _BX
+    if (bz, by) == _BRICKS[0]:
+        gx = min(n_bricks, max(1, SMS // gy))  # one block an SM
+        fits = [s for s in (2, 1)
+                if _smem_bytes(brick, c, dil, s) <= SMEM_BLOCK]
+        if n_bricks >= 2 * gx and fits:
+            return TilePlan(brick, _BN, (gx, gy), per_axis, n_bricks,
+                            threads + 32 * (_EPI_WARPS + _LOAD_WARPS),
+                            _smem_bytes(brick, c, dil, fits[0]), fits[0])
     # blocks per SM: shared memory (1 KB reserved per block) and registers
-    # (the kernel's launch bounds hold 512 threads per SM at <= 128 each)
-    per_sm = max(1, min(SMEM_SM // (smem + 1024), 512 // threads))
+    per_sm = max(1, min(SMEM_SM // (smem + 1024), _THREADS_SM // threads))
     gx = min(n_bricks, max(1, SMS * per_sm // gy))
     return TilePlan(brick, _BN, (gx, gy), per_axis, n_bricks, threads,
-                    smem)
+                    smem, 0)
 
 
 def _brick_origin(plan, b):
@@ -319,9 +356,10 @@ def _launch(x, x_quant, w_packed, o, bias, scale, dilation, residual,
                     int(res is not None and res.dtype == torch.bfloat16),
                     int(out_dtype == torch.bfloat16),
                     int(scale_v.numel() > 1), *plan.brick[:2], *plan.grid,
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    plan.sums, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
     qconv3x3_int8_ndhwc.launches += 1
     qconv3x3_int8_ndhwc.prologue_quant_launches += x_quant is not None
+    qconv3x3_int8_ndhwc.overlapped_launches += plan.sums > 0
     return (out, pooled) if pool else out

@@ -32,7 +32,11 @@ or bfloat16 input itself: equal to the plain version (whose
 ``act_codes`` quantizes in separate passes) at the nine LiTS block1
 shapes, with the residual and pool epilogues, on inputs dense in .5
 ties; its codes equal to ``act_codes`` at every grid the kernel takes;
-and one call replayed from a CUDA graph.
+and one call replayed from a CUDA graph.  K1's overlapped pipeline (one
+brick's epilogue on warps of their own while the next brick's taps run)
+at its plan's edges and at the benchmark's served LiTS and SegResNet
+shapes, equal to the plain version, with ``overlapped_launches``
+counting the launches that took it.
 
 Training: one train step on the card in exact float32 against the CPU's,
 remat and the dropout masks on the card, and ``ops.batch_norm_train``.
@@ -202,7 +206,14 @@ def test_cuda_k1_matches_plain(name, bf16, cuda):
 # path where C % 16 != 0), extents below one brick and odd, N = 1 and 3,
 # dilation 1 to 9 (a dilation past the brick stages three slabs), every
 # epilogue, and every brick of the tile plan ("brick": the one the plan
-# picks, (2, 2, 8) when not given)
+# picks, (2, 2, 8) when not given).  The overlapped pipeline ("sums": the
+# plan's sums buffers, 0 when not given): blocks that walk exactly two
+# bricks and two or three, one sums buffer (C > 32, or dilation 2) and two
+# (C = 32, resident weights), a ragged last brick in z, y and x with the
+# byte-load path, partial chunks and column tiles, every epilogue, a
+# residual the producer stages (O a multiple of 4, of 8 at bfloat16) and
+# one the epilogue loads itself (O = 70, and 36 at bfloat16); and a 4 x 8
+# brick that each block walks once, which takes turns
 TILE_CASES = {
     "c40-o72-n3-32cube-dil2-res-relu-pool": dict(
         c=40, o=72, n=3, shape=(32, 32, 32), dil=2, res=True, relu=True,
@@ -235,6 +246,29 @@ TILE_CASES = {
                                           res=True, relu=True, pool=True),
     "c16-o72-n1-dil9-pool": dict(c=16, o=72, n=1, shape=(10, 12, 12), dil=9,
                                  pool=True),
+    "c32-o32-n3-32cube-dil2-res-relu-pool-overlap": dict(
+        c=32, o=32, n=3, shape=(32, 32, 32), dil=2, res=True, relu=True,
+        pool=True, brick=(4, 8, 8), sums=1),
+    "c64-o64-n2-32cube-quant-one-sums-buffer": dict(
+        c=64, o=64, n=2, shape=(32, 32, 32), quant=True, brick=(4, 8, 8),
+        sums=1),
+    "c128-o128-n1-8x24x88-res-two-bricks-a-block": dict(
+        c=128, o=128, n=1, shape=(8, 24, 88), res=True, per_channel=True,
+        brick=(4, 8, 8), sums=1),
+    "c3-o8-n1-33x31x65-ragged-res-pool-overlap": dict(
+        c=3, o=8, n=1, shape=(33, 31, 65), res=True, pool=True,
+        brick=(4, 8, 8), sums=2),
+    "c40-o70-n2-9x17x33-xq-res-relu-overlap": dict(
+        c=40, o=70, n=2, shape=(9, 17, 33), xq=True, res=True, relu=True,
+        brick=(4, 8, 8), sums=1),
+    "c32-o36-n2-16x32x64-res-relu-pool-overlap": dict(
+        c=32, o=36, n=2, shape=(16, 32, 64), res=True, relu=True,
+        pool=True, brick=(4, 8, 8), sums=2),
+    "c32-o32-n2-16x64x64-quant-overlap": dict(
+        c=32, o=32, n=2, shape=(16, 64, 64), quant=True, brick=(4, 8, 8),
+        sums=2),
+    "c64-o64-n1-32cube-res-one-brick-a-block": dict(
+        c=64, o=64, n=1, shape=(32, 32, 32), res=True, brick=(4, 8, 8)),
 }
 
 
@@ -244,14 +278,19 @@ TILE_CASES = {
 def test_cuda_k1_tiles_match_plain(name, bf16, cuda):
     kw = dict(TILE_CASES[name])
     brick = kw.pop("brick", (2, 2, 8))
+    sums = kw.pop("sums", 0)
     case = make_case(100 + sorted(TILE_CASES).index(name), **kw)
     n, (d, h, w), c, o = kw["n"], kw["shape"], kw["c"], kw["o"]
-    assert K._tile_plan(n, d, h, w, c, o, kw.get("dil", 1)).brick == brick
-    before = K.qconv3x3_int8_ndhwc.launches
+    plan = K._tile_plan(n, d, h, w, c, o, kw.get("dil", 1))
+    assert plan.brick == brick and plan.sums == sums
+    before = (K.qconv3x3_int8_ndhwc.launches,
+              K.qconv3x3_int8_ndhwc.overlapped_launches)
     got = run_port(case, device=cuda, bf16=bf16)
     ref = run_port(case, K.qconv3x3_int8_ndhwc_reference, device=cuda,
                    bf16=bf16)
-    assert K.qconv3x3_int8_ndhwc.launches == before + 1
+    assert (K.qconv3x3_int8_ndhwc.launches,
+            K.qconv3x3_int8_ndhwc.overlapped_launches) == (
+                before[0] + 1, before[1] + (sums > 0))
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         np.testing.assert_array_equal(g, r)
@@ -298,6 +337,61 @@ def test_cuda_k1_lits_shapes_match_plain(name, bf16, cuda):
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         np.testing.assert_array_equal(g, r)
+
+
+# K1 at the benchmark's served shapes, on codes, float32 (run on the card
+# only): the LiTS serving net's three stages on the 4 x 8 brick with its
+# block2 epilogue (a float32 residual with relu, and the encoder's pool)
+# at the chunk of 8 and the varied-depth cell's ragged chunks of 1-7;
+# SegResNet's four levels at the chunk of 8 with conv2's epilogue (a
+# float32 residual) and at 16 x 24 x 20 x 256 conv1's (y alone)
+SERVING_CASES = [("lits", (s, s, s), c, n, "residual-relu-pool")
+                 for s, c in ((64, 32), (32, 64), (16, 128))
+                 for n in range(1, 9)] + [
+    ("segresnet", (128 >> lv, 192 >> lv, 160 >> lv), 32 << lv, 8,
+     "residual") for lv in range(4)] + [
+    ("segresnet", (16, 24, 20), 256, 8, "y")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "net,shape,c,n,epilogue", SERVING_CASES,
+    ids=[f"{net}-{'x'.join(map(str, s))}-c{c}-n{n}-{e}"
+         for net, s, c, n, e in SERVING_CASES])
+def test_cuda_k1_serving_shapes_match_plain(net, shape, c, n, epilogue,
+                                            cuda):
+    """torch.equal to the plain K1 at the served shapes, on whichever
+    pipeline the plan takes there (counted by ``overlapped_launches``)."""
+    seed = 500 + SERVING_CASES.index((net, shape, c, n, epilogue))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(0, NA, (n, *shape, c), device=cuda, generator=gen,
+                      dtype=torch.int8)
+    w = (2 * torch.randint(0, NA, (3, 3, 3, c, c), device=cuda,
+                           generator=gen) - (NA - 1)).to(torch.int8)
+    b = torch.randn(c, device=cuda, generator=gen)
+    kw = dict(x_quantized=True, w_packed=K.pack_weights(w))
+    if epilogue != "y":
+        kw["residual"] = torch.randn(n, *shape, c, device=cuda,
+                                     generator=gen)
+    if net == "lits":
+        kw.update(residual_relu=True, pool=True)
+    args = (x, w, b, torch.tensor(LITS_ALPHA, device=cuda),
+            torch.tensor(0.002, device=cuda), NA)
+    plan = K._tile_plan(n, *shape, c, c, 1)
+    before = (K.qconv3x3_int8_ndhwc.launches,
+              K.qconv3x3_int8_ndhwc.overlapped_launches)
+    got = K.qconv3x3_int8_ndhwc(*args, **kw)
+    assert (K.qconv3x3_int8_ndhwc.launches,
+            K.qconv3x3_int8_ndhwc.overlapped_launches) == (
+                before[0] + 1, before[1] + (plan.sums > 0))
+    ref = K.qconv3x3_int8_ndhwc_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g, r)
+    del got, ref, kw
+    torch.cuda.empty_cache()
 
 
 def tie_dense(alpha, qlvl, bf16=False):
@@ -457,10 +551,14 @@ def test_cuda_k1_prologue_codes_are_exact(qlvl, alpha, dtype, cuda):
 
 @pytest.mark.cuda
 def test_cuda_k1_float_input_replays_in_a_cuda_graph(cuda):
-    """A float-input K1 call (packed weights, alphas on the card) is
-    captured in a CUDA graph, and its replay equals the eager call."""
+    """A float-input K1 call (packed weights, alphas on the card) on the
+    overlapped pipeline is captured in a CUDA graph, and its replay equals
+    the eager call."""
     args, kw = _block1_call(1, torch.float32, cuda, "quant", n=2)
+    assert K._tile_plan(*args[0].shape, 64, 1).sums > 0
+    before = K.qconv3x3_int8_ndhwc.overlapped_launches
     eager = K.qconv3x3_int8_ndhwc(*args, **kw)
+    assert K.qconv3x3_int8_ndhwc.overlapped_launches == before + 1
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):

@@ -25,7 +25,7 @@ import torch
 from efficientq_tpu.pallas.qconv3d import _xla_qconv3x3
 from efficientq_tpu.pallas.qconv3d import qconv3x3_int8_ndhwc as jax_k1
 from efficientq_tpu_torch.kernels import qconv3d as K
-from efficientq_tpu_torch.kernels.build import SMEM_BLOCK, SMS
+from efficientq_tpu_torch.kernels.build import SMEM_BLOCK, SMEM_SM, SMS
 from efficientq_tpu_torch.quant import act_codes
 from test_torch_port_cuda import (CASES, LITS_BLOCK1, NA, make_case,
                                   run_port, tie_dense)
@@ -112,8 +112,9 @@ def test_tile_plan_covers_each_output_once(case):
     gx, gy = plan.grid
     bz, by, bx = plan.brick
     assert (bz, by) in K._BRICKS and bx == 8
-    assert plan.threads == bz * by * bx and plan.threads % 32 == 0
-    assert plan.smem == K._smem_bytes(plan.brick, c, dil)
+    assert plan.threads == (512 if plan.sums else bz * by * bx)
+    assert plan.threads % 32 == 0
+    assert plan.smem == K._smem_bytes(plan.brick, c, dil, plan.sums)
     assert plan.smem <= SMEM_BLOCK
     assert 1 <= gx <= plan.n_bricks == int(np.prod(plan.bricks))
     assert gy * plan.bn >= o > (gy - 1) * plan.bn
@@ -127,14 +128,169 @@ def test_tile_plan_covers_each_output_once(case):
 
 
 def test_tile_plan_fills_the_card_at_the_flagship():
-    """At the flagship's first stage the blocks fill every SM at least
-    twice over and are the largest bricks, and the widest convs still
+    """At the flagship's first stage the blocks fill every SM with the
+    threads it holds and are the largest bricks (on the overlapped
+    pipeline: one block of 512 threads an SM), and the widest convs still
     spread over every SM."""
     big = K._tile_plan(8, 64, 64, 64, 32, 32, 1)
-    assert big.brick == (4, 8, 8) and big.grid[0] >= 2 * SMS
+    assert big.brick == (4, 8, 8) and big.sums == 2
+    assert big.grid[0] >= SMS and big.grid[0] * big.threads >= SMS * 512
     for n in (2, 8):
         plan = K._tile_plan(n, 8, 8, 8, 256, 256, 1)
         assert plan.grid[0] * plan.grid[1] >= SMS
+
+
+# the launch's own arithmetic (csrc/qconv3d_int8.cu, qconv3d_int8_launch),
+# written out again: a stage is the halo's rows of 48 bytes (rounded up to
+# 128) and, past one 32-channel chunk, the chunk's weights; taking turns a
+# stage must also hold the brick's sums (rows of 36 words), overlapped
+# the sums have buffers of their own, each with a float32 tile of the
+# brick's residual, and the pipeline 8 mbarriers (128 bytes); one chunk's
+# weights stay resident
+def _launch_smem(brick, c, dil, sums):
+    bz, by, bx = brick
+    rows = 1
+    for b in brick:
+        rows *= b + 2 * min(dil, b)
+    halo = (rows * 48 + 127) // 128 * 128
+    chunks = -(-c // 32)
+    loads = halo + (27 * 32 * 32 if chunks > 1 else 0)
+    staged = bz * by * bx * 36 * 4
+    stage = (max(loads, staged) if not sums else loads + 127) // 128 * 128
+    tile = bz * by * bx * 32 * 4
+    return (2 * stage + (0 if chunks > 1 else 27 * 32 * 32)
+            + sums * (staged + tile) + (128 if sums else 0))
+
+
+# (N, D, H, W, C, O, dilation) -> sums buffers of the plan (0: taking
+# turns): blocks that walk many bricks (64^3 at C = 32, with the weights
+# resident: two buffers; C > 32, chunked: one); a 2^3-brick-a-block grid at
+# O = 128 and the grids just above and below it; bricks a block that
+# differ by one; one buffer at C = 32 and dilation 2, none at C > 32 and
+# dilation 2 or at dilation 3; the smaller bricks, and 4 x 8 bricks one a
+# block
+OVERLAP_CASES = [
+    ((8, 64, 64, 64, 32, 32, 1), 2), ((8, 32, 32, 32, 64, 64, 1), 1),
+    ((8, 16, 16, 16, 128, 128, 1), 1), ((5, 16, 16, 16, 128, 128, 1), 1),
+    ((4, 16, 16, 16, 128, 128, 1), 0), ((1, 8, 24, 88, 128, 128, 1), 1),
+    ((1, 8, 24, 80, 128, 128, 1), 0), ((3, 32, 32, 32, 32, 32, 2), 1),
+    ((2, 32, 32, 32, 64, 64, 2), 0), ((2, 32, 32, 32, 32, 32, 3), 0),
+    ((8, 8, 8, 8, 256, 256, 1), 0), ((8, 4, 4, 4, 512, 512, 1), 0),
+    ((1, 32, 32, 32, 64, 64, 1), 0), ((8, 16, 24, 20, 256, 256, 1), 1),
+    ((2, 9, 17, 33, 40, 72, 1), 1), ((1, 33, 31, 65, 3, 8, 1), 2),
+]
+
+
+@pytest.mark.parametrize("case,sums", OVERLAP_CASES,
+                         ids=["x".join(map(str, c)) for c, _ in OVERLAP_CASES])
+def test_tile_plan_takes_the_overlapped_pipeline(case, sums):
+    """The 4 x 8 x 8 brick takes the overlapped pipeline where every block
+    walks two or more bricks (n_bricks >= 2 grid[0]) and its shared memory
+    fits: two sums buffers where they fit, else one.  Its footprint is the
+    launch's arithmetic, its blocks one an SM (8 MMA warps, 4 epilogue
+    warps and 4 producer warps), its grid every SM's block over the column
+    tiles; the plans that take turns keep their footprint and blocks."""
+    n, d, h, w, c, o, dil = case
+    plan = K._tile_plan(*case)
+    assert plan.sums == sums
+    assert plan.smem == _launch_smem(plan.brick, c, dil, plan.sums)
+    gy = plan.grid[1]
+    if sums:
+        assert plan.brick == (4, 8, 8) and plan.threads == 512
+        assert plan.grid[0] == min(plan.n_bricks, SMS // gy)
+        assert plan.n_bricks >= 2 * plan.grid[0]
+        assert plan.smem <= SMEM_BLOCK
+        assert sums == 2 or _launch_smem(plan.brick, c, dil, 2) > SMEM_BLOCK
+        assert SMEM_SM // (plan.smem + 1024) >= 1
+    else:
+        per_sm = min(SMEM_SM // (plan.smem + 1024), 512 // plan.threads)
+        assert plan.grid[0] == min(plan.n_bricks, SMS * max(1, per_sm) // gy)
+        assert plan.brick != (4, 8, 8) or (
+            plan.n_bricks < 2 * min(plan.n_bricks, SMS // gy)
+            or _launch_smem(plan.brick, c, dil, 1) > SMEM_BLOCK)
+
+
+def _lits_k1_shapes():
+    """(D, H, W, C, O) of each K1 conv of the LiTS serving net at its
+    patch: cubes of the voxels ``costs.served_convs`` counts (the patch
+    over the stem's stride is 64^3)."""
+    from bench_torch import costs
+
+    out = []
+    for conv in costs.served_convs(_bench_config("lits_uresq_w4a4.json")):
+        if conv["k1"]:
+            s = round(conv["vox"] ** (1 / 3))
+            assert s ** 3 == conv["vox"]
+            out.append((s, s, s, conv["cin"], conv["cout"]))
+    return out
+
+
+def _segresnet_k1_shapes():
+    """(D, H, W, C, O) of each of SegResNet's 24 K1 convs at its patch."""
+    from bench_torch import segresnet_model
+
+    cfg = _bench_config("brats_segresnet_w4a4.json")
+    return [(*(p >> c.level for p in cfg["patch"]), c.cin, c.cout)
+            for c in segresnet_model.convs(cfg) if segresnet_model.on_k1(c)]
+
+
+@pytest.mark.parametrize("net,patches,want", [
+    ("lits", 8, 12), ("lits", 3, 8), ("lits", 1, 4), ("lits", 5, 12),
+    ("segresnet", 8, 24), ("segresnet", 1, 24)])
+def test_overlapped_launches_per_chunk(net, patches, want):
+    """K1 launches that take the overlapped pipeline in one chunk, pinned:
+    in a LiTS chunk of 8 the 12 convs of 64^3 x 32, 32^3 x 64 and
+    16^3 x 128 of its 18 (8 of 18 in the fixed cell's ragged chunk of 3,
+    as ``chip_smoke.py`` phase 12's volume ends); all 24 of SegResNet's."""
+    shapes = _lits_k1_shapes() if net == "lits" else _segresnet_k1_shapes()
+    assert len(shapes) == (18 if net == "lits" else 24)
+    plans = [K._tile_plan(patches, *s, 1) for s in shapes]
+    assert sum(p.sums > 0 for p in plans) == want
+
+
+def test_captured_replays_add_the_overlapped_count(monkeypatch):
+    """``kernels.COUNTERS`` lists ``overlapped_launches``, and a replay of
+    a captured forward adds its forward's count (the CUDA graph faked:
+    this machine has no card): an eager call, a capture and its replay,
+    and a second replay count three forwards."""
+    from efficientq_tpu_torch.eval import sliding
+    from efficientq_tpu_torch.kernels import COUNTERS as counted
+
+    class Graph:
+        def replay(self):
+            pass
+
+    class Capture:
+        def __init__(self, graph):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    fn = K.qconv3x3_int8_ndhwc
+    assert (fn, "overlapped_launches") in counted
+
+    def forward(v, x):  # as a chunk of K1 launches on the card counts
+        fn.launches += 18
+        fn.overlapped_launches += 12
+        return x * v
+
+    cf = sliding.CapturedForward(forward)
+    cf.use(torch.tensor(2.0))
+    before = (fn.launches, fn.overlapped_launches)
+    try:
+        for _ in range(3):
+            cf(torch.ones(8, 2))
+        assert cf.captures == 1
+        assert (fn.launches - before[0],
+                fn.overlapped_launches - before[1]) == (54, 36)
+    finally:
+        fn.launches, fn.overlapped_launches = before
 
 
 def test_wrapper_dispatches_by_device():
