@@ -3,12 +3,14 @@
 ``ptq`` and ``infer`` missions and its PTQ extensions on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--profile] [--ab] [--serving-extras]
+                          [--swinunetr]
 
 ``--ab`` runs phases 0, 2, 4 and 7 alone (the serving paths' volumes/s
 and the flagship calibration's seconds) and prints no result line: copied
 into two trees and run from each in one call, it compares their serving
 and calibration speed with the same harness.  ``--serving-extras`` runs
 phases 0, 2, 4, 8 and 11 alone and prints no result line.
+``--swinunetr`` runs phases 0 and 14 alone and prints no result line.
 
 Phases, each printed on its own lines:
 
@@ -270,6 +272,26 @@ Phases, each printed on its own lines:
    full-width SegResNet's int8 deployment: 25 K6, 24 K1 and 3 K5 launches
    a chunk, no K1 launch quantizing a float input (K6 hands K1 codes), all
    24 on K1's overlapped pipeline (``overlapped_launches``).
+14. SwinUNETR's kernels (K7, efficientq_tpu_torch/csrc/window_attention.cu,
+   built here; K1 and K3 on the offset grid; K6 at one channel a group)
+   at the published widths (feature size 48, heads 3, 6, 12, 24, window
+   7) on weights from ``--seed`` on 4-level grids: (a) one chunk of 8
+   patches of 128^3 through the served graph (``serving_graph``), eagerly,
+   every K1, K3, K6 and K7 call held to its plain version on the same
+   inputs as it runs: K1 (the offset-grid quantize pass of a float input
+   at k = 1 included), K3 (K 1536 and 3072 walked in chunks) and K6 (48
+   to 768 channels) ``torch.equal``; K7 at the four stages, shift 0 and
+   3, within its tolerance (at most one element in 10^5 differs, by at
+   most one float32 ulp); 19, 46, 26 and 8 calls; per shape the calls'
+   device time (events around each eager call, launched while the card
+   spins, so the host's launch time is not counted) beside the bound
+   computed from their arguments (bytes over 3.35 TB/s against int8
+   operations at 1,979 TOP/s, K7's QK^T and AV at the float32 peak of 67
+   TFLOP/s);
+   (b) a BraTS study of 155 x 240 x 240 through the main path
+   (``validate._build_infer``, captured): 19 K1, 46 K3, 26 K6 and 8 K7
+   launches a chunk, 8 x 8532 window-heads; the InstanceNorms' and
+   LayerNorms' elements printed.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
 path (phases 2 and 4, and paths (b) and (c) of phase 6), of one
@@ -3991,6 +4013,256 @@ def phase13(seed: int, smi: str):
     return numbers, {"segresnet_int8_f32": launches[0]}
 
 
+K7_SOURCE = "efficientq_tpu_torch/csrc/window_attention.cu"
+K7_REPLACES = "none: the JAX package has no attention"
+SWIN_PATCH, SWIN_BATCH, SWIN_VOL = (128, 128, 128), 8, (155, 240, 240)
+# a 128^3 chunk of SwinUNETR's served graph: K1's 3^3 convs, K3's int8
+# 1x1 convs (one launch each), K6's InstanceNorms, K7's blocks
+SWIN_LAUNCHES = {"K1": 19, "K3": 46, "K6": 26, "K7": 8}
+# K7's windows x heads a patch: stage extents 64, 32, 16, 8 padded to 70,
+# 35, 21, 14, so 1000, 125, 27, 8 windows of 3, 6, 12, 24 heads, two
+# blocks a stage
+SWIN_WINDOW_HEADS = 2 * (1000 * 3 + 125 * 6 + 27 * 12 + 8 * 24)
+# cycles the card spins ahead of a timed eager call (about 50 ms): longer
+# than the host takes to launch it, its first call's plan included
+SPIN_CYCLES = 10 ** 8
+
+
+def _swin_offset(name):
+    """The layers of SwinUNETR that read a LayerNorm's, an attention's or
+    a concat's output: on the offset grid."""
+    return (name.endswith(("attn.qkv", "attn.proj", "mlp.linear1",
+                           "downsample.reduction"))
+            or (name.endswith("conv1.conv")
+                and not name.startswith("encoder1."))
+            or (name.endswith("conv3.conv") and name.startswith("decoder")))
+
+
+def swin_net(seed: int):
+    """The published widths on weights from ``seed``, every quantized
+    kernel on its 4-level grid (alpha = max |w|), every activation range
+    4/3, the offset-grid layers at k = 1, biases 0.1 N(0, 1): (deployed
+    graph, variables) on the CPU."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.models import SwinUNETRConfig, build_model
+    from efficientq_tpu_torch.ptq import to_int8_inference
+    from efficientq_tpu_torch.quant import fake_quant_weight
+
+    cfg = SwinUNETRConfig(quantize=True, qlvl_w=4, qlvl_act=4,
+                          q_first=(256, -1), q_last=(256, -1))
+    g = build_model(cfg)
+    v = nnir.init(g, seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    for node in g.qconv_nodes():
+        p = v["params"][node.name]
+        q = node.attrs["qcfg"]
+        if q.q_weight:
+            alpha = torch.clamp_min(p["kernel"].abs().max(), 1e-8)
+            p["kernel"] = fake_quant_weight(p["kernel"], alpha, q.qlvl_w)
+            p["alpha_w"] = alpha
+        p["alpha_act"] = torch.tensor(4.0 / 3.0)
+        if _swin_offset(node.name):
+            p["act_k"] = torch.tensor(1, dtype=torch.int32)
+        if "bias" in p:
+            p["bias"] = 0.1 * torch.randn(p["bias"].shape, generator=gen)
+    return to_int8_inference(g, v)
+
+
+def _k7_close(got, want):
+    """(share of elements that differ, K7's tolerance held): K7 and its
+    plain version both sum in float64 and round once, so an element
+    differs only where a sum straddles a float32 rounding boundary: at
+    most one in 10^5, by at most one ulp of the plain value."""
+    differ = got != want
+    share = float(differ.float().mean())
+    ulp = torch.finfo(torch.float32).eps * want[differ].abs()
+    return share, share <= 1e-5 and bool(
+        ((got - want)[differ].abs() <= ulp).all())
+
+
+def _swin_costs():
+    """Each kernel's (key, bytes, operations, peak) of one call from its
+    arguments, as the calls of the served graph pass them."""
+    def k1(x, w, *a, residual=None, quant_qlvl=0, pool=False, **kw):
+        n, d, h, wd, c = x.shape
+        o, vox = w.shape[-1], n * d * h * wd
+        nbytes = (x.numel() * x.element_size() + w.numel()
+                  + vox * o * (1 if quant_qlvl else 4))
+        if residual is not None:
+            nbytes += residual.numel() * residual.element_size()
+        key = (f"{d}^3 x {c} -> {o}"
+               f"{' float in' if x.is_floating_point() else ''}"
+               f"{' quant' if quant_qlvl else ''}"
+               f"{' residual' if residual is not None else ''}"
+               f", k {kw.get('act_k', 0)}")
+        return key, nbytes, 2 * vox * 27 * c * o, INT8_OPS
+
+    def k3(x, w, bias, *a, **kw):
+        (m, k), n = x.shape, w.shape[1]
+        key = f"{m} x {k} -> {n}, k {kw.get('act_k', 0)}"
+        return (key, x.numel() * x.element_size() + w.numel() + m * n * 4,
+                2 * m * k * n, INT8_OPS)
+
+    def k6(x, gamma, beta, groups, eps=1e-5, relu=False, quant_alpha=None,
+           quant_qlvl=0):
+        key = (f"{x.shape[1]}^3 x {x.shape[-1]}"
+               f"{' -> codes' if quant_qlvl else ''}")
+        return (key, x.numel() * (x.element_size() + (1 if quant_qlvl
+                                                      else 4)), 0, INT8_OPS)
+
+    def k7(qkv, table, bias, heads, window, shift):
+        n, d, h, w, c3 = qkv.shape
+        tokens, c = n * d * h * w, c3 // 3
+        # QK^T and AV of every query of the unpadded grid against the 343
+        # keys of its window
+        flops = 4 * tokens * c * 343
+        return (f"{d}^3 x {c}, {heads} heads, shift {shift[0]}",
+                tokens * (c3 + c) * 4 + table.numel() * 4, flops, FP32_OPS)
+
+    return {"K1": k1, "K3": k3, "K6": k6, "K7": k7}
+
+
+def phase14(seed: int, smi: str):
+    """SwinUNETR's kernels on the cell's chunk: (a) one 128^3 chunk of 8
+    through the served graph (``serving_graph``), eagerly, each K1, K3, K6
+    and K7 call checked against its plain version on the same inputs (K1,
+    K3 and K6 ``torch.equal``; K7 within its tolerance, ``_k7_close``) and
+    timed (events around the call), beside its bound; (b) a BraTS study
+    through the main path (``validate._build_infer``, captured): 19 K1, 46
+    K3, 26 K6 and 8 K7 launches a chunk, 8 x 8532 window-heads.  Returns
+    (numbers, {kernel: launches a chunk})."""
+    from efficientq_tpu_torch import nnir
+    from efficientq_tpu_torch.eval.validate import _build_infer
+    from efficientq_tpu_torch.kernels import REFERENCES, WRAPPERS, build
+    from efficientq_tpu_torch.kernels import groupnorm as K6
+    from efficientq_tpu_torch.kernels import qconv3d as K1
+    from efficientq_tpu_torch.kernels import qmatmul as K3
+    from efficientq_tpu_torch.kernels import window_attention as K7
+    from efficientq_tpu_torch.ops import layer_norm
+    from efficientq_tpu_torch.ptq.deploy import serving_graph
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    K6._lib()
+    K7._lib()
+    print(f"[phase14] built K6 ({K6_SOURCE}) and K7 ({K7_SOURCE}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in _ptxas_lines(build.build_log.get("window_attention.cu")):
+        print(f"[phase14] K7 ptxas: {line}", flush=True)
+    dg, dv = swin_net(seed + 14)
+    dv = nnir.to_device(dv, dev)
+
+    # (a) every kernel call of one chunk against its plain version
+    fields = {"K1": "conv3x3_int8", "K3": "int8_matmul", "K6": "group_norm",
+              "K7": "window_attention"}
+    costs = _swin_costs()
+    rows, failures = {}, []
+
+    def checked(kernel):
+        fast = getattr(WRAPPERS, fields[kernel])
+        plain = getattr(REFERENCES, fields[kernel])
+
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            # the card spins while the host launches, so the events time
+            # the kernel alone
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            got = fast(*args, **kw)
+            end.record()
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            if kernel == "K7":
+                share, ok = _k7_close(got, want)
+            else:
+                share = float((got != want).float().mean())
+                ok = torch.equal(got, want)
+            key, nbytes, ops, peak = costs[kernel](*args, **kw)
+            row = rows.setdefault((kernel, key), dict(
+                calls=0, ms=0.0, bound_ms=0.0, differ=0.0, equal=True))
+            row["calls"] += 1
+            row["ms"] += start.elapsed_time(end)
+            row["bound_ms"] += _bound(nbytes, ops, peak)[0]
+            row["differ"] = max(row["differ"], share)
+            row["equal"] = row["equal"] and ok
+            if not ok:
+                failures.append(f"{kernel} {key}: {share:.3g} of its "
+                                f"outputs differ from its plain version")
+            del want
+            return got
+
+        return call
+
+    record = WRAPPERS._replace(**{fields[k]: checked(k) for k in fields})
+    sg = serving_graph(dg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    x = torch.randn((SWIN_BATCH, *SWIN_PATCH, 4), generator=gen, device=dev)
+    with torch.inference_mode():
+        logits = nnir.apply(sg, dv, x, mode="quantized", kernels=record)
+    check(bool(torch.isfinite(logits).all()),
+          "SwinUNETR chunk: non-finite logits")
+    del x, logits
+    torch.cuda.empty_cache()
+    calls = {k: sum(r["calls"] for (kk, _), r in rows.items() if kk == k)
+             for k in fields}
+    tot = {k: dict(ms=sum(r["ms"] for (kk, _), r in rows.items() if kk == k),
+                   bound_ms=sum(r["bound_ms"] for (kk, _), r in rows.items()
+                                if kk == k)) for k in fields}
+    for (kernel, key), r in sorted(rows.items()):
+        print(f"[phase14] {kernel} {key}: {r['calls']} call(s), "
+              f"{'equal to' if kernel != 'K7' else 'within tolerance of'} "
+              f"its plain version: {r['equal']} (differ {r['differ']:.3g});"
+              f" {r['ms']:.4f} ms (device), bound_ms "
+              f"{r['bound_ms']:.4f} ({100 * r['bound_ms'] / r['ms']:.1f} %)",
+              flush=True)
+    for k in fields:
+        print(f"[phase14] on {smi}: {k} over one chunk of {SWIN_BATCH} "
+              f"patches of {SWIN_PATCH}: {calls[k]} calls, "
+              f"{tot[k]['ms']:.4f} ms, bound_ms {tot[k]['bound_ms']:.4f} "
+              f"({100 * tot[k]['bound_ms'] / tot[k]['ms']:.1f} %)",
+              flush=True)
+    check(not failures, "; ".join(failures[:8]))
+    check(calls == SWIN_LAUNCHES, f"SwinUNETR chunk: kernel calls {calls}, "
+          f"expected {SWIN_LAUNCHES}")
+
+    # (b) the main path on a BraTS study
+    vol = torch.randn((1, *SWIN_VOL, 4), generator=gen, device=dev)
+    infer = _build_infer(
+        dg, dv, vol, SWIN_PATCH, OVERLAP, mode="quantized",
+        patch_batch="auto", multilabel=True, compute_dtype=None,
+        serve_stem="direct", heads=slice(-1, None), device=dev,
+        tune_serving="off")
+    for _ in range(2):  # eager, then captured
+        infer(dv, vol, SWIN_PATCH, OVERLAP)
+    torch.cuda.synchronize()
+    counters = {"K1": (K1.qconv3x3_int8_ndhwc, "launches"),
+                "K3": (K3.fused_int8_matmul, "launches"),
+                "K6": (K6.group_norm, "launches"),
+                "K7": (K7.window_attention, "launches"),
+                "window_heads": (K7.window_attention, "window_heads"),
+                "group_norm.elements": (K6.group_norm, "elements"),
+                "layer_norm.elements": (layer_norm, "elements")}
+    for fn, attr in counters.values():  # counted from 0 around one study
+        setattr(fn, attr, 0)
+    infer(dv, vol, SWIN_PATCH, OVERLAP)
+    torch.cuda.synchronize()
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    launches = {k: counts[k] for k in SWIN_LAUNCHES}
+    print(f"[phase14] on {smi}: a {SWIN_VOL} BraTS study through "
+          f"_build_infer (captured, one chunk of {SWIN_BATCH}): {counts}",
+          flush=True)
+    check(launches == SWIN_LAUNCHES
+          and counts["window_heads"] == SWIN_BATCH * SWIN_WINDOW_HEADS,
+          f"SwinUNETR main path: {counts}, expected {SWIN_LAUNCHES} and "
+          f"{SWIN_BATCH * SWIN_WINDOW_HEADS} window-heads")
+    del dv, vol, infer
+    torch.cuda.empty_cache()
+    numbers = {f"{k}_{m}": tot[k][m] for k in fields for m in tot[k]}
+    numbers["shapes"] = {f"{k} {key}": r for (k, key), r in rows.items()}
+    return numbers, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4003,10 +4275,15 @@ def main():
     ap.add_argument("--serving-extras", action="store_true",
                     help="run phases 0, 2, 4, 8 and 11 alone, with no "
                     "result line")
+    ap.add_argument("--swinunetr", action="store_true",
+                    help="run phases 0 and 14 alone, with no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; nothing was run")
     smi = setup()
+    if args.swinunetr:
+        phase14(args.seed, smi)
+        return
     if args.ab:
         _, served = phase2(args.seed)
         phase4(args.seed, served)
@@ -4051,6 +4328,7 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     k5, k5_paths = phase12(args.seed, smi)
     k6, k6_paths = phase13(args.seed, smi)
+    k7, swin = phase14(args.seed, smi)
     if args.profile:
         profile_paths(served, s2d_infer, k3_infer, mixed_infer)
         profile_calibration(args.seed)
@@ -4062,7 +4340,9 @@ def main():
     by_path = {"K1": {"int8_f32": k1_f32, "s2d_bf16": k1_s2d},
                "K2": {"s2d_bf16": k2}, "K3": {}, "K4": {},
                "K5": {"int8_f32": served["k5"], **k5_paths},
-               "K6": k6_paths}
+               "K6": k6_paths, "K7": {}}
+    for kernel, n in swin.items():
+        by_path[kernel]["swinunetr_int8_f32"] = n
     names = {"a": "int8_f32_include_1x1", "b": "s2d_bf16_include_1x1",
              "c": "mixed_s2d_include_1x1", "d": "fq_patch"}
     for path, counts in paths.items():
@@ -4089,7 +4369,9 @@ def main():
     # K1's LiTS numbers (phase 1): one LiTS forward's 18 convs at N = 8,
     # 16 levels, float32 output, as lits_* keys.  K5's (phase 12): the sums
     # over one LiTS chunk's five upsamples at N = 8, and each shape's.  K6's
-    # (phase 13): the sums over one SegResNet chunk's 25 GroupNorms.
+    # (phase 13): the sums over one SegResNet chunk's 25 GroupNorms.  K7's
+    # (phase 14): the sums over one SwinUNETR chunk's 8 blocks, with every
+    # SwinUNETR kernel's per shape.
     k1 = dict(p3["k1"], max_abs_err=max(max_err, p3["k1"]["max_abs_err"],
                                         lits["lits_max_abs_err"]),
               n2_f32_ms=ms, n2_f32_plain_ms=plain_ms, **lits,
@@ -4101,7 +4383,8 @@ def main():
         entry("K4", "fused_qact_matmul", K4_SOURCE, K4_REPLACES,
               p5["k4"]),
         entry("K5", "upsample_trilinear3d", K5_SOURCE, K5_REPLACES, k5),
-        entry("K6", "group_norm", K6_SOURCE, K6_REPLACES, k6)]}))
+        entry("K6", "group_norm", K6_SOURCE, K6_REPLACES, k6),
+        entry("K7", "window_attention", K7_SOURCE, K7_REPLACES, k7)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

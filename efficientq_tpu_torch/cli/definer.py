@@ -20,7 +20,8 @@ import numpy as np
 
 from ..data import labels as LB
 from ..data.datahub import DataHub
-from ..models import SegResNetConfig, UResQConfig, num_mo as model_num_mo
+from ..models import (SegResNetConfig, SwinUNETRConfig, UResQConfig,
+                      num_mo as model_num_mo)
 
 
 def parse_triple(s, default=None):
@@ -176,11 +177,12 @@ def _segresnet_config(args, nMod, nClass) -> SegResNetConfig:
         raise RuntimeError(f"SegResNet uses ReLU, got --nla {args.nla}")
     if args.ds:
         raise ValueError("SegResNet has no deep-supervision heads (--ds)")
-    widths = [int(x) for x in args.width.split(",")] if args.width else [32]
+    widths = ([int(x) for x in str(args.width).split(",")] if args.width
+              else [32])
     if len(widths) != 1:
         raise ValueError(f"SegResNet takes one --width, its initial "
                          f"filters, got {args.width}")
-    depths = ([int(x) for x in args.depth.split(",")] if args.depth
+    depths = ([int(x) for x in str(args.depth).split(",")] if args.depth
               else [1, 2, 2, 4, 1, 1, 1])
     if len(depths) % 2 != 1:
         raise ValueError(f"SegResNet's --depth lists the encoder's levels "
@@ -193,10 +195,41 @@ def _segresnet_config(args, nMod, nClass) -> SegResNetConfig:
         num_groups=args.group_num or 8, **_quant_config(args))
 
 
+def _swinunetr_config(args, nMod, nClass) -> SwinUNETRConfig:
+    """SwinUNETR (MONAI) from the model flags: ``--width`` its
+    feature_size (one number, 48 unless given), ``--depth`` the Swin
+    blocks of its four stages (2,2,2,2 unless given), ``--norm in``
+    (InstanceNorm, MONAI's default), ``--nla lrelu`` (LeakyReLU 0.01);
+    MONAI's heads (3, 6, 12, 24), window 7, patch 2 and MLP ratio 4.  No
+    dropout: its inference network has none."""
+    if args.norm.lower() not in ("in", "instance"):
+        raise NotImplementedError("SwinUNETR runs with InstanceNorm: pass "
+                                  "--norm in")
+    if args.nla.lower() not in ("lrelu", "leakyrelu"):
+        raise RuntimeError(f"SwinUNETR uses LeakyReLU (--nla lrelu), got "
+                           f"--nla {args.nla}")
+    if args.ds:
+        raise ValueError("SwinUNETR has no deep-supervision heads (--ds)")
+    # (a YAML config gives the one number as an int)
+    widths = ([int(x) for x in str(args.width).split(",")] if args.width
+              else [48])
+    if len(widths) != 1:
+        raise ValueError(f"SwinUNETR takes one --width, its feature_size, "
+                         f"got {args.width}")
+    depths = ([int(x) for x in str(args.depth).split(",")] if args.depth
+              else [2, 2, 2, 2])
+    if len(depths) != 4:
+        raise ValueError(f"SwinUNETR's --depth lists the Swin blocks of its "
+                         f"four stages, got {args.depth}")
+    return SwinUNETRConfig(num_mod=nMod, num_classes=nClass,
+                           feature_size=widths[0], depths=depths,
+                           **_quant_config(args))
+
+
 def get_model_config(args):
     """Returns (model config, model_info, num_mo) (definer.py:130-248):
-    a ``UResQConfig``, or for ``--model SegResNet`` a
-    ``SegResNetConfig`` (one head)."""
+    a ``UResQConfig``, or for ``--model SegResNet`` a ``SegResNetConfig``
+    and for ``--model SwinUNETR`` a ``SwinUNETRConfig`` (one head)."""
     task = args.task.lower()
     nMod = args.nMod or (4 if task == "brats" else 1)
     nClass = args.nClass or (4 if task == "brats" else 3)
@@ -205,11 +238,13 @@ def get_model_config(args):
     if args.multi_label:
         nClass -= 1
 
-    if args.model not in ("UResQ", "SegResNet"):
+    if args.model not in ("UResQ", "SegResNet", "SwinUNETR"):
         raise ValueError(f"Unknown model name: {args.model}")
-    if args.model == "SegResNet":
+    if args.model in ("SegResNet", "SwinUNETR"):
         model_info = args.model + "_" + args.norm.upper()
-        return _segresnet_config(args, nMod, nClass), model_info, 1
+        make = (_segresnet_config if args.model == "SegResNet"
+                else _swinunetr_config)
+        return make(args, nMod, nClass), model_info, 1
 
     # --nla selects in-place vs non-in-place ReLU (definer.py:179-184);
     # for the 'mid' ordering this changes the residual math (the in-place

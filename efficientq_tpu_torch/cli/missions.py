@@ -78,11 +78,33 @@ def _refuse(args, flags):
                                       f"queue 1 item {item}")
 
 
+def _refuse_swinunetr(args, mission: str, flags=()):
+    """SwinUNETR runs ``ptq`` and ``infer`` on the int8 serving path
+    alone: training, QAT, the s2d stem and the exported artifacts refuse
+    it."""
+    if args.model != "SwinUNETR":
+        return
+    if mission == "train_fp":
+        raise NotImplementedError("train_fp does not train SwinUNETR: its "
+                                  "port serves a PTQ export (ptq, infer)")
+    for flag, active in flags:
+        if active(args):
+            raise NotImplementedError(f"{flag} does not take SwinUNETR: its "
+                                      f"port serves the direct int8 path")
+
+
 _SERVING = [
     ("--dp_devices", lambda a: a.dp_devices, 9),
     ("--mesh_shape", lambda a: a.mesh_shape, 9),
     ("--distributed", lambda a: a.distributed, 9),
 ]
+# the options that SwinUNETR's missions refuse
+_SWIN_REFUSED = (
+    ("--qat_epochs", lambda a: a.qat_epochs),
+    ("--serve_stem s2d", lambda a: a.serve_stem == "s2d"),
+    ("--export_artifact", lambda a: a.export_artifact),
+    ("--serve_grid column", lambda a: a.serve_grid == "column"),
+)
 _TRAINING = [
     ("--dp_devices", lambda a: a.dp_devices, 9),
     ("--mesh_shape", lambda a: a.mesh_shape, 9),
@@ -155,6 +177,7 @@ def train_fp(args):
     mission's seconds by part: data (building the hub), train_data
     (waiting for batches), steps, validation, snapshots and final_test."""
     _refuse(args, _TRAINING)
+    _refuse_swinunetr(args, "train_fp")
     if args.ckpt_backend != "pickle":
         raise ValueError(f"--ckpt_backend {args.ckpt_backend}: the port "
                          f"writes pickle snapshots only (Orbax is the JAX "
@@ -326,6 +349,7 @@ def ptq(args):
     fine-tune of --qat_epochs) with qat_steps (its train loop; the rest is
     its val scoring)."""
     _refuse(args, _SERVING)
+    _refuse_swinunetr(args, "ptq", _SWIN_REFUSED)
     device = select_device(args)
     seconds = {}
     t0 = time.perf_counter()
@@ -573,6 +597,7 @@ def infer(args):
     from ..ptq import apply_qlvl_overrides, fold_bn
 
     _refuse(args, _SERVING)
+    _refuse_swinunetr(args, "infer", _SWIN_REFUSED)
     device = select_device(args)
     hub, data_info, nMod, nClass, patch_size = definer.get_data_cube(args)
 

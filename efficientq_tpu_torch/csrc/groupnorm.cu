@@ -51,6 +51,14 @@
 //    of codes.
 // C and C / G are powers of two, G <= 32 and C <= 256 V (the wrapper
 // checks); offsets are 64-bit.
+//
+// One channel a group (InstanceNorm, G = C: SwinUNETR's, 48 to 768
+// channels, not powers of two) takes a stats kernel of its own
+// (effq_group_norm_launch_ch): a block of R x L threads, L = C / V lanes
+// one voxel's channels span, R = 256 / L voxel rows, holds 8 rows a thread
+// and reduces each channel over the block's rows in shared memory, in
+// order; finalize is the same, and apply indexes channels by a remainder
+// instead of a mask.  C <= 1024 and C / V <= 256 (the wrapper checks).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +69,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 8;    // vectors a thread holds in the stats pass
 constexpr int GMAX = 32;    // groups a call may have
+constexpr int CMAX = 1024;  // channels of a one-channel-a-group call
 
 struct Part {
   double n, mean, m2;
@@ -255,7 +264,7 @@ __global__ void __launch_bounds__(THREADS)
 
 // One vector of V channels a thread: y = ((x - mean) * a) + beta, then the
 // codes of relu(y) (CODES) or y, relu'd with relu, in T.
-template <typename T, int V, bool CODES>
+template <typename T, int V, bool CODES, bool POW2 = true>
 __global__ void __launch_bounds__(THREADS)
     effq_group_norm_apply_kernel(const T* __restrict__ x,
                                  void* __restrict__ out,
@@ -269,8 +278,12 @@ __global__ void __launch_bounds__(THREADS)
   const long long i =
       (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) * V;
   if (i >= per_sample) return;
-  const int c = static_cast<int>(i & (C - 1));
-  const float m = __ldg(mean + static_cast<long long>(n) * G + c / cg);
+  const int c = POW2 ? static_cast<int>(i & (C - 1))
+                     : static_cast<int>(i % C);
+  // a vector lies in one group where the group's channels are a power
+  // of two; one channel a group takes each channel's own mean
+  const float* gm = mean + static_cast<long long>(n) * G;
+  const float m = __ldg(gm + c / cg);
   const float* a = scale + static_cast<long long>(n) * C + c;
   const long long e = static_cast<long long>(n) * per_sample + i;
   float v[V];
@@ -278,7 +291,8 @@ __global__ void __launch_bounds__(THREADS)
   float y[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    y[j] = __fadd_rn(__fmul_rn(__fsub_rn(v[j], m), __ldg(a + j)),
+    const float mj = POW2 ? m : __ldg(gm + (c + j) / cg);
+    y[j] = __fadd_rn(__fmul_rn(__fsub_rn(v[j], mj), __ldg(a + j)),
                      __ldg(beta + c + j));
   }
   if (CODES) {
@@ -297,6 +311,81 @@ __global__ void __launch_bounds__(THREADS)
       from_f(relu ? fmaxf(y[j], 0.0f) : y[j], &k.v[j]);
     }
     *reinterpret_cast<Pack<T, V>*>(static_cast<T*>(out) + e) = k;
+  }
+}
+
+// One channel a group: block b of sample n holds voxels [b * R * ITEMS,
+// (b + 1) * R * ITEMS) of the sample, thread t < R L the channels
+// [(t % L) V, (t % L + 1) V) of rows t / L + R i; writes the block's (n,
+// mean, M2) of each channel to part[(n * blocks + b) * C + c].
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+    effq_group_norm_stats_ch_kernel(const T* __restrict__ x,
+                                    Part* __restrict__ part,
+                                    long long voxels, int C) {
+  __shared__ double rows[THREADS * V];
+  __shared__ double cmean[CMAX];
+  const int L = C / V, R = THREADS / L;
+  const int n = blockIdx.y, b = blockIdx.x, t = threadIdx.x;
+  const bool active = t < R * L;
+  const int cv = t % L, r0 = t / L;
+  const long long v0 = static_cast<long long>(b) * R * ITEMS;
+  const long long left = voxels - v0;
+  const int count = static_cast<int>(left < R * ITEMS ? left : R * ITEMS);
+  const T* xs = x + static_cast<long long>(n) * voxels * C;
+  float v[ITEMS][V];
+  double s[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) s[j] = 0.0;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int r = r0 + i * R;
+    if (active && r < count) {
+      load<T, V>(xs, (v0 + r) * C + cv * V, v[i]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] += static_cast<double>(v[i][j]);
+    }
+  }
+  // pass 1: each channel's sum over the block's rows, in row order
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) rows[t * V + j] = s[j];
+  }
+  __syncthreads();
+  for (int c = t; c < C; c += THREADS) {
+    double tot = 0.0;
+    for (int r = 0; r < R; ++r) tot += rows[(r * L + c / V) * V + c % V];
+    cmean[c] = tot / static_cast<double>(count);
+  }
+  __syncthreads();
+  // pass 2: the sums of squared deviations from the block's channel means
+  double q[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) q[j] = 0.0;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int r = r0 + i * R;
+    if (active && r < count) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const double d = static_cast<double>(v[i][j]) - cmean[cv * V + j];
+        q[j] += d * d;
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) rows[t * V + j] = q[j];
+  }
+  __syncthreads();
+  for (int c = t; c < C; c += THREADS) {
+    double m2 = 0.0;
+    for (int r = 0; r < R; ++r) m2 += rows[(r * L + c / V) * V + c % V];
+    Part p;
+    p.n = static_cast<double>(count);
+    p.mean = cmean[c];
+    p.m2 = m2;
+    part[(static_cast<long long>(n) * gridDim.x + b) * C + c] = p;
   }
 }
 
@@ -332,6 +421,45 @@ int launch(const void* x, void* out, const float* gamma, const float* beta,
     effq_group_norm_apply_kernel<T, V, false><<<grid, THREADS, 0, stream>>>(
         xt, out, mean, scale, beta, qalpha, per_sample, C, cg, G, qmax,
         relu);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One channel a group: the channel stats, the same finalize (G = C, one
+// channel a group) and the apply with channels by remainder.
+template <typename T, int V>
+int launch_ch(const void* x, void* out, const float* gamma, const float* beta,
+              const float* qalpha, void* part, float* mean, float* scale,
+              long long N, long long per_sample, int C, double eps, int relu,
+              int qlvl, cudaStream_t stream) {
+  const long long voxels = per_sample / C;
+  const int rows = THREADS / (C / V) * ITEMS;
+  const long long blocks = (voxels + rows - 1) / rows;
+  const long long vecs = per_sample / V;
+  const long long apply_blocks = (vecs + THREADS - 1) / THREADS;
+  const T* xt = static_cast<const T*>(x);
+  Part* p = static_cast<Part*>(part);
+  effq_group_norm_stats_ch_kernel<T, V>
+      <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(N)),
+         THREADS, 0, stream>>>(xt, p, voxels, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  effq_group_norm_finalize_kernel<<<dim3(C, static_cast<unsigned>(N)),
+                                    THREADS, 0, stream>>>(
+      p, gamma, mean, scale, static_cast<int>(blocks), C, 1, C, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(apply_blocks),
+                  static_cast<unsigned>(N));
+  const float qmax = static_cast<float>(qlvl - 1);
+  if (qlvl) {
+    effq_group_norm_apply_kernel<T, V, true, false>
+        <<<grid, THREADS, 0, stream>>>(xt, out, mean, scale, beta, qalpha,
+                                       per_sample, C, 1, C, qmax, 0);
+  } else {
+    effq_group_norm_apply_kernel<T, V, false, false>
+        <<<grid, THREADS, 0, stream>>>(xt, out, mean, scale, beta, qalpha,
+                                       per_sample, C, 1, C, qmax, relu);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -377,4 +505,33 @@ extern "C" int effq_group_norm_launch(const void* x, void* out,
   }
   return launch_vec<float>(vec, x, out, gamma, beta, qalpha, part, mean,
                            scale, N, per_sample, C, G, eps, relu, qlvl, s);
+}
+
+// One channel a group (G = C), any C <= 1024 with C / vec <= 256: the
+// same buffers, part (N, blocks, C) x 3 float64 with blocks = ceil(voxels
+// / (256 / (C / vec) * 8)), mean (N, C).
+extern "C" int effq_group_norm_ch_launch(const void* x, void* out,
+                                         const float* gamma,
+                                         const float* beta,
+                                         const float* qalpha, void* part,
+                                         float* mean, float* scale,
+                                         long long N, long long per_sample,
+                                         int C, double eps, int relu,
+                                         int qlvl, int x_bf16, int vec,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C < 1 || C > CMAX || vec < 1 || C % vec || C / vec > THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define GN_CH(T, V)                                                         \
+  return launch_ch<T, V>(x, out, gamma, beta, qalpha, part, mean, scale, N, \
+                         per_sample, C, eps, relu, qlvl, s);
+  if (x_bf16) {
+    if (vec == 4) GN_CH(__nv_bfloat16, 4)
+    if (vec == 2) GN_CH(__nv_bfloat16, 2)
+    GN_CH(__nv_bfloat16, 1)
+  }
+  if (vec == 4) GN_CH(float, 4)
+  if (vec == 2) GN_CH(float, 2)
+  GN_CH(float, 1)
+#undef GN_CH
 }

@@ -14,8 +14,10 @@
 //   accumulation in int32 on the int8 tensor cores, so the sum is exact.
 //
 // Prologue, for float input: qa = int8(rint(clip(x / alpha, 0, 1) *
-// (qlvl - 1))), x widened exactly to float32 first, the quant epilogue's
-// arithmetic below.  The JAX package quantizes outside its kernel, in one
+// (qlvl - 1))), or on the offset grid of shift x_k > 0 the signed codes
+// int8(clip(rint(x / alpha * (qlvl - 1)), -x_k, qlvl - 1 - x_k)) (zero stays
+// code 0, so the zero halo needs nothing), x widened exactly to float32
+// first, the quant epilogue's arithmetic below.  The JAX package quantizes outside its kernel, in one
 // XLA fusion; in eager PyTorch that is five full-size passes (37 bytes an
 // element).  Here a pass of K1's own reads x once and writes the codes
 // once (5 bytes an element for float32), and the convolution reads the
@@ -26,7 +28,8 @@
 //                                           to float32; relu'd first with
 //                                           res_relu)
 //   quant         out = int8(rint(clip(y / qalpha, 0, 1) * (qlvl - 1)))
-//                 from the float32 y
+//                 from the float32 y (on the offset grid of quant_k > 0,
+//                 the prologue's signed codes)
 //   out dtype     y is stored as float32, or rounded to bfloat16 (nearest
 //                 even) with out_bf16
 //   pool          pool = maxpool_2x2x2 of the stored (rounded) y, VALID
@@ -165,7 +168,7 @@ struct Args {
   int8_t* out_i8;
   void* out_pool;
   int N, D, H, W, C, O, dil;
-  int res_relu, quant_qlvl, res_bf16, out_bf16, scale_stride;
+  int res_relu, quant_qlvl, quant_k, res_bf16, out_bf16, scale_stride;
   int Cp, nchunks;
   int sz, sy, sx;     // tap stride in halo rows per axis: min(dil, extent)
   int EZ, EY, EX;     // halo extents
@@ -476,7 +479,7 @@ __device__ __forceinline__ void load_residual_tile(const Args& a,
 // thresholds at up to 4 levels (act_code.cuh); the whole warp calls it.
 __device__ __forceinline__ Quant next_quant(const Args& a) {
   return quant_setup(a.quant_qlvl ? *a.qalpha : 1.0f,
-                     a.quant_qlvl ? a.quant_qlvl : 2);
+                     a.quant_qlvl ? a.quant_qlvl : 2, a.quant_k);
 }
 
 // The epilogue of one brick for thread et of ET: y = sums * scale + bias,
@@ -579,8 +582,8 @@ __device__ __forceinline__ void epilogue_brick(
 template <bool BF16>
 __global__ void __launch_bounds__(256)
 qconv3d_int8_kernel_quantize(const void* x, const float* alpha, int qlvl,
-                             int8_t* qa, long long n) {
-  const Quant q = quant_setup(*alpha, qlvl);
+                             int k, int8_t* qa, long long n) {
+  const Quant q = quant_setup(*alpha, qlvl, k);
   const long long groups = n / 8;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -604,7 +607,8 @@ qconv3d_int8_kernel_quantize(const void* x, const float* alpha, int qlvl,
     uint32_t word[2] = {0u, 0u};
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      word[i / 4] |= static_cast<uint32_t>(code_of(v[i], q)) << (8 * (i % 4));
+      word[i / 4] |= (static_cast<uint32_t>(code_of(v[i], q)) & 0xffu)
+                     << (8 * (i % 4));
     reinterpret_cast<uint2*>(qa)[g] = make_uint2(word[0], word[1]);
   }
   const long long i = groups * 8 + threadIdx.x;
@@ -983,7 +987,9 @@ int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
 // out_pool (no pool epilogue).  x is int8 codes with x_qlvl == 0, else
 // float32 (bfloat16 with x_bf16) activations, quantized to x_qlvl levels
 // of x_alpha into qa (int8, x's shape) first; residual is bfloat16 with
-// res_bf16, else float32; out_y and out_pool are bfloat16 with out_bf16,
+// res_bf16, else float32; x_k and quant_k are the offset-grid shifts of
+// the prologue's and the quant epilogue's codes (0: the unsigned grid);
+// out_y and out_pool are bfloat16 with out_bf16,
 // else float32.  scale is (O,) with scale_per_channel, else one value.  x
 // (codes when C % 16 == 0; floats always), qa and w are 16-byte aligned,
 // residual 8-byte aligned.  The tile plan (brick_z x brick_y x 8 voxels,
@@ -1004,7 +1010,8 @@ extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
                                    int res_bf16, int out_bf16,
                                    int scale_per_channel, int brick_z,
                                    int brick_y, int grid_x, int grid_y,
-                                   int sums_buffers, void* stream) {
+                                   int sums_buffers, int x_k, int quant_k,
+                                   void* stream) {
   Args a;
   a.qa = static_cast<const int8_t*>(x_qlvl ? qa : x);
   a.w = static_cast<const int8_t*>(w);
@@ -1018,6 +1025,7 @@ extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
   a.N = N; a.D = D; a.H = H; a.W = W; a.C = C; a.O = O; a.dil = dil;
   a.res_relu = res_relu;
   a.quant_qlvl = quant_qlvl;
+  a.quant_k = quant_k;
   a.res_bf16 = res_bf16;
   a.out_bf16 = out_bf16;
   a.scale_stride = scale_per_channel ? 1 : 0;
@@ -1051,6 +1059,8 @@ extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
   if (bricks > 0x7fffffffLL || grid_x < 1 || grid_x > bricks ||
       grid_y != (O + BN - 1) / BN || smem > SMEM_MAX || dil < 1 ||
       x_qlvl < 0 || (x_qlvl && !(x_alpha && qa)) || sums_buffers < 0 ||
+      x_k < 0 || (x_k && x_k >= x_qlvl) || quant_k < 0 ||
+      (quant_k && quant_k >= quant_qlvl) ||
       sums_buffers > 2 || (overlap && !(brick_z == 4 && brick_y == 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   a.bricks = static_cast<int>(bricks);
@@ -1066,10 +1076,10 @@ extern "C" int qconv3d_int8_launch(const void* x, const void* x_alpha,
     int8_t* codes = static_cast<int8_t*>(qa);
     if (x_bf16)
       qconv3d_int8_kernel_quantize<true>
-          <<<qgrid, 256, 0, s>>>(x, alpha, x_qlvl, codes, n);
+          <<<qgrid, 256, 0, s>>>(x, alpha, x_qlvl, x_k, codes, n);
     else
       qconv3d_int8_kernel_quantize<false>
-          <<<qgrid, 256, 0, s>>>(x, alpha, x_qlvl, codes, n);
+          <<<qgrid, 256, 0, s>>>(x, alpha, x_qlvl, x_k, codes, n);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

@@ -15,7 +15,10 @@
 //   alpha:  the activation clip, a (1,) float32 on the device, or (alpha_p
 //           null) the value alpha_v; qlvl its number of levels
 //
-//   codes[m, k] = rint(clip(x[m, k] / alpha, 0, 1) * (qlvl - 1))
+//   codes[m, k] = rint(clip(x[m, k] / alpha, 0, 1) * (qlvl - 1)), or on
+//                 the offset grid of shift act_k > 0 the signed codes
+//                 clip(rint(x[m, k] / alpha * (qlvl - 1)), -act_k,
+//                 qlvl - 1 - act_k)
 //   y[m, n] = float(sum_k codes[m, k] * w[k, n]) * scale[n] + bias[n]
 //
 // The codes are those of a true float32 divide (act_code, __fdiv_rn), the
@@ -57,7 +60,12 @@
 // added through shared memory, was never faster in the tuning sweeps).
 // The epilogue stores float2 pairs: a quad's 32 contiguous bytes fill a
 // sector (staging y through shared memory for 16-byte row stores, and
-// streaming stores, measured no faster).  bm, nc, mt, nt, wn, the ring's
+// streaming stores, measured no faster).  A K whose rows of x do not fit
+// the ring (the 1536 and 3072 of SwinUNETR's widest linears and merges)
+// is walked in chunks of kc: the ring then stages (tile, chunk) slices of
+// bm x kc, each quantized into a bm x kc code tile and added to the same
+// int32 sums, the epilogue running after a tile's last chunk; the weights
+// of all of K stay in shared memory.  bm, nc, mt, nt, wn, kc, the ring's
 // depth and the grid come from kernels/qmatmul.py::_k3_plan.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,15 +92,18 @@ struct Args {
   float* y;
   float scale_v, alpha_v;
   int scale_stride;
-  int M, K, N, qlvl;
+  int M, K, N, qlvl, act_k;
   int kp;          // K rounded up to BK
-  int rs;          // row stride of the code and weight tiles: kp + 16 bytes
+  int kc;          // K per chunk, a multiple of BK (kp: one chunk)
+  int nch;         // chunks of K: ceil(kp / kc)
+  int rw;          // row stride of the weight tile: kp + 16 bytes
+  int rc;          // row stride of the code tile: kc + 16 bytes
   int bm, nc, nt, wn;
   int stages;      // raw x slices in the ring
   int tiles;       // ceil(M / bm)
-  int pieces_row;  // 16-byte pieces per raw row: kp * elt / 16
+  int pieces_row;  // 16-byte pieces per raw row: kc * elt / 16
   uint32_t row_magic;  // ceil(2^32 / pieces_row): e / pieces_row by umulhi
-  int raw_row;     // bytes of one staged raw row: kp * elt + 16
+  int raw_row;     // bytes of one staged raw row: kc * elt + 16
   int raw_bytes;   // one raw slice, a multiple of 128
   int off_codes, off_raw, off_sb;  // shared-memory offsets
 };
@@ -158,13 +169,14 @@ __device__ __forceinline__ void quantize_piece(const Args& a, int e,
   const int r = __umulhi(e, a.row_magic), j = e - r * a.pieces_row;
   float f[EPP];
   unpack(*reinterpret_cast<const uint4*>(raw + r * a.raw_row + j * 16), f);
-  uint8_t* dst = codes + r * a.rs + j * EPP;
+  uint8_t* dst = codes + r * a.rc + j * EPP;
   uint32_t word[EPP / 4];
 #pragma unroll
   for (int i = 0; i < EPP / 4; ++i) word[i] = 0u;
 #pragma unroll
   for (int i = 0; i < EPP; ++i) {
-    word[i / 4] |= static_cast<uint32_t>(code_of(f[i], q)) << (8 * (i % 4));
+    word[i / 4] |= (static_cast<uint32_t>(code_of(f[i], q)) & 0xffu)
+                   << (8 * (i % 4));
   }
   if (EPP == 4) {
     *reinterpret_cast<uint32_t*>(dst) = word[0];
@@ -173,20 +185,22 @@ __device__ __forceinline__ void quantize_piece(const Args& a, int e,
   }
 }
 
-// Stage tile t of raw x into `raw`: bm rows of kp elements at raw_row
-// bytes apart, zero past M and K.
+// Stage chunk c of tile t of raw x into `raw`: bm rows of kc elements,
+// from column c * kc, at raw_row bytes apart, zero past M and K.
 template <typename T, bool VEC>
-__device__ __forceinline__ void load_raw(const Args& a, char* raw, int t) {
+__device__ __forceinline__ void load_raw(const Args& a, char* raw, int t,
+                                         int c) {
   using Bits = typename std::conditional<sizeof(T) == 2, uint16_t,
                                          uint32_t>::type;
   const long long m0 = static_cast<long long>(t) * a.bm;
+  const int k0 = c * a.kc;
   if (VEC) {
     constexpr int EPP = 16 / sizeof(T);
     const char* xb = static_cast<const char*>(a.x);
     for (int e = threadIdx.x; e < a.bm * a.pieces_row; e += THREADS) {
       const int r = __umulhi(e, a.row_magic), j = e - r * a.pieces_row;
       const long long m = m0 + r;
-      const int k = j * EPP;
+      const int k = k0 + j * EPP;
       const bool valid = m < a.M && k < a.K;
       const char* src =
           valid ? xb + (m * a.K + k) * static_cast<long long>(sizeof(T)) : xb;
@@ -194,10 +208,10 @@ __device__ __forceinline__ void load_raw(const Args& a, char* raw, int t) {
     }
   } else {
     const Bits* xb = static_cast<const Bits*>(a.x);
-    for (int e = threadIdx.x; e < a.bm * a.kp; e += THREADS) {
-      const int r = e / a.kp, k = e - r * a.kp;
+    for (int e = threadIdx.x; e < a.bm * a.kc; e += THREADS) {
+      const int r = e / a.kc, j = e - r * a.kc, k = k0 + j;
       const long long m = m0 + r;
-      reinterpret_cast<Bits*>(raw + r * a.raw_row)[k] =
+      reinterpret_cast<Bits*>(raw + r * a.raw_row)[j] =
           (m < a.M && k < a.K) ? xb[m * a.K + k] : Bits(0);
     }
   }
@@ -210,12 +224,16 @@ __device__ __forceinline__ void cp_async_wait_ring(int stages) {
   else cp_async_wait<3>();
 }
 
-template <typename T, bool VEC, int MT>
+// CHUNKS: K in a.nch chunks of a.kc; else all of K at once (nch 1).  The
+// one-chunk loop is compiled apart: with nch a run-time value every
+// one-chunk shape ran slower on an H100 (PERF.md section 6)
+template <typename T, bool VEC, int MT, bool CHUNKS>
 __global__ void __launch_bounds__(THREADS, 3) qmatmul_int8_kernel(Args a) {
   constexpr int NT_MAX = TILES / MT;
+  const int nch = CHUNKS ? a.nch : 1;
   extern __shared__ __align__(128) char smem[];
-  uint8_t* Ws = reinterpret_cast<uint8_t*>(smem);  // [nc][rs] weight codes
-  uint8_t* Cs = reinterpret_cast<uint8_t*>(smem + a.off_codes);  // [bm][rs]
+  uint8_t* Ws = reinterpret_cast<uint8_t*>(smem);  // [nc][rw] weight codes
+  uint8_t* Cs = reinterpret_cast<uint8_t*>(smem + a.off_codes);  // [bm][rc]
   char* raw0 = smem + a.off_raw;                   // raw x slices
   float* sc = reinterpret_cast<float*>(smem + a.off_sb);  // [nc] scale
   float* bi = sc + a.nc;                                  // [nc] bias
@@ -228,21 +246,25 @@ __global__ void __launch_bounds__(THREADS, 3) qmatmul_int8_kernel(Args a) {
   const int n0 = blockIdx.y * a.nc;
   const int my_tiles = (a.tiles - 1 - static_cast<int>(blockIdx.x)) /
                            static_cast<int>(gridDim.x) + 1;
+  // a step is one chunk of K of one tile: step s is chunk s % nch of
+  // the block's tile s / nch
+  const int my_steps = my_tiles * nch;
 
-  // group 0: the chunk's weights and the first tile; group j < stages:
-  // tile j
+  // group 0: the column chunk's weights and the first step; group j <
+  // stages: step j
   const int wp = a.kp / 16;  // 16-byte pieces per packed weight row
   for (int e = tid; e < a.nc * wp; e += THREADS) {
     const int nn = e / wp, j = e - nn * wp;
     const int n = n0 + nn;
     const bool valid = n < a.N;
-    cp_async16(smem_u32(Ws + nn * a.rs + j * 16),
+    cp_async16(smem_u32(Ws + nn * a.rw + j * 16),
                valid ? a.w + static_cast<long long>(n) * a.kp + j * 16 : a.w,
                valid);
   }
   for (int j = 0; j < a.stages; ++j) {
-    if (j < my_tiles)
-      load_raw<T, VEC>(a, raw0 + j * a.raw_bytes, blockIdx.x + j * gridDim.x);
+    if (j < my_steps)
+      load_raw<T, VEC>(a, raw0 + j * a.raw_bytes,
+                       blockIdx.x + (j / nch) * gridDim.x, j % nch);
     cp_async_commit();
   }
   for (int i = tid; i < a.nc; i += THREADS) {
@@ -253,26 +275,14 @@ __global__ void __launch_bounds__(THREADS, 3) qmatmul_int8_kernel(Args a) {
     bi[i] = (a.bias != nullptr && n < a.N) ? a.bias[n] : 0.0f;
   }
   const float alpha = a.alpha_p != nullptr ? *a.alpha_p : a.alpha_v;
-  const Quant q = quant_setup(alpha, a.qlvl);
-  const int nks = a.kp / BK;
+  const Quant q = quant_setup(alpha, a.qlvl, a.act_k);
   const int pieces = a.bm * a.pieces_row;
+
+  const int nks_all = a.kp / BK;
+  const int rc = CHUNKS ? a.rc : a.rw;  // one stride without chunks
 
   for (int i = 0; i < my_tiles; ++i) {
     const int tile = blockIdx.x + i * gridDim.x;
-    // tile i's raw x has landed (and, at i = 0, the weights); the code
-    // tile of tile i - 1 is consumed
-    cp_async_wait_ring(a.stages);
-    __syncthreads();
-    char* raw = raw0 + (i % a.stages) * a.raw_bytes;
-#pragma unroll 4
-    for (int e = tid; e < pieces; e += THREADS)
-      quantize_piece<T>(a, e, raw, Cs, q);
-    __syncthreads();
-    // the slice of tile i is consumed: it takes tile i + stages
-    if (i + a.stages < my_tiles)
-      load_raw<T, VEC>(a, raw, tile + a.stages * gridDim.x);
-    cp_async_commit();
-
     int acc[MT][NT_MAX][4];
 #pragma unroll
     for (int u = 0; u < MT; ++u)
@@ -280,25 +290,46 @@ __global__ void __launch_bounds__(THREADS, 3) qmatmul_int8_kernel(Args a) {
       for (int v = 0; v < NT_MAX; ++v)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[u][v][j] = 0;
-    for (int s = 0; s < nks; ++s) {
-      const int kb = s * BK + 4 * t;
-      uint32_t af[MT][4];
+    for (int c = 0; c < nch; ++c) {
+      const int step = i * nch + c;
+      // the step's raw x has landed (and, at step 0, the weights); the
+      // code tile of the step before is consumed
+      cp_async_wait_ring(a.stages);
+      __syncthreads();
+      char* raw = raw0 + (step % a.stages) * a.raw_bytes;
+#pragma unroll 4
+      for (int e = tid; e < pieces; e += THREADS)
+        quantize_piece<T>(a, e, raw, Cs, q);
+      __syncthreads();
+      // the slice of this step is consumed: it takes step + stages
+      const int next = step + a.stages;
+      if (next < my_steps)
+        load_raw<T, VEC>(a, raw, blockIdx.x + (next / nch) * gridDim.x,
+                         next % nch);
+      cp_async_commit();
+
+      const int nks = CHUNKS ? min(a.kc, a.kp - c * a.kc) / BK : nks_all;
+      const uint8_t* Wc = CHUNKS ? Ws + c * a.kc : Ws;  // chunk c's columns
+      for (int s = 0; s < nks; ++s) {
+        const int kb = s * BK + 4 * t;
+        uint32_t af[MT][4];
 #pragma unroll
-      for (int u = 0; u < MT; ++u) {
-        const uint8_t* r0 = Cs + (row0 + u * 16 + g) * a.rs + kb;
-        const uint8_t* r1 = r0 + 8 * a.rs;
-        af[u][0] = ld32(r0);
-        af[u][1] = ld32(r1);
-        af[u][2] = ld32(r0 + 16);
-        af[u][3] = ld32(r1 + 16);
-      }
+        for (int u = 0; u < MT; ++u) {
+          const uint8_t* r0 = Cs + (row0 + u * 16 + g) * rc + kb;
+          const uint8_t* r1 = r0 + 8 * rc;
+          af[u][0] = ld32(r0);
+          af[u][1] = ld32(r1);
+          af[u][2] = ld32(r0 + 16);
+          af[u][3] = ld32(r1 + 16);
+        }
 #pragma unroll
-      for (int v = 0; v < NT_MAX; ++v) {
-        if (v < a.nt) {
-          const uint8_t* c = Ws + (col0 + v * 8 + g) * a.rs + kb;
-          const uint32_t b0 = ld32(c), b1 = ld32(c + 16);
+        for (int v = 0; v < NT_MAX; ++v) {
+          if (v < a.nt) {
+            const uint8_t* wr = Wc + (col0 + v * 8 + g) * a.rw + kb;
+            const uint32_t b0 = ld32(wr), b1 = ld32(wr + 16);
 #pragma unroll
-          for (int u = 0; u < MT; ++u) mma_s8(acc[u][v], af[u], b0, b1);
+            for (int u = 0; u < MT; ++u) mma_s8(acc[u][v], af[u], b0, b1);
+          }
         }
       }
     }
@@ -337,10 +368,10 @@ __global__ void __launch_bounds__(THREADS, 3) qmatmul_int8_kernel(Args a) {
   }
 }
 
-template <typename T, bool VEC, int MT>
+template <typename T, bool VEC, int MT, bool CHUNKS>
 int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
   static bool configured = false;  // once per instantiation
-  auto kernel = qmatmul_int8_kernel<T, VEC, MT>;
+  auto kernel = qmatmul_int8_kernel<T, VEC, MT, CHUNKS>;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -351,17 +382,24 @@ int launch(const Args& a, dim3 grid, int smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int MT>
+template <typename T, int MT, bool CHUNKS>
 int launch_vec(const Args& a, bool vec, dim3 grid, int smem, cudaStream_t s) {
-  return vec ? launch<T, true, MT>(a, grid, smem, s)
-             : launch<T, false, MT>(a, grid, smem, s);
+  return vec ? launch<T, true, MT, CHUNKS>(a, grid, smem, s)
+             : launch<T, false, MT, CHUNKS>(a, grid, smem, s);
+}
+
+template <typename T, int MT>
+int launch_chunks(const Args& a, bool vec, dim3 grid, int smem,
+                  cudaStream_t s) {
+  return a.nch > 1 ? launch_vec<T, MT, true>(a, vec, grid, smem, s)
+                   : launch_vec<T, MT, false>(a, vec, grid, smem, s);
 }
 
 template <typename T>
 int launch_mt(const Args& a, int mt, bool vec, dim3 grid, int smem,
               cudaStream_t s) {
-  return mt == 2 ? launch_vec<T, 2>(a, vec, grid, smem, s)
-                 : launch_vec<T, 1>(a, vec, grid, smem, s);
+  return mt == 2 ? launch_chunks<T, 2>(a, vec, grid, smem, s)
+                 : launch_chunks<T, 1>(a, vec, grid, smem, s);
 }
 
 int align(int v, int to) { return (v + to - 1) / to * to; }
@@ -375,6 +413,8 @@ int align(int v, int to) { return (v + to - 1) / to * to; }
 struct K3Call {
   int M, K, N, qlvl, x_bf16;
   int bm, nc, mt, nt, wn, stages, grid_x;
+  int act_k;  // the offset grid's shift of x's codes, 0: unsigned
+  int kc;     // K per chunk, a multiple of 32, or 0: all of K at once
 };
 
 // Plain C entry point for ctypes.  x is bfloat16 with call->x_bf16, else
@@ -392,12 +432,14 @@ extern "C" int qmatmul_int8_launch(const void* x, const void* w,
   const int M = call->M, K = call->K, N = call->N;
   const int wn = call->wn, mt = call->mt, nt = call->nt;
   const int elt = call->x_bf16 ? 2 : 4;
-  if (M < 1 || K < 1 || N < 1 || call->qlvl < 2 || call->qlvl > 128 ||
+  if (M < 1 || K < 1 || N < 1 || call->qlvl < 2 || call->act_k < 0 ||
+      call->act_k > 128 || call->qlvl - 1 - call->act_k > 127 ||
       wn < 1 || WARPS % wn != 0 || (mt != 1 && mt != 2) ||
       (nt != 1 && nt != 2 && nt != 4 && nt != 8) || mt * nt > TILES ||
       call->stages < 2 || call->stages > 4 ||
       call->nc != wn * 8 * nt || call->nc > 256 ||
-      call->bm != WARPS / wn * 16 * mt || call->grid_x < 1)
+      call->bm != WARPS / wn * 16 * mt || call->grid_x < 1 ||
+      call->kc < 0 || call->kc % BK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = x;
@@ -411,22 +453,26 @@ extern "C" int qmatmul_int8_launch(const void* x, const void* w,
   a.scale_stride = scale_stride;
   a.M = M; a.K = K; a.N = N;
   a.qlvl = call->qlvl;
+  a.act_k = call->act_k;
   a.kp = align(K, BK);
-  a.rs = a.kp + 16;
+  a.kc = (call->kc == 0 || call->kc > a.kp) ? a.kp : call->kc;
+  a.nch = (a.kp + a.kc - 1) / a.kc;
+  a.rw = a.kp + 16;
+  a.rc = a.kc + 16;
   a.bm = call->bm; a.nc = call->nc;
   a.nt = nt; a.wn = wn;
   a.stages = call->stages;
   a.tiles = (M + a.bm - 1) / a.bm;
-  a.pieces_row = a.kp * elt / 16;
+  a.pieces_row = a.kc * elt / 16;
   // exact for every piece index e < 2^32 / pieces_row (e < 16 K here)
   a.row_magic = static_cast<uint32_t>((0x100000000ULL + a.pieces_row - 1) /
                                       a.pieces_row);
-  a.raw_row = a.kp * elt + 16;
+  a.raw_row = a.kc * elt + 16;
   a.raw_bytes = align(a.bm * a.raw_row, 128);
   // shared memory: weights, codes, the raw slices, scale and bias
   // (kernels/qmatmul.py::_k3_smem computes the same)
-  a.off_codes = a.nc * a.rs;
-  a.off_raw = align(a.off_codes + a.bm * a.rs, 128);
+  a.off_codes = a.nc * a.rw;
+  a.off_raw = align(a.off_codes + a.bm * a.rc, 128);
   a.off_sb = a.off_raw + a.stages * a.raw_bytes;
   const long long smem = a.off_sb + 8LL * a.nc;
   if (smem > SMEM_MAX || call->grid_x > a.tiles ||

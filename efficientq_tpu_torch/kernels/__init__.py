@@ -2,7 +2,7 @@
 route the deployed graph to them.  Counterpart of the JAX package's
 ``pallas/``.
 
-``Kernels`` is the one record of the kernels a graph runs on: K1-K6, each
+``Kernels`` is the one record of the kernels a graph runs on: K1-K7, each
 entry a function with its wrapper's signature.  ``nnir.eval_node`` reads
 its entries, and every inferencer takes one (``kernels=``).  It has three
 instances: ``WRAPPERS`` (the default; each wrapper launches its kernel on
@@ -21,6 +21,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import ops as _ops
+
 _F32 = dict(dtype=torch.float32)
 
 
@@ -33,6 +35,7 @@ class Kernels(NamedTuple):
     qact_matmul: Callable  # K4: flagged fake-quant 1x1 convs
     upsample: Callable  # K5: ``upsample_k5`` nodes
     group_norm: Callable  # K6: ``group_norm_k6`` nodes
+    window_attention: Callable  # K7: ``window_attention`` nodes
 
 
 def on_device(index, fn, *args):
@@ -76,23 +79,29 @@ def alpha_arg(alpha, like):
 
 
 # the kernel modules import the helpers above from this package
-from . import groupnorm, qconv3d, qmatmul, stem, upsample  # noqa: E402
+from . import (groupnorm, qconv3d, qmatmul, stem, upsample,  # noqa: E402
+               window_attention)
 from .qmatmul import (fused_int8_matmul, fused_qact_matmul,  # noqa: E402,F401
                       qconv1x1_ndhwc, to_pallas_inference)
 
 WRAPPERS = Kernels(qconv3d.qconv3x3_int8_ndhwc, stem.stem_s2d_conv,
                    qmatmul.fused_int8_matmul, qmatmul.fused_qact_matmul,
-                   upsample.upsample_trilinear3d, groupnorm.group_norm)
+                   upsample.upsample_trilinear3d, groupnorm.group_norm,
+                   window_attention.window_attention)
 REFERENCES = Kernels(qconv3d.qconv3x3_int8_ndhwc_reference,
                      stem.stem_s2d_conv_reference,
                      qmatmul.fused_int8_matmul_reference,
                      qmatmul.fused_qact_matmul_reference,
                      upsample.upsample_trilinear3d_reference,
-                     groupnorm.group_norm_reference)
+                     groupnorm.group_norm_reference,
+                     window_attention.window_attention_reference)
 # (owner, attribute) of every count the wrappers keep: each launch, K1's
-# prologue quantizations and overlapped launches, and the elements the
-# GroupNorm nodes normalize
+# prologue quantizations and overlapped launches, the elements the
+# GroupNorm and LayerNorm nodes normalize, and the (sample, window, head)
+# attentions of the window-attention nodes
 COUNTERS = tuple((fn, "launches") for fn in WRAPPERS) + (
     (qconv3d.qconv3x3_int8_ndhwc, "prologue_quant_launches"),
     (qconv3d.qconv3x3_int8_ndhwc, "overlapped_launches"),
-    (groupnorm.group_norm, "elements"))
+    (groupnorm.group_norm, "elements"),
+    (_ops.layer_norm, "elements"),
+    (window_attention.window_attention, "window_heads"))

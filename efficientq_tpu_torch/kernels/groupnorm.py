@@ -22,6 +22,12 @@ computes (``nnir.eval_node``), so deployment changes no value.  The kernel
 float64 statistics in another order, and equals the plain version where
 the float64 values do not straddle a float32 rounding boundary.
 
+One channel a group (``num_groups`` = C: InstanceNorm, as SwinUNETR's
+UnetResBlocks have it, with gamma 1 and beta 0 where the norm has no
+affine) takes a statistics pass of its own (``effq_group_norm_ch_launch``)
+for any C up to 1024, powers of two or not; the other calls take powers of
+two, at most 32 groups.
+
 For CUDA tensors ``group_norm`` launches the kernel or raises; for tensors
 on the CPU it takes the plain version.  Each launch adds one to
 ``group_norm.launches``.  ``group_norm.elements`` counts the elements that
@@ -45,6 +51,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's block (csrc/groupnorm.cu): threads, and vectors a thread
 # holds in the statistics pass
 _THREADS, _ITEMS, _GMAX = 256, 8, 32
+_CMAX = 1024  # channels of a one-channel-a-group call
 
 
 def group_norm_reference(x, gamma, beta, num_groups: int, eps: float = 1e-5,
@@ -102,11 +109,15 @@ group_norm.elements = 0
 def _lib():
     from . import build
 
-    fn = build.load("groupnorm.cu").effq_group_norm_launch
+    lib = build.load("groupnorm.cu")
+    fn = lib.effq_group_norm_launch
     fn.argtypes = [_P] * 8 + [_L, _L, _I, _I, ctypes.c_double] + [_I] * 4 \
         + [_P]
     fn.restype = _I
-    return fn
+    ch = lib.effq_group_norm_ch_launch
+    ch.argtypes = [_P] * 8 + [_L, _L, _I, ctypes.c_double] + [_I] * 4 + [_P]
+    ch.restype = _I
+    return fn, ch
 
 
 def _pow2(v: int) -> bool:
@@ -114,12 +125,26 @@ def _pow2(v: int) -> bool:
 
 
 def _plan(shape, num_groups: int):
-    """(vector width, statistics blocks a sample) of a call on NDHWC
-    ``shape``: V channels a thread, the most of 4, 2, 1 that divides the
-    group's channels; a ValueError for a shape the kernel does not take."""
+    """(vector width, statistics blocks a sample, one channel a group) of
+    a call on NDHWC ``shape``: V channels a thread, the most of 4, 2, 1
+    that divides the group's channels (of C, one channel a group); a
+    ValueError for a shape the kernel does not take."""
     n, c = shape[0], shape[-1]
     g = num_groups
-    if not (_pow2(c) and g > 0 and c % g == 0 and _pow2(c // g)):
+    per = 1
+    for s in shape[1:]:
+        per *= int(s)
+    pow2 = _pow2(c) and g > 0 and c % g == 0 and _pow2(c // g)
+    if g == c and not (pow2 and g <= _GMAX):
+        vec = 4 if c % 4 == 0 else (2 if c % 2 == 0 else 1)
+        if c > _CMAX or c // vec > _THREADS:
+            raise ValueError(f"K6 takes at most {_CMAX} channels at one a "
+                             f"group, got {c}")
+        if not 1 <= n <= 65535:
+            raise ValueError(f"K6 takes 1 to 65535 samples, got {n}")
+        rows = _THREADS // (c // vec) * _ITEMS
+        return vec, -(-(per // c) // rows), True
+    if not pow2:
         raise ValueError(f"K6 takes channels and channels a group that are "
                          f"powers of two, got C = {c}, G = {g}")
     if g > _GMAX:
@@ -131,11 +156,8 @@ def _plan(shape, num_groups: int):
     if c > _THREADS * vec:
         raise ValueError(f"K6 takes at most {_THREADS * vec} channels at "
                          f"{c // g} a group, got {c}")
-    per = 1
-    for s in shape[1:]:
-        per *= int(s)
     span = _THREADS * vec * _ITEMS
-    return vec, -(-per // span)
+    return vec, -(-per // span), False
 
 
 def _launch(x, gamma, beta, g, eps, relu, quant_alpha, qlvl):
@@ -146,7 +168,7 @@ def _launch(x, gamma, beta, g, eps, relu, quant_alpha, qlvl):
                          f"got {x.dtype} {tuple(x.shape)}")
     x = x.contiguous()
     n, c = x.shape[0], x.shape[-1]
-    vec, blocks = _plan(tuple(x.shape), g)
+    vec, blocks, per_channel = _plan(tuple(x.shape), g)
     per = x[0].numel()
     if x.data_ptr() % (vec * x.element_size()):
         x = x.clone()
@@ -169,12 +191,14 @@ def _launch(x, gamma, beta, g, eps, relu, quant_alpha, qlvl):
     scale = torch.empty((n, c), **f32)
     if x.numel() == 0:
         return out
-    rc = on_device(x.get_device(), _lib(), x.data_ptr(), out.data_ptr(),
-                    gamma.data_ptr(), beta.data_ptr(),
-                    None if alpha is None else alpha.data_ptr(),
-                    part.data_ptr(), mean.data_ptr(), scale.data_ptr(), n,
-                    per, c, g, eps, int(relu), qlvl,
-                    int(x.dtype == torch.bfloat16), vec)
+    ptrs = (x.data_ptr(), out.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            None if alpha is None else alpha.data_ptr(), part.data_ptr(),
+            mean.data_ptr(), scale.data_ptr(), n, per)
+    flags = (int(relu), qlvl, int(x.dtype == torch.bfloat16), vec)
+    if per_channel:
+        rc = on_device(x.get_device(), _lib()[1], *ptrs, c, eps, *flags)
+    else:
+        rc = on_device(x.get_device(), _lib()[0], *ptrs, c, g, eps, *flags)
     if rc != 0:
         raise RuntimeError(f"K6 launch failed: cudaError_t {rc} (x {x.dtype} "
                            f"{tuple(x.shape)}, groups {g}, vec {vec}, codes "

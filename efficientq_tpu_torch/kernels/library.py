@@ -1,4 +1,4 @@
-"""K1-K6 as registered operators (``torch.library.custom_op``), so that an
+"""K1-K7 as registered operators (``torch.library.custom_op``), so that an
 exported program (``torch.export``, ``export.py``) can carry them.
 
     effq::qconv3x3_int8         K1, kernels/qconv3d.py
@@ -7,6 +7,7 @@ exported program (``torch.export``, ``export.py``) can carry them.
     effq::fused_qact_matmul     K4, kernels/qmatmul.py
     effq::upsample_trilinear3d  K5, kernels/upsample.py
     effq::group_norm            K6, kernels/groupnorm.py
+    effq::window_attention      K7, kernels/window_attention.py
 
 Each op's CUDA implementation is its kernel's wrapper (which counts the
 launch) and its CPU implementation the plain PyTorch version; a fake
@@ -25,7 +26,8 @@ from typing import List, Optional, Tuple
 import torch
 from torch import Tensor
 
-from . import Kernels, groupnorm, qconv3d, qmatmul, stem, upsample
+from . import (Kernels, groupnorm, qconv3d, qmatmul, stem, upsample,
+               window_attention as wattn)
 
 _F32 = torch.float32
 
@@ -45,7 +47,7 @@ def _scalar(v, like: Tensor) -> Tensor:
 
 def _k1_args(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation,
              residual, quant_alpha, quant_qlvl, x_quantized, residual_relu,
-             pool, out_bf16):
+             pool, out_bf16, act_k):
     """The K1 wrapper's keyword arguments from the operator's."""
     return dict(x=x, w_codes=w_codes, bias=bias, alpha_act=alpha_act,
                 scale=scale, qlvl_act=qlvl_act, dilation=dilation,
@@ -53,7 +55,7 @@ def _k1_args(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation,
                 quant_alpha=quant_alpha if quant_qlvl else None,
                 quant_qlvl=quant_qlvl, x_quantized=x_quantized,
                 residual_relu=residual_relu, pool=pool,
-                out_dtype=_dtype(out_bf16))
+                out_dtype=_dtype(out_bf16), act_k=act_k)
 
 
 def _k1_out(res, pool: bool, y_like: Tensor):
@@ -69,31 +71,31 @@ def _qconv3x3_int8(x: Tensor, w_codes: Tensor, bias: Optional[Tensor],
                    dilation: int, residual: Optional[Tensor],
                    quant_alpha: Tensor, quant_qlvl: int, x_quantized: bool,
                    residual_relu: bool, pool: bool,
-                   w_packed: Optional[Tensor], out_bf16: bool
-                   ) -> Tuple[Tensor, Tensor]:
+                   w_packed: Optional[Tensor], out_bf16: bool,
+                   act_k: int = 0) -> Tuple[Tensor, Tensor]:
     res = qconv3d.qconv3x3_int8_ndhwc(
         w_packed=w_packed,
         **_k1_args(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation,
                    residual, quant_alpha, quant_qlvl, x_quantized,
-                   residual_relu, pool, out_bf16))
+                   residual_relu, pool, out_bf16, act_k))
     return _k1_out(res, pool, x)
 
 
 @_qconv3x3_int8.register_kernel("cpu")
 def _(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation, residual,
       quant_alpha, quant_qlvl, x_quantized, residual_relu, pool, w_packed,
-      out_bf16):
+      out_bf16, act_k=0):
     res = qconv3d.qconv3x3_int8_ndhwc_reference(
         **_k1_args(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation,
                    residual, quant_alpha, quant_qlvl, x_quantized,
-                   residual_relu, pool, out_bf16))
+                   residual_relu, pool, out_bf16, act_k))
     return _k1_out(res, pool, x)
 
 
 @_qconv3x3_int8.register_fake
 def _(x, w_codes, bias, alpha_act, scale, qlvl_act, dilation, residual,
       quant_alpha, quant_qlvl, x_quantized, residual_relu, pool, w_packed,
-      out_bf16):
+      out_bf16, act_k=0):
     n, d, h, w, _ = x.shape
     o = w_codes.shape[-1]
     dt = torch.int8 if quant_qlvl else _dtype(out_bf16)
@@ -108,15 +110,15 @@ def qconv3x3_int8(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
                   dilation: int = 1, residual=None, quant_alpha=None,
                   quant_qlvl: int = 0, x_quantized: bool = False,
                   residual_relu: bool = False, pool: bool = False,
-                  w_packed=None, out_dtype=torch.float32):
+                  w_packed=None, out_dtype=torch.float32, act_k: int = 0):
     """``effq::qconv3x3_int8`` with the K1 wrapper's signature (``OPS``'s
-    ``conv3x3_int8``)."""
+    ``conv3x3_int8``; the unsigned grid of the quant epilogue)."""
     y, pooled = torch.ops.effq.qconv3x3_int8(
         x, w_codes, bias, _scalar(alpha_act, x), _scalar(scale, x),
         int(qlvl_act), int(dilation), residual,
         _scalar(quant_alpha if quant_qlvl else 0.0, x), int(quant_qlvl),
         bool(x_quantized), bool(residual_relu), bool(pool), w_packed,
-        out_dtype == torch.bfloat16)
+        out_dtype == torch.bfloat16, int(act_k))
     return (y, pooled) if pool else y
 
 
@@ -163,28 +165,28 @@ def stem_s2d_conv(x, parities, w_even, w_odd, bias, alpha_next,
                          device_types="cuda")
 def _fused_int8_matmul(x: Tensor, w_codes: Tensor, bias: Optional[Tensor],
                        alpha_act: Tensor, scale: Tensor, qlvl_act: int,
-                       w_packed: Optional[Tensor]) -> Tensor:
+                       w_packed: Optional[Tensor], act_k: int = 0) -> Tensor:
     return qmatmul.fused_int8_matmul(x, w_codes, bias, alpha_act, scale,
-                                     qlvl_act, w_packed)
+                                     qlvl_act, w_packed, act_k)
 
 
 @_fused_int8_matmul.register_kernel("cpu")
-def _(x, w_codes, bias, alpha_act, scale, qlvl_act, w_packed):
+def _(x, w_codes, bias, alpha_act, scale, qlvl_act, w_packed, act_k=0):
     return qmatmul.fused_int8_matmul_reference(x, w_codes, bias, alpha_act,
-                                               scale, qlvl_act)
+                                               scale, qlvl_act, act_k=act_k)
 
 
 @_fused_int8_matmul.register_fake
-def _(x, w_codes, bias, alpha_act, scale, qlvl_act, w_packed):
+def _(x, w_codes, bias, alpha_act, scale, qlvl_act, w_packed, act_k=0):
     return x.new_empty((x.shape[0], w_codes.shape[1]), dtype=_F32)
 
 
 def fused_int8_matmul(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
-                      w_packed=None):
+                      w_packed=None, act_k: int = 0):
     """``effq::fused_int8_matmul`` with the K3 wrapper's signature."""
     return torch.ops.effq.fused_int8_matmul(
         x, w_codes, bias, _scalar(alpha_act, x), _scalar(scale, x),
-        int(qlvl_act), w_packed)
+        int(qlvl_act), w_packed, int(act_k))
 
 
 # K4 -------------------------------------------------------------------
@@ -285,6 +287,37 @@ def group_norm(x, gamma, beta, num_groups: int, eps: float = 1e-5,
         _scalar(quant_alpha if quant_qlvl else 0.0, x), int(quant_qlvl))
 
 
+# K7 -------------------------------------------------------------------
+
+@torch.library.custom_op("effq::window_attention", mutates_args=(),
+                         device_types="cuda")
+def _window_attention(qkv: Tensor, table: Tensor, qkv_bias: Optional[Tensor],
+                      num_heads: int, window: List[int],
+                      shift: List[int]) -> Tensor:
+    return wattn.window_attention(qkv, table, qkv_bias, num_heads, window,
+                                  shift)
+
+
+@_window_attention.register_kernel("cpu")
+def _(qkv, table, qkv_bias, num_heads, window, shift):
+    return wattn.window_attention_reference(qkv, table, qkv_bias, num_heads,
+                                            window, shift)
+
+
+@_window_attention.register_fake
+def _(qkv, table, qkv_bias, num_heads, window, shift):
+    return qkv.new_empty((*qkv.shape[:-1], qkv.shape[-1] // 3),
+                         dtype=_F32)
+
+
+def window_attention(qkv, table, qkv_bias, num_heads: int, window, shift):
+    """``effq::window_attention`` with the K7 wrapper's signature."""
+    return torch.ops.effq.window_attention(
+        qkv, table, qkv_bias, int(num_heads), [int(v) for v in window],
+        [int(v) for v in shift])
+
+
 # the kernel record of an exported program (kernels/__init__.py), op-backed
 OPS = Kernels(qconv3x3_int8, stem_s2d_conv, fused_int8_matmul,
-              fused_qact_matmul, upsample_trilinear3d, group_norm)
+              fused_qact_matmul, upsample_trilinear3d, group_norm,
+              window_attention)

@@ -80,7 +80,8 @@ def qconv3x3_int8_ndhwc_reference(x, w_codes, bias, alpha_act, scale,
                                   x_quantized: bool = False,
                                   residual_relu: bool = False,
                                   pool: bool = False, w_packed=None,
-                                  out_dtype=torch.float32):
+                                  out_dtype=torch.float32, act_k: int = 0,
+                                  quant_k: int = 0):
     """Plain PyTorch K1, on any device, with the wrapper's signature
     (``w_packed`` is ignored).  Op for op the JAX package's act-quant
     prologue and ``_xla_qconv3x3``: the integer conv accumulates exactly in
@@ -89,8 +90,10 @@ def qconv3x3_int8_ndhwc_reference(x, w_codes, bias, alpha_act, scale,
     conversion rounds; scale, bias and the epilogues follow in order, in
     float32: the residual is converted to float32 and added, the quant
     epilogue quantizes that float32 y, otherwise y is rounded to
-    ``out_dtype`` and the pool takes the max of the rounded values."""
-    qa = x if x_quantized else act_codes(x, alpha_act, qlvl_act)
+    ``out_dtype`` and the pool takes the max of the rounded values.  The
+    codes of a float x, and the quant epilogue's, are ``act_codes``' on the
+    offset grid ``act_k`` (``quant_k``) where it is not 0."""
+    qa = x if x_quantized else act_codes(x, alpha_act, qlvl_act, act_k)
     dil = int(dilation)
     f32 = dict(dtype=torch.float32, device=qa.device)
     y = ops.conv3d(qa.to(torch.float64), w_codes.to(torch.float64), None,
@@ -104,6 +107,9 @@ def qconv3x3_int8_ndhwc_reference(x, w_codes, bias, alpha_act, scale,
             r = torch.clamp_min(r, 0.0)
         y = y + r
     if quant_qlvl:
+        if quant_k:
+            return act_codes(y, torch.as_tensor(quant_alpha, **f32),
+                             quant_qlvl, quant_k)
         q = (torch.clamp(y / torch.as_tensor(quant_alpha, **f32), 0.0, 1.0)
              * (quant_qlvl - 1))
         return torch.round(q).to(torch.int8)
@@ -120,7 +126,8 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
                         x_quantized: bool = False,
                         residual_relu: bool = False, pool: bool = False,
                         w_packed: Optional[torch.Tensor] = None,
-                        out_dtype=torch.float32):
+                        out_dtype=torch.float32, act_k: int = 0,
+                        quant_k: int = 0):
     """y = conv3d(int8_codes(x), w_codes) * scale + bias, stride 1,
     padding = dilation, computed in float32 and stored as ``out_dtype``
     (float32 or bfloat16, rounded to nearest even).
@@ -137,7 +144,9 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
     ``quant_alpha``/``quant_qlvl`` emit the next conv's int8 codes of
     relu(y), from the float32 y, instead of y; ``pool`` also returns
     maxpool_2x2x2 of the stored y, as (y, pool).  pool and quant are never
-    combined.
+    combined.  ``act_k`` (``quant_k``): the offset grid's shift of x's codes
+    (of the quant epilogue's), ``act_codes(..., k)``; 0 is the unsigned
+    grid.
     """
     assert not (pool and quant_qlvl), \
         "pool and quant epilogues have different consumers"
@@ -145,16 +154,17 @@ def qconv3x3_int8_ndhwc(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
         return qconv3x3_int8_ndhwc_reference(
             x, w_codes, bias, alpha_act, scale, qlvl_act, dilation, residual,
             quant_alpha, quant_qlvl, x_quantized, residual_relu, pool,
-            out_dtype=out_dtype)
+            out_dtype=out_dtype, act_k=act_k, quant_k=quant_k)
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got "
                          f"{x.device}")
     if w_packed is None:
         w_packed = pack_weights(w_codes)
-    return _launch(x, None if x_quantized else (alpha_act, int(qlvl_act)),
+    return _launch(x, None if x_quantized else (alpha_act, int(qlvl_act),
+                                                int(act_k)),
                    w_packed, w_codes.shape[-1], bias, scale, dilation,
                    residual, residual_relu, quant_alpha, quant_qlvl, pool,
-                   out_dtype)
+                   out_dtype, int(quant_k))
 
 
 qconv3x3_int8_ndhwc.launches = 0
@@ -170,7 +180,7 @@ def _lib():
     from . import build
 
     fn = build.load("qconv3d_int8.cu").qconv3d_int8_launch
-    fn.argtypes = [_P] * 11 + [_I] * 19 + [_P]  # else ints pass as 32-bit
+    fn.argtypes = [_P] * 11 + [_I] * 21 + [_P]  # else ints pass as 32-bit
     fn.restype = _I
     return fn
 
@@ -285,27 +295,30 @@ def _on_card(v, dev) -> torch.Tensor:
 
 
 def _launch(x, x_quant, w_packed, o, bias, scale, dilation, residual,
-            residual_relu, quant_alpha, quant_qlvl, pool, out_dtype):
+            residual_relu, quant_alpha, quant_qlvl, pool, out_dtype,
+            quant_k=0):
     """K1 on the card: ``x`` int8 codes (``x_quant`` None), or float32 /
     bfloat16 activations that K1's pass quantizes with ``x_quant`` =
-    (alpha, levels) into a scratch tensor of codes first."""
+    (alpha, levels, offset-grid shift) into a scratch tensor of codes
+    first."""
     dev = x.device
     x = _aligned(x.contiguous(), 16)
     n, d, h, w, c = x.shape
     if x_quant is None and (x.dtype != torch.int8 or x.numel() == 0):
         raise ValueError(f"K1 needs non-empty int8 codes, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    x_alpha, x_qlvl = None, 0
+    x_alpha, x_qlvl, x_k = None, 0, 0
     if x_quant is not None:
         if x.dtype not in _FLOAT_OUT or x.numel() == 0:
             raise ValueError(f"K1 quantizes a non-empty float32 or bfloat16 "
                              f"input, got {x.dtype} {tuple(x.shape)}")
         x_alpha = _on_card(x_quant[0], dev).reshape(-1).contiguous()
-        x_qlvl = x_quant[1]
-        if x_alpha.numel() != 1 or x_qlvl < 2:
-            raise ValueError(f"K1's input quantizer takes one alpha and 2 or "
-                             f"more levels, got {x_alpha.numel()} alphas and "
-                             f"{x_qlvl} levels")
+        x_qlvl, x_k = x_quant[1], x_quant[2]
+        if x_alpha.numel() != 1 or x_qlvl < 2 or not 0 <= x_k < x_qlvl:
+            raise ValueError(f"K1's input quantizer takes one alpha, 2 or "
+                             f"more levels and a shift below them, got "
+                             f"{x_alpha.numel()} alphas, {x_qlvl} levels, "
+                             f"shift {x_k}")
     if (w_packed.dtype != torch.int8 or w_packed.device != dev
             or tuple(w_packed.shape) != (27, o, -(-c // _CK) * _CK)
             or not w_packed.is_contiguous()):
@@ -356,7 +369,8 @@ def _launch(x, x_quant, w_packed, o, bias, scale, dilation, residual,
                     int(res is not None and res.dtype == torch.bfloat16),
                     int(out_dtype == torch.bfloat16),
                     int(scale_v.numel() > 1), *plan.brick[:2], *plan.grid,
-                    plan.sums, torch.cuda.current_stream(dev).cuda_stream)
+                    plan.sums, x_k, quant_k,
+                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
     qconv3x3_int8_ndhwc.launches += 1

@@ -50,14 +50,16 @@ _X_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def fused_int8_matmul_reference(x, w_codes, bias, alpha_act, scale,
-                                qlvl_act: int, w_packed=None):
-    """Plain K3: ``act_codes`` of x, an exact integer matmul in the float
-    type that ``nnir.int_conv_dtype`` picks for codes of at most 127, then
-    ``* scale`` and ``+ bias`` rounded separately in float32 (the port's
-    int8 1x1 route of ``nnir._eval_conv``).  ``w_packed`` is ignored."""
+                                qlvl_act: int, w_packed=None,
+                                act_k: int = 0):
+    """Plain K3: ``act_codes`` of x (on the offset grid ``act_k`` where it
+    is not 0), an exact integer matmul in the float type that
+    ``nnir.int_conv_dtype`` picks for codes of at most 127, then ``*
+    scale`` and ``+ bias`` rounded separately in float32 (the port's int8
+    1x1 route of ``nnir._eval_conv``).  ``w_packed`` is ignored."""
     from ..nnir import int_conv_dtype
 
-    qa = act_codes(x, alpha_act, qlvl_act)
+    qa = act_codes(x, alpha_act, qlvl_act, act_k)
     dt = int_conv_dtype(1, w_codes.shape[0], qlvl_act, 128)
     with ops.exact_f32():
         y = torch.matmul(qa.to(dt), w_codes.to(dt)).to(torch.float32)
@@ -66,21 +68,24 @@ def fused_int8_matmul_reference(x, w_codes, bias, alpha_act, scale,
 
 
 def fused_int8_matmul(x, w_codes, bias, alpha_act, scale, qlvl_act: int,
-                      w_packed=None):
+                      w_packed=None, act_k: int = 0):
     """y = (int8_codes(x) @ w_codes) * scale + bias, one kernel.
 
-    x: (M, K) float32 or bfloat16 (codes taken in float32); w_codes: (K, N)
-    int8; scale: () or (N,) float32, alpha_act * alpha_w / ((na-1)(nw-1));
-    bias: (N,) or None; w_packed: ``pack_weights_1x1(w_codes)``, made at
-    deploy time (packed here when None).  Returns (M, N) float32."""
+    x: (M, K) float32 or bfloat16 (codes taken in float32, on the offset
+    grid ``act_k`` where it is not 0); w_codes: (K, N) int8; scale: () or
+    (N,) float32, alpha_act * alpha_w / ((na-1)(nw-1)); bias: (N,) or None;
+    w_packed: ``pack_weights_1x1(w_codes)``, made at deploy time (packed
+    here when None).  Returns (M, N) float32.  One launch for any K: a K
+    whose rows do not fit a block's shared memory at once is walked in
+    chunks inside the kernel (``K3Plan.kc``)."""
     if x.device.type == "cpu":
         return fused_int8_matmul_reference(x, w_codes, bias, alpha_act,
-                                           scale, qlvl_act)
+                                           scale, qlvl_act, act_k=act_k)
     if x.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or (plain) CPU tensors, got "
                          f"{x.device}")
     return _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act,
-                        w_packed)
+                        w_packed, act_k=act_k)
 
 
 fused_int8_matmul.launches = 0
@@ -280,16 +285,19 @@ class K3Plan(NamedTuple):
     grid: Tuple[int, int]   # (persistent blocks per chunk, column chunks)
     threads: int            # per block
     smem: int               # dynamic shared memory per block, bytes
+    kc: int = 0             # K per chunk of a tile's steps; 0: all of K
 
 
-def _k3_smem(k, bm, nc, stages, elt):
+def _k3_smem(k, bm, nc, stages, elt, kc=0):
     """Shared memory of one K3 block, as the launch computes it: the
-    chunk's packed weights and the code tile (rows of Kp + 16 bytes), the
-    ring of raw x slices (rows of Kp elements + 16 bytes), scale and
-    bias."""
+    column chunk's packed weights (rows of Kp + 16 bytes), the code tile
+    (rows of kc + 16 bytes), the ring of raw x slices (rows of kc elements
+    + 16 bytes), scale and bias; ``kc`` 0 is all of Kp."""
     kp = -(-k // _K3_BK) * _K3_BK
-    raw = -(-(bm * (kp * elt + 16)) // 128) * 128
-    return -(-((nc + bm) * (kp + 16)) // 128) * 128 + stages * raw + 8 * nc
+    kc = kc or kp
+    raw = -(-(bm * (kc * elt + 16)) // 128) * 128
+    return (-(-(nc * (kp + 16) + bm * (kc + 16)) // 128) * 128
+            + stages * raw + 8 * nc)
 
 
 # K3's cost model (_k3_candidates), in ns and bytes/ns, set by hand from
@@ -300,15 +308,15 @@ def _k3_smem(k, bm, nc, stages, elt):
 _K3_SM_RATE, _K3_TILE_NS, _K3_BLOCK_NS, _K3_W_RATE = 15.0, 2500.0, 1000.0, 25.0
 
 
-def _k3_candidates(m, k, n, bf16):
-    """Every tiling K3 takes for one call, as ((work, column chunks, -rows,
-    -mt, stages), K3Plan) pairs: the 8 warps as wm x wn, a warp's mt x nt
-    mma tiles (at most 8), nc = 8 wn nt up to 256 and, with nt > 1, less
-    than twice N (rounded up to 8), a ring of 2-4 raw slices, shared
-    memory within a block (up to three blocks an SM).  Work is the busiest
-    block's time: its tiles, each the longer of its bytes at the SM's rate
-    (shared by the blocks on the SM) and the least tile time; plus its
-    fixed time and weights."""
+def _k3_candidates(m, k, n, bf16, kc=0):
+    """Every tiling K3 takes for one call with chunks of ``kc`` (0: all
+    of K), as ((work, column chunks, -rows, -mt, stages), K3Plan) pairs:
+    the 8 warps as wm x wn, a warp's mt x nt mma tiles (at most 8), nc = 8
+    wn nt up to 256 and, with nt > 1, less than twice N (rounded up to 8),
+    a ring of 2-4 raw slices, shared memory within a block (up to three
+    blocks an SM).  Work is the busiest block's time: its tiles, each the
+    longer of its bytes at the SM's rate (shared by the blocks on the SM)
+    and the least tile time; plus its fixed time and weights."""
     elt = 2 if bf16 else 4
     kp = -(-k // _K3_BK) * _K3_BK
     n8 = -(-n // 8) * 8
@@ -324,7 +332,7 @@ def _k3_candidates(m, k, n, bf16):
                 if mt * nt > 8:
                     continue
                 for stages in (2, 3, 4):
-                    smem = _k3_smem(k, bm, nc, stages, elt)
+                    smem = _k3_smem(k, bm, nc, stages, elt, kc)
                     if smem > SMEM_BLOCK:
                         continue
                     tiles = -(-m // bm)
@@ -338,7 +346,12 @@ def _k3_candidates(m, k, n, bf16):
                             + -(-tiles // gx) * tile)
                     yield ((work, chunks, -bm, -mt, stages),
                            K3Plan(bm, nc, mt, nt, wn, stages, (gx, chunks),
-                                  32 * _K3_WARPS, smem))
+                                  32 * _K3_WARPS, smem, kc))
+
+
+# the chunks of K that a plan tries, largest first, where a block's rows
+# of all of K do not fit its shared memory
+_K3_CHUNKS = (1024, 512, 256, 128, 64, 32)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -348,32 +361,41 @@ def _k3_plan(m, k, n, bf16) -> K3Plan:
     column chunks (x read fewer times), larger tiles, taller warp tiles
     (measured faster at every B = 8 shape) and fewer raw slices.
     ``grid[0]`` is as many blocks per chunk as the SMs hold at once
-    (persistent blocks), at most one per tile.  Raises when even the
-    smallest tile does not fit a block."""
-    best = min(_k3_candidates(m, k, n, bf16), key=lambda c: c[0],
-               default=None)
-    if best is None:
-        raise ValueError(f"K3 keeps a block's weights and x rows in shared "
-                         f"memory: K = {k} does not fit")
-    return best[1]
+    (persistent blocks), at most one per tile.  All of K at once where
+    some tiling fits a block, else the largest chunk of ``_K3_CHUNKS``
+    that does.  Raises when a block cannot hold the weights of all of K
+    for 8 columns."""
+    kp = -(-k // _K3_BK) * _K3_BK
+    for kc in (0, *(c for c in _K3_CHUNKS if c < kp)):
+        best = min(_k3_candidates(m, k, n, bf16, kc), key=lambda c: c[0],
+                   default=None)
+        if best is not None:
+            return best[1]
+    raise ValueError(f"K3 keeps a block's weights in shared memory: K = "
+                     f"{k} does not fit")
 
 
 class _K3Call(ctypes.Structure):
     """One K3 call's shape and plan, laid out as ``K3Call`` of
     ``csrc/qmatmul_int8.cu``."""
     _fields_ = [(f, _I) for f in ("M", "K", "N", "qlvl", "x_bf16", "bm",
-                                  "nc", "mt", "nt", "wn", "stages", "grid_x")]
+                                  "nc", "mt", "nt", "wn", "stages", "grid_x",
+                                  "act_k", "kc")]
 
 
 @functools.lru_cache(maxsize=1024)
-def _k3_call(m, k, n, bf16, qlvl, plan=None):
-    """The launch's ``_K3Call``: the shape, qlvl, x_bf16 and ``plan`` (by
-    default ``_k3_plan``'s)."""
-    if not 2 <= qlvl <= 128:
+def _k3_call(m, k, n, bf16, qlvl, plan=None, act_k=0):
+    """The launch's ``_K3Call``: the shape, qlvl, x_bf16, ``plan`` (by
+    default ``_k3_plan``'s, its chunk of K included) and the offset grid's
+    shift ``act_k``."""
+    if not act_k and not 2 <= qlvl <= 128:
         raise ValueError(f"qlvl_act {qlvl}: int8 codes need 2..128")
+    if not (2 <= qlvl and 0 <= act_k <= 128 and qlvl - 1 - act_k <= 127):
+        raise ValueError(f"qlvl_act {qlvl}, act_k {act_k}: offset codes "
+                         f"-act_k..qlvl-1-act_k need -128..127")
     p = plan or _k3_plan(m, k, n, bf16)
     return _K3Call(m, k, n, qlvl, int(bf16), p.bm, p.nc, p.mt, p.nt, p.wn,
-                   p.stages, p.grid[0])
+                   p.stages, p.grid[0], act_k, p.kc)
 
 
 @functools.lru_cache(maxsize=None)
@@ -407,7 +429,7 @@ def _scale(scale, n, like):
 
 
 def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act,
-                 w_packed=None, plan=None):
+                 w_packed=None, plan=None, act_k=0):
     """K3 on the card, with ``plan`` (by default ``_k3_plan``'s).  Lean on
     the host: device indices, not device objects; the shape and plan
     passed as one cached struct; the weights packed at deploy time; alpha,
@@ -437,7 +459,8 @@ def _launch_int8(x, w_codes, bias, alpha_act, scale, qlvl_act,
     scale_t, scale_v, scale_stride = _scale(scale, n, x)
     bias_v = vector_arg(bias, n, x, "bias")
     alpha, alpha_v = alpha_arg(alpha_act, x)
-    call = _k3_call(m, k, n, x.dtype == torch.bfloat16, int(qlvl_act), plan)
+    call = _k3_call(m, k, n, x.dtype == torch.bfloat16, int(qlvl_act), plan,
+                    int(act_k))
     y = x.new_empty((m, n), dtype=torch.float32)
     rc = on_device(index, _int8_lib(), x.data_ptr(), w_packed.data_ptr(),
                     None if scale_t is None else scale_t.data_ptr(), scale_v,

@@ -4,11 +4,18 @@ Counterpart of the JAX package's ``models/torch_io.py``.  Graph node names
 mirror the reference's torch module paths, so conversion is mechanical:
 
 - conv node ``X``  <->  ``X.weight`` (OIDHW <-> DHWIO), ``X.bias``,
-  ``X.alpha_w``, ``X.alpha_act``, ``X.act_k`` (an int32 offset-grid shift)
+  ``X.alpha_w``, ``X.alpha_act``, ``X.act_k`` (an int32 offset-grid shift);
+  a ``linear`` conv's weight is nn.Linear's (out, in), a ``transposed``
+  one's ConvTranspose3d's (in, out, f, f, f) (its 1x1 conv to f^3 out
+  channels, channel t out + o for tap t = (a f + b) f + c)
 - bn node ``X``    <->  ``X.weight`` (scale), ``X.bias``, ``X.running_mean``,
   ``X.running_var``
 - group-norm node ``X`` (``group_norm``, or the serving rewrite's
-  ``group_norm_k6``)  <->  ``X.weight`` (scale), ``X.bias``
+  ``group_norm_k6``) and affine layer-norm node ``X``  <->  ``X.weight``
+  (scale), ``X.bias``; a norm without an affine has no keys
+- window-attention node ``X``  <->  ``X.relative_position_bias_table``,
+  and ``X.relative_position_index`` (MONAI's buffer; written on export,
+  checked on load)
 
 ``from_jax_variables`` carries the JAX package's variables (as NumPy
 arrays) over to the port, key for key.
@@ -26,6 +33,35 @@ from ..quant import unpack_int_weight
 
 
 _GROUP_NORMS = ("group_norm", "group_norm_k6")
+
+
+def _affine_norm(node) -> bool:
+    return ((node.op in _GROUP_NORMS or node.op == "layer_norm")
+            and node.attrs.get("affine", True))
+
+
+def _conv_weight_in(node, w: np.ndarray) -> torch.Tensor:
+    """A checkpoint's conv weight as the node's DHWIO kernel."""
+    t = torch.from_numpy(np.array(w, np.float32))
+    if node.attrs.get("linear"):
+        return t.t().reshape(1, 1, 1, *t.t().shape).contiguous()
+    f = node.attrs.get("transposed")
+    if f:
+        cin = t.shape[0]
+        return t.permute(0, 2, 3, 4, 1).reshape(1, 1, 1, cin, -1).contiguous()
+    return t.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def _conv_weight_out(node, kernel: np.ndarray) -> np.ndarray:
+    """The node's DHWIO kernel as a checkpoint holds it."""
+    if node.attrs.get("linear"):
+        return np.ascontiguousarray(kernel.reshape(kernel.shape[-2:]).T)
+    f = node.attrs.get("transposed")
+    if f:
+        cin, c8 = kernel.shape[-2:]
+        w = kernel.reshape(cin, f, f, f, c8 // f ** 3)
+        return np.ascontiguousarray(np.transpose(w, (0, 4, 1, 2, 3)))
+    return np.transpose(kernel, (4, 3, 0, 1, 2))
 
 
 def _to_np(v):
@@ -76,7 +112,7 @@ def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
         if node.op == "conv":
             w = take(f"{node.name}.weight")
             if w is not None:
-                params[node.name]["kernel"] = w.permute(2, 3, 4, 1, 0).contiguous()
+                params[node.name]["kernel"] = _conv_weight_in(node, w.numpy())
             if "bias" in params[node.name]:
                 b = take(f"{node.name}.bias")
                 if b is not None:
@@ -93,7 +129,16 @@ def load_torch_state_dict(graph: Graph, variables, state_dict: Mapping,
                 params[node.name]["act_k"] = torch.tensor(
                     int(np.asarray(sd[f"{node.name}.act_k"]).reshape(())),
                     dtype=torch.int32)
-        elif node.op in ("bn",) + _GROUP_NORMS:
+        elif node.op == "window_attention":
+            t = take(f"{node.name}.relative_position_bias_table")
+            if t is not None:
+                params[node.name]["relative_position_bias_table"] = t
+            key = f"{node.name}.relative_position_index"
+            if key in sd and not np.array_equal(
+                    sd[key], _position_index(node)):
+                raise ValueError(f"{key} is not MONAI's index of window "
+                                 f"{node.attrs['window']}")
+        elif node.op == "bn" or _affine_norm(node):
             for ours, theirs in (("scale", "weight"), ("bias", "bias")):
                 v = take(f"{node.name}.{theirs}")
                 if v is not None:
@@ -189,6 +234,12 @@ def load_int8_checkpoint(graph: Graph, variables, path: str):
     return load_torch_state_dict(graph, variables, sd)
 
 
+def _position_index(node) -> np.ndarray:
+    from ..kernels.window_attention import relative_position_index
+
+    return relative_position_index(node.attrs["window"]).numpy()
+
+
 def to_torch_state_dict(graph: Graph, variables) -> Dict[str, np.ndarray]:
     """Export variables as a torch-style flat NumPy state dict."""
     out: Dict[str, np.ndarray] = {}
@@ -197,12 +248,17 @@ def to_torch_state_dict(graph: Graph, variables) -> Dict[str, np.ndarray]:
     for node in graph.nodes:
         if node.op == "conv":
             p = params[node.name]
-            out[f"{node.name}.weight"] = np.transpose(_to_np(p["kernel"]),
-                                                      (4, 3, 0, 1, 2))
+            out[f"{node.name}.weight"] = _conv_weight_out(
+                node, _to_np(p["kernel"]))
             for k in ("bias", "alpha_w", "alpha_act", "act_k"):
                 if k in p:
                     out[f"{node.name}.{k}"] = _to_np(p[k])
-        elif node.op in _GROUP_NORMS:
+        elif node.op == "window_attention":
+            out[f"{node.name}.relative_position_bias_table"] = _to_np(
+                params[node.name]["relative_position_bias_table"])
+            out[f"{node.name}.relative_position_index"] = _position_index(
+                node)
+        elif _affine_norm(node):
             p = params[node.name]
             out[f"{node.name}.weight"] = _to_np(p["scale"])
             out[f"{node.name}.bias"] = _to_np(p["bias"])

@@ -56,6 +56,8 @@ from . import ops
 from .kernels import WRAPPERS, Kernels
 from .kernels.groupnorm import group_norm as _k6, group_norm_reference
 from .kernels.qmatmul import qconv1x1_ndhwc
+from .kernels.window_attention import (window_attention as _k7,
+                                       window_count)
 from .quant import (act_codes, fake_quant_act, fake_quant_act_k,
                     fake_quant_weight)
 
@@ -137,12 +139,68 @@ class GraphBuilder:
     def bn(self, name, x, ch, eps=1e-5, momentum=0.1):
         return self.add(name, "bn", [x], ch=ch, eps=eps, momentum=momentum)
 
-    def group_norm(self, name, x, ch, num_groups, eps=1e-5):
+    def group_norm(self, name, x, ch, num_groups, eps=1e-5, affine=True):
         """GroupNorm over ``num_groups`` groups of ``ch`` channels, with a
         per-channel affine (``scale``, ``bias``) and no running
-        statistics."""
+        statistics.  ``affine=False`` (InstanceNorm's default): the
+        variables still hold scale 1 and bias 0, which no checkpoint
+        carries."""
         return self.add(name, "group_norm", [x], ch=ch,
-                        num_groups=int(num_groups), eps=float(eps))
+                        num_groups=int(num_groups), eps=float(eps),
+                        affine=bool(affine))
+
+    def linear(self, name, x, in_ch, out_ch, bias=True,
+               qcfg: Optional[QCfg] = None):
+        """A linear layer over the channels: a 1x1x1 conv whose weight a
+        checkpoint holds as nn.Linear's (out, in) (``torch_io``)."""
+        return self.add(name, "conv", [x], in_ch=in_ch, out_ch=out_ch,
+                        kernel_size=(1, 1, 1), stride=(1, 1, 1),
+                        padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                        bias=bias, qcfg=qcfg, linear=True)
+
+    def layer_norm(self, name, x, ch, eps=1e-5, affine=True):
+        """LayerNorm over the ``ch`` channels of each voxel, with a
+        per-channel affine (``scale``, ``bias``) unless ``affine`` is
+        False."""
+        return self.add(name, "layer_norm", [x], ch=ch, eps=float(eps),
+                        affine=bool(affine))
+
+    def leaky_relu(self, name, x, slope=0.01):
+        return self.add(name, "leaky_relu", [x], slope=float(slope))
+
+    def gelu(self, name, x):
+        """The exact (erf) GELU."""
+        return self.add(name, "gelu", [x])
+
+    def concat(self, name, xs):
+        """The inputs joined along the channels, in order."""
+        return self.add(name, "concat", list(xs))
+
+    def depth_to_space(self, name, x, factor=2):
+        """(N, D, H, W, f^3 C) -> (N, fD, fH, fW, C): channel t C + o of
+        voxel (z, y, x) goes to voxel (f z + a, f y + b, f x + c), t = (a f
+        + b) f + c (a transposed conv of kernel f and stride f, after its
+        1x1 conv to f^3 C)."""
+        return self.add(name, "depth_to_space", [x], factor=int(factor))
+
+    def window_attention(self, name, qkv, ch, num_heads, window, shift,
+                         qkv_node):
+        """Window self-attention (``kernels/window_attention.py``) of the
+        qkv linear ``qkv_node``'s output: ``ch`` channels of ``num_heads``
+        heads, the configured ``window`` and ``shift`` triples; the
+        variables hold ``relative_position_bias_table``.  A padded token's
+        key and value are ``qkv_node``'s bias."""
+        return self.add(name, "window_attention", [qkv], ch=ch,
+                        num_heads=int(num_heads), window=ops.triple(window),
+                        shift=ops.triple(shift), qkv_node=qkv_node)
+
+    def patch_merge(self, name, x):
+        """MONAI's v0.9 ``PatchMerging`` gather: odd extents padded with
+        zeros, then the eight 2x2x2 sub-grids joined along the channels in
+        its source's order (x0 ... x7: offsets (0,0,0), (1,0,0), (0,1,0),
+        (0,0,1), (1,0,1), (0,1,0), (0,0,1), (1,1,1)), (N, D, H, W, C) ->
+        (N, D/2, H/2, W/2, 8C)."""
+        return self.add(name, "patch_merge", [x])
 
     def relu(self, name, x):
         return self.add(name, "relu", [x])
@@ -207,10 +265,18 @@ def init(graph: Graph, seed: int = 0, device="cuda"):
                                  "bias": torch.zeros(ch, **f32)}
             state[node.name] = {"mean": torch.zeros(ch, **f32),
                                 "var": torch.ones(ch, **f32)}
-        elif node.op == "group_norm":
+        elif node.op == "group_norm" or (node.op == "layer_norm"
+                                         and node.attrs["affine"]):
             ch = node.attrs["ch"]
             params[node.name] = {"scale": torch.ones(ch, **f32),
                                  "bias": torch.zeros(ch, **f32)}
+        elif node.op == "window_attention":
+            w = node.attrs["window"]
+            rows = (2 * w[0] - 1) * (2 * w[1] - 1) * (2 * w[2] - 1)
+            params[node.name] = {"relative_position_bias_table":
+                                 torch.as_tensor(0.02 * rng.standard_normal(
+                                     (rows, node.attrs["num_heads"])),
+                                     **f32)}
     return {"params": params, "state": state}
 
 
@@ -282,7 +348,7 @@ def _eval_conv(node: Node, params, ins, mode: str, kernels: Kernels,
             residual_relu=bool(a.get("residual_relu")),
             pool=bool(a.get("epilogue_pool")),
             w_packed=p.get("kernel_packed"),
-            out_dtype=compute_dtype or torch.float32)
+            out_dtype=compute_dtype or torch.float32, **_act_k(a))
     if a.get("int8") and mode in QUANT_MODES:
         # integer path of ptq/deploy.py: int8 codes in, exact integer conv,
         # float32 scale epilogue (float32 at any compute dtype, as in the
@@ -307,6 +373,13 @@ def _eval_conv(node: Node, params, ins, mode: str, kernels: Kernels,
         return y if bias is None else y + bias.to(compute_dtype)
     return ops.conv3d(x, kernel, bias, a["stride"], a["padding"],
                       a["dilation"], a["groups"])
+
+
+def _act_k(a) -> Dict[str, int]:
+    """The offset-grid keyword of a flagged conv's kernel call: {} on the
+    unsigned grid, so a kernel record entry without it still serves
+    every other graph."""
+    return {"act_k": a["act_k"]} if a.get("act_k") else {}
 
 
 def _quantize_operands(x, p, a, mode: str):
@@ -346,7 +419,8 @@ def _eval_fused_1x1(node: Node, p, x, mode: str, kernels: Kernels):
         n, d, h, w, c = x.shape
         y = kernels.int8_matmul(
             x.reshape(-1, c), p["kernel_int8"].reshape(c, -1), p.get("bias"),
-            p["alpha_act"], p["scale"], qcfg.qlvl_act, p.get("kernel_packed"))
+            p["alpha_act"], p["scale"], qcfg.qlvl_act, p.get("kernel_packed"),
+            **_act_k(a))
         return y.reshape(n, d, h, w, -1)
     kernel = p["kernel"]
     if mode == "fq" and qcfg.q_weight:
@@ -376,10 +450,13 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
     by default the wrappers) runs the flagged nodes: the int8 3^3 convs
     (K1), the s2d stem (K2), the int8 1x1 convs (K3), the fake-quant 1x1
     convs (K4), the serving upsamples (K5, the ``upsample_k5`` nodes of
-    ``ptq.deploy.upsample_serving``) and the serving GroupNorms (K6, the
-    ``group_norm_k6`` nodes of ``ptq.deploy.group_norm_serving``).  Every
-    GroupNorm node, either kind, adds the elements it normalizes to
-    ``group_norm.elements`` of ``kernels/groupnorm.py``."""
+    ``ptq.deploy.upsample_serving``), the serving GroupNorms (K6, the
+    ``group_norm_k6`` nodes of ``ptq.deploy.group_norm_serving``) and every
+    window attention (K7).  Every GroupNorm node, either kind, adds the
+    elements it normalizes to ``group_norm.elements`` of
+    ``kernels/groupnorm.py``, every LayerNorm node to
+    ``ops.layer_norm.elements``, every window attention its (sample,
+    window, head) count to ``window_attention.window_heads``."""
     kernels = kernels or WRAPPERS
     if node.op == "conv":
         return _eval_conv(node, params, ins, mode, kernels, compute_dtype)
@@ -410,8 +487,31 @@ def eval_node(node: Node, params: Dict[str, Any], state: Dict[str, Any],
                               s["var"], node.attrs["eps"])
     if node.op in ("group_norm", "group_norm_k6"):
         return _eval_group_norm(node, params, ins[0], kernels)
+    if node.op == "layer_norm":
+        p = params.get(node.name, {})
+        return ops.layer_norm(ins[0], p.get("scale"), p.get("bias"),
+                              node.attrs["eps"])
+    if node.op == "window_attention":
+        a = node.attrs
+        x = ins[0]
+        _k7.window_heads += x.shape[0] * a["num_heads"] * window_count(
+            x.shape[1:4], a["window"], a["shift"])
+        return kernels.window_attention(
+            x, params[node.name]["relative_position_bias_table"],
+            params[a["qkv_node"]].get("bias"), a["num_heads"], a["window"],
+            a["shift"])
     if node.op == "relu":
         return ops.relu(ins[0])
+    if node.op == "leaky_relu":
+        return torch.nn.functional.leaky_relu(ins[0], node.attrs["slope"])
+    if node.op == "gelu":
+        return torch.nn.functional.gelu(ins[0])
+    if node.op == "concat":
+        return torch.cat(ins, dim=-1)
+    if node.op == "depth_to_space":
+        return ops.depth_to_space(ins[0], node.attrs["factor"])
+    if node.op == "patch_merge":
+        return ops.patch_merge(ins[0])
     if node.op == "maxpool":
         return ops.max_pool3d(ins[0], node.attrs["kernel"],
                               node.attrs["stride"])

@@ -194,3 +194,53 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     at a tie).  The zero is a 0-d CPU tensor, a scalar to a CUDA op, so no
     fill is launched."""
     return torch.maximum(x, torch.zeros((), dtype=x.dtype))
+
+
+def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], eps: float = 1e-5):
+    """LayerNorm over the channels of each voxel, in float32 with K6's
+    arithmetic: float64 statistics (the mean and the biased variance)
+    rounded once to float32, as the mean and the channel scales gamma /
+    sqrt(var + eps) (1 / sqrt(var + eps) without an affine), then ((x -
+    mean) * a) + beta step by step in float32.  Adds the elements it
+    normalizes to ``layer_norm.elements``."""
+    layer_norm.elements += x.numel()
+    xd = x.to(torch.float64)
+    var, mean = torch.var_mean(xd, dim=-1, correction=0, keepdim=True)
+    rstd = torch.reciprocal(torch.sqrt(var + eps))
+    a = (rstd if scale is None else scale.to(torch.float64) * rstd).to(
+        torch.float32)
+    y = (x.to(torch.float32) - mean.to(torch.float32)) * a
+    return y if bias is None else y + bias.to(torch.float32)
+
+
+layer_norm.elements = 0
+
+
+def depth_to_space(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """(N, D, H, W, f^3 C) -> (N, fD, fH, fW, C): channel t C + o of voxel
+    (z, y, x) to voxel (f z + a, f y + b, f x + c), t = (a f + b) f + c."""
+    n, d, h, w, c = x.shape
+    f = int(factor)
+    o = c // f ** 3
+    y = x.reshape(n, d, h, w, f, f, f, o).permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return y.reshape(n, d * f, h * f, w * f, o)
+
+
+# MONAI's v0.9 PatchMerging sub-grids, x0 ... x7 in its source's order:
+# (d, h, w) offsets, (0, 1, 0) and (0, 0, 1) twice and (1, 1, 0), (0, 1,
+# 1) never
+PATCH_MERGE_OFFSETS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1),
+                       (1, 0, 1), (0, 1, 0), (0, 0, 1), (1, 1, 1))
+
+
+def patch_merge(x: torch.Tensor) -> torch.Tensor:
+    """MONAI's v0.9 ``PatchMerging`` gather of (N, D, H, W, C): odd extents
+    padded with zeros at their end, then the sub-grids of
+    ``PATCH_MERGE_OFFSETS`` joined along the channels: (N, D/2, H/2, W/2,
+    8C)."""
+    d, h, w = x.shape[1:4]
+    if d % 2 or h % 2 or w % 2:
+        x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2, 0, d % 2))
+    return torch.cat([x[:, a::2, b::2, c::2, :]
+                      for a, b, c in PATCH_MERGE_OFFSETS], dim=-1)

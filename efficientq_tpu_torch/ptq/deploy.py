@@ -21,8 +21,10 @@ K2), which the s2d path applies (``--serve_stem s2d``), and
 ``upsample_serving`` (every upsample on K5, the TransUp skip add fused in)
 and ``group_norm_serving`` (every GroupNorm on K6, with its ReLU and its
 consumer's act-quant fused in), which every serving path applies last,
-together, as ``serving_graph``.  ``serving_rewrites`` chooses them for
-every serving path (``eval/validate.py::_build_infer``,
+together, as ``serving_graph``, after ``swin_serving`` (a SwinUNETR
+graph's linears, 1^3 and transposed convs on K3 and its offset-grid 3^3
+convs on K1; other graphs come back as they are).  ``serving_rewrites``
+chooses them for every serving path (``eval/validate.py::_build_infer``,
 ``make_s2d_volume_inferencer``, ``export.py``).  Training, QAT and
 calibration graphs keep ``ops.upsample3d`` and the plain GroupNorm.
 """
@@ -104,7 +106,11 @@ def to_int8_inference(graph: Graph, variables,
     out = fuse_int8_epilogues(to_pallas_inference(
         Graph(new_nodes, list(graph.outputs), graph.input_name)))
     for node in out.nodes:
-        if node.attrs.get("pallas"):
+        if node.attrs.get("pallas") or (
+                node.attrs.get("int8") and node.attrs.get("act_k")
+                and nnir._pallas_3x3_int8_eligible(node.attrs)):
+            # K1's layout, also of the offset-grid 3^3 convs that
+            # swin_serving routes to K1
             p = params[node.name]
             p["kernel_packed"] = pack_weights(p["kernel_int8"])
         elif node.attrs.get("int8") and nnir._pallas_1x1_eligible(node.attrs):
@@ -210,6 +216,9 @@ def group_norm_serving(graph: Graph) -> Graph:
       the int8 path;
     - GN -> relu (its one consumer): K6 emits the ReLU'd float (``relu``),
       and the relu node becomes an identity;
+    - a leaky relu in the relu's place goes as the relu does into a
+      conv's codes (the quantizer's clip at 0 takes the leak), and stays
+      a node of its own otherwise;
     - any other GN: K6 emits the float.
 
     The values are those of the graph as it was: K6's plain version is the
@@ -235,17 +244,21 @@ def group_norm_serving(graph: Graph) -> Graph:
             continue
         attrs = dict(n.attrs, relu=False)
         nxt = only_user(n.name)
-        relu = nxt if nxt is not None and nxt.op == "relu" else None
+        relu = (nxt if nxt is not None and nxt.op in ("relu", "leaky_relu")
+                else None)
         conv = only_user(relu.name) if relu is not None else nxt
         src = relu.name if relu is not None else n.name
-        # an int8 conv whose act-quant can take codes (and absorbs a relu)
+        # an int8 conv whose act-quant can take codes (and absorbs a relu,
+        # or a leaky relu: the quantizer's clip at 0 takes the leak too)
         if (conv is not None and _quant_absorbs_relu(conv)
                 and conv.inputs[0] == src and src not in conv.inputs[1:]):
             attrs.update(quant_for=conv.name,
                          quant_qlvl=conv.attrs["qcfg"].qlvl_act)
             attrs_of[conv.name] = dict(conv.attrs, input_quantized=True)
-        elif relu is not None:
+        elif relu is not None and relu.op == "relu":
             attrs["relu"] = True
+        else:
+            relu = None  # a leaky relu K6 cannot take stays a node
         attrs_of[n.name] = attrs
         if relu is not None:
             attrs_of[relu.name] = None  # an identity
@@ -263,10 +276,37 @@ def group_norm_serving(graph: Graph) -> Graph:
     return Graph(new_nodes, list(graph.outputs), graph.input_name)
 
 
+def swin_serving(graph: Graph) -> Graph:
+    """Serving-only rewrite of a SwinUNETR graph (one with window
+    attentions, which run on K7 in every graph): every int8 1^3 conv of
+    stride 1 (its linears, its 1^3 ``conv3`` and transposed convs)
+    flagged for K3, and every int8 3^3 conv of stride 1, offset grid or
+    not, for K1 (``pallas``); the kernels quantize their float inputs on
+    the offset grid ``act_k`` where the conv has one.  The values are
+    those of the int8 path: the kernels' plain versions are its steps.
+    Any other graph comes back as it is (``to_pallas_inference`` keeps
+    UResQ's and SegResNet's offset-grid convs off the kernels, as the JAX
+    package does)."""
+    if not any(n.op == "window_attention" for n in graph.nodes):
+        return graph
+    new_nodes = []
+    for n in graph.nodes:
+        a = n.attrs
+        qcfg = a.get("qcfg")
+        if (n.op == "conv" and a.get("int8") and qcfg is not None
+                and qcfg.q_act and not a.get("pallas")
+                and (nnir._pallas_1x1_eligible(a)
+                     or nnir._pallas_3x3_int8_eligible(a))):
+            n = dataclasses.replace(n, attrs=dict(a, pallas=True))
+        new_nodes.append(n)
+    return Graph(new_nodes, list(graph.outputs), graph.input_name)
+
+
 def serving_graph(graph: Graph) -> Graph:
     """The serving rewrites that every serving path applies last:
-    ``upsample_serving`` (K5) and ``group_norm_serving`` (K6)."""
-    return group_norm_serving(upsample_serving(graph))
+    ``swin_serving`` (K3 and K1 for SwinUNETR), ``upsample_serving`` (K5)
+    and ``group_norm_serving`` (K6)."""
+    return group_norm_serving(upsample_serving(swin_serving(graph)))
 
 
 def s2d_stem_serving(graph: Graph, variables):

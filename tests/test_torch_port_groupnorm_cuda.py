@@ -137,10 +137,15 @@ def test_cuda_k6_refuses_shapes_it_does_not_take(cuda):
     ones = torch.ones(24, device=cuda)
     with pytest.raises(ValueError, match="powers of two"):
         K6.group_norm(x, ones, ones, 8)
-    x = torch.zeros(1, 2, 2, 2, 64, device=cuda)
-    ones = torch.ones(64, device=cuda)
+    # more than 32 groups of two channels (one channel a group, the
+    # InstanceNorm, takes a pass of its own up to 1024 channels)
+    x = torch.zeros(1, 2, 2, 2, 128, device=cuda)
+    ones = torch.ones(128, device=cuda)
     with pytest.raises(ValueError, match="at most 32 groups"):
         K6.group_norm(x, ones, ones, 64)
+    wide = torch.zeros(1, 2, 2, 2, 2048, device=cuda)
+    with pytest.raises(ValueError, match="at most 1024 channels"):
+        K6.group_norm(wide, wide[0, 0, 0, 0] + 1, wide[0, 0, 0, 0], 2048)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K6.group_norm(x.half(), ones, ones, 8)
 

@@ -211,18 +211,32 @@ def test_k3_plan_fills_the_card_and_covers_n(shape, batch, bf16):
 
 
 def test_k3_plan_edges():
-    """Remainder shapes take a plan within a block's shared memory; a K
-    whose rows do not fit raises."""
+    """Remainder shapes take a plan within a block's shared memory, all of
+    K at once; a K whose rows do not fit a block at once is walked in the
+    largest chunk that does (SwinUNETR's 1536 and 3072, and 20000); a K
+    whose weights for 8 columns do not fit raises."""
     plan = K._k3_plan(1, 1, 1, False)
-    assert plan.nc == 8 and plan.grid == (1, 1)
+    assert plan.nc == 8 and plan.grid == (1, 1) and plan.kc == 0
     for m, k, n, bf16 in ((4097, 264, 264, False), (70, 12, 20, True),
                           (700, 512, 3, True)):
         plan = K._k3_plan(m, k, n, bf16)
         assert plan.nc * plan.grid[1] >= n and plan.smem <= 232448
+        assert plan.kc == 0
         assert all(p.smem <= 232448 and p.nc <= 256
                    for _, p in K._k3_candidates(m, k, n, bf16))
-    with pytest.raises(ValueError, match="K = 20000"):
-        K._k3_plan(64, 20000, 8, False)
+    for m, k, n in ((4096, 1536, 384), (512, 3072, 768), (64, 20000, 8)):
+        assert not list(K._k3_candidates(m, k, n, False))
+        plan = K._k3_plan(m, k, n, False)
+        assert plan.kc in K._K3_CHUNKS and plan.kc < k
+        assert plan.smem == K._k3_smem(k, plan.bm, plan.nc, plan.stages, 4,
+                                       plan.kc) <= 232448
+        # the largest chunk that fits
+        bigger = [c for c in K._K3_CHUNKS if plan.kc < c < k]
+        assert not any(list(K._k3_candidates(m, k, n, False, c))
+                       for c in bigger)
+        assert K._k3_call(m, k, n, False, 4, act_k=1).kc == plan.kc
+    with pytest.raises(ValueError, match="K = 30000"):
+        K._k3_plan(64, 30000, 8, False)
 
 
 @pytest.mark.parametrize("k,n", [(12, 20), (32, 64), (40, 3), (256, 128)])
