@@ -290,7 +290,8 @@ Phases, each printed on its own lines:
    TFLOP/s);
    (b) a BraTS study of 155 x 240 x 240 through the main path
    (``validate._build_infer``, captured): 19 K1, 46 K3, 26 K6 and 8 K7
-   launches a chunk, 8 x 8532 window-heads; the InstanceNorms' and
+   launches a chunk, 8 x 8532 window-heads, K7's tile scores as
+   ``tile_scores`` counts them; the InstanceNorms' and
    LayerNorms' elements printed.
 
 ``--profile`` adds a torch.profiler probe of one volume of each serving
@@ -4023,6 +4024,9 @@ SWIN_LAUNCHES = {"K1": 19, "K3": 46, "K6": 26, "K7": 8}
 # 35, 21, 14, so 1000, 125, 27, 8 windows of 3, 6, 12, 24 heads, two
 # blocks a stage
 SWIN_WINDOW_HEADS = 2 * (1000 * 3 + 125 * 6 + 27 * 12 + 8 * 24)
+# K7's stages a patch: (grid extent, heads), each unshifted and shifted by
+# 3 (window 7); their tile scores are K7's ``tile_scores``
+SWIN_STAGES = ((64, 3), (32, 6), (16, 12), (8, 24))
 # cycles the card spins ahead of a timed eager call (about 50 ms): longer
 # than the host takes to launch it, its first call's plan included
 SPIN_CYCLES = 10 ** 8
@@ -4129,7 +4133,8 @@ def phase14(seed: int, smi: str):
     K3 and K6 ``torch.equal``; K7 within its tolerance, ``_k7_close``) and
     timed (events around the call), beside its bound; (b) a BraTS study
     through the main path (``validate._build_infer``, captured): 19 K1, 46
-    K3, 26 K6 and 8 K7 launches a chunk, 8 x 8532 window-heads.  Returns
+    K3, 26 K6 and 8 K7 launches a chunk, 8 x 8532 window-heads, K7's
+    ``tile_scores`` of the chunk's eight attentions.  Returns
     (numbers, {kernel: launches a chunk})."""
     from efficientq_tpu_torch import nnir
     from efficientq_tpu_torch.eval.validate import _build_infer
@@ -4241,6 +4246,7 @@ def phase14(seed: int, smi: str):
                 "K6": (K6.group_norm, "launches"),
                 "K7": (K7.window_attention, "launches"),
                 "window_heads": (K7.window_attention, "window_heads"),
+                "tile_scores": (K7.window_attention, "tile_scores"),
                 "group_norm.elements": (K6.group_norm, "elements"),
                 "layer_norm.elements": (layer_norm, "elements")}
     for fn, attr in counters.values():  # counted from 0 around one study
@@ -4252,10 +4258,14 @@ def phase14(seed: int, smi: str):
     print(f"[phase14] on {smi}: a {SWIN_VOL} BraTS study through "
           f"_build_infer (captured, one chunk of {SWIN_BATCH}): {counts}",
           flush=True)
+    scores = sum(K7.tile_scores((e,) * 3, (7,) * 3, (sh,) * 3, SWIN_BATCH, h)
+                 for e, h in SWIN_STAGES for sh in (0, 3))
     check(launches == SWIN_LAUNCHES
-          and counts["window_heads"] == SWIN_BATCH * SWIN_WINDOW_HEADS,
-          f"SwinUNETR main path: {counts}, expected {SWIN_LAUNCHES} and "
-          f"{SWIN_BATCH * SWIN_WINDOW_HEADS} window-heads")
+          and counts["window_heads"] == SWIN_BATCH * SWIN_WINDOW_HEADS
+          and counts["tile_scores"] == scores,
+          f"SwinUNETR main path: {counts}, expected {SWIN_LAUNCHES}, "
+          f"{SWIN_BATCH * SWIN_WINDOW_HEADS} window-heads and {scores} "
+          f"tile scores")
     del dv, vol, infer
     torch.cuda.empty_cache()
     numbers = {f"{k}_{m}": tot[k][m] for k in fields for m in tot[k]}

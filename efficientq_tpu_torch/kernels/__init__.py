@@ -97,11 +97,12 @@ REFERENCES = Kernels(qconv3d.qconv3x3_int8_ndhwc_reference,
                      window_attention.window_attention_reference)
 # (owner, attribute) of every count the wrappers keep: each launch, K1's
 # prologue quantizations and overlapped launches, the elements the
-# GroupNorm and LayerNorm nodes normalize, and the (sample, window, head)
-# attentions of the window-attention nodes
+# GroupNorm and LayerNorm nodes normalize, the (sample, window, head)
+# attentions of the window-attention nodes and K7's tiles' scores
 COUNTERS = tuple((fn, "launches") for fn in WRAPPERS) + (
     (qconv3d.qconv3x3_int8_ndhwc, "prologue_quant_launches"),
     (qconv3d.qconv3x3_int8_ndhwc, "overlapped_launches"),
     (groupnorm.group_norm, "elements"),
     (_ops.layer_norm, "elements"),
-    (window_attention.window_attention, "window_heads"))
+    (window_attention.window_attention, "window_heads"),
+    (window_attention.window_attention, "tile_scores"))

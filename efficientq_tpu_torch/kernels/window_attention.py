@@ -22,23 +22,31 @@ of the configured window f, sliced to the call's n x n, and M MONAI's
 
 The plain version ``window_attention_reference`` is those steps in
 PyTorch, in float64, rounded once to float32, on any device (in slices of
-windows, to bound its memory).  The kernel (``csrc/window_attention.cu``,
-its header says what bounds it) computes in float64 too, with the roll,
-the padding and the windows as index arithmetic and another order of
-sums, and rounds once: it equals the plain version but where a float64
-value lies within its rounding error of a float32 rounding boundary.  It
-takes a head dimension of 16 and windows of at most 384 tokens.
+windows, to bound its memory).  The kernel (``csrc/window_attention.cu``;
+its header says what bounds it and why its tiles) computes in float64 too,
+rounded once: q k^T and p v as float64 MMAs on the tensor cores, tiles of
+16 queries of a window's real rows against tiles of 16 or 32 of its keys,
+each score's accumulator starting at its bias and mask, an online softmax
+rescaled once a tile of keys with CUDA's float64 exp (its fast path
+written out, bit for bit, so a thread's exps interleave); the roll, the
+padding and the windows are index arithmetic.  It equals the plain version
+but where a float64 value lies within its rounding error of a float32
+rounding boundary.  It takes a head dimension of 16 and windows of at
+most 384 tokens, every size up to that on one path: the tiles follow the
+window (``tile_scores``).
 
 For CUDA tensors ``window_attention`` launches the kernel or raises; for
 tensors on the CPU it takes the plain version.  Each launch adds one to
-``window_attention.launches``; ``window_attention.window_heads`` counts
-the (sample, window, head) attentions that the graph's window-attention
-nodes computed, padding included, whichever implementation ran
-(``nnir.eval_node`` adds to it; a CUDA-graph replay adds its forward's
-count).
+``window_attention.launches`` and its tiles' scores, padding included
+(``tile_scores``), to ``window_attention.tile_scores``;
+``window_attention.window_heads`` counts the (sample, window, head)
+attentions that the graph's window-attention nodes computed, padding
+included, whichever implementation ran (``nnir.eval_node`` adds to it).
+A CUDA-graph replay adds its forward's counts.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Sequence, Tuple
@@ -52,6 +60,8 @@ _I = ctypes.c_int
 _I3 = ctypes.c_int * 3
 _HD = 16  # the kernel's head dimension
 _NMAX = 384  # the kernel's tokens a window
+_TILE = 16  # the kernel's queries a tile, and its keys' granularity
+THREADS = 256  # the kernel's threads a block
 
 
 def window_geometry(extent: Sequence[int], window: Sequence[int],
@@ -159,6 +169,37 @@ def window_count(extent: Sequence[int], window: Sequence[int],
     return out
 
 
+def _real_counts(extent: int, w: int, s: int) -> collections.Counter:
+    """{real positions: windows} along one axis of ``extent`` cut into
+    windows of ``w`` after the roll by -``s``."""
+    padded = -(-extent // w) * w
+    return collections.Counter(
+        sum((wi * w + l + s) % padded < extent for l in range(w))
+        for wi in range(padded // w))
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_scores(extent, window, shift) -> int:
+    w, s = window_geometry(extent, window, shift)
+    keys = -(-(w[0] * w[1] * w[2]) // _TILE) * _TILE
+    axes = [_real_counts(e, k, sh) for e, k, sh in zip(extent, w, s)]
+    rows = sum(mz * my * mx * -(-(cz * cy * cx) // _TILE) * _TILE
+               for cz, mz in axes[0].items() for cy, my in axes[1].items()
+               for cx, mx in axes[2].items())
+    return rows * keys
+
+
+def tile_scores(extent: Sequence[int], window: Sequence[int],
+                shift: Sequence[int], n: int, heads: int) -> int:
+    """Scores that K7's tensor-core tiles compute over ``n`` samples of a
+    grid of ``extent`` with ``heads`` heads: per (sample, window, head)
+    the window's real queries (its tokens on the unpadded grid) rounded
+    up to the 16 of a query tile, times its tokens rounded up to 16 (the
+    keys of the tiles it walks)."""
+    return n * heads * _tile_scores(tuple(int(e) for e in extent),
+                                    tuple(window), tuple(shift))
+
+
 def window_attention(qkv, table, qkv_bias, num_heads: int,
                      window: Sequence[int], shift: Sequence[int]):
     """The window attention of (N, D, H, W, 3C) float32 ``qkv`` with the
@@ -176,6 +217,7 @@ def window_attention(qkv, table, qkv_bias, num_heads: int,
 
 window_attention.launches = 0
 window_attention.window_heads = 0
+window_attention.tile_scores = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,4 +280,6 @@ def _launch(qkv, table, qkv_bias, heads, window, shift):
                            f"{tuple(qkv.shape)}, heads {heads}, window "
                            f"{tuple(win)}, shift {tuple(sh)})")
     window_attention.launches += 1
+    window_attention.tile_scores += tile_scores((d, h, w), window, shift, n,
+                                                heads)
     return out

@@ -171,6 +171,61 @@ def test_float_graph_equals_the_reference(window):
     assert float((got - want).abs().max()) <= 2e-5 * scale
 
 
+def _brute_tile_scores(extent, window, shift, n, heads):
+    """K7's tile scores counted on the plain version's own grid: a mask
+    of the unpadded grid zero-padded, rolled and cut into windows as
+    ``window_attention_reference`` cuts qkv; per window its real rows
+    rounded up to a 16-row tile, times its tokens rounded up to 16."""
+    w, s = K7.window_geometry(extent, window, shift)
+    pad = [-(-e // k) * k for e, k in zip(extent, w)]
+    real = torch.zeros(pad)
+    real[:extent[0], :extent[1], :extent[2]] = 1
+    real = torch.roll(real, shifts=[-k for k in s], dims=(0, 1, 2))
+    tokens = w[0] * w[1] * w[2]
+    rows = real.view(pad[0] // w[0], w[0], pad[1] // w[1], w[1],
+                     pad[2] // w[2], w[2]).permute(0, 2, 4, 1, 3, 5)
+    rows = rows.reshape(-1, tokens).sum(1).long()
+    tiles = (rows + 15) // 16 * 16
+    return n * heads * int(tiles.sum()) * (-(-tokens // 16) * 16)
+
+
+# (extent, window, shift, samples, heads): the cell's eight attentions (a
+# chunk of 8 patches of 128^3), then windows that shrink to the grid (to
+# one token, to 30, to 7 x 7 x 5) or do not fill their tiles
+TILE_CASES = [((e,) * 3, (7,) * 3, (s,) * 3, 8, hh)
+              for e, hh in ((64, 3), (32, 6), (16, 12), (8, 24))
+              for s in (0, 3)] + [
+    ((1, 1, 1), (7,) * 3, (3,) * 3, 2, 2),
+    ((2, 3, 5), (7,) * 3, (3,) * 3, 2, 2),
+    ((16, 9, 5), (7,) * 3, (3,) * 3, 2, 2),
+    ((4, 4, 4), (7,) * 3, (3,) * 3, 2, 2),
+    ((5, 9, 16), (7,) * 3, (3,) * 3, 2, 2),
+    ((13, 10, 9), (7,) * 3, (0,) * 3, 2, 2),
+    ((48, 24, 12), (7,) * 3, (3,) * 3, 1, 3),
+    ((18, 9, 6), (3,) * 3, (1,) * 3, 1, 4),
+]
+
+
+@pytest.mark.parametrize("extent,window,shift,n,heads", TILE_CASES)
+def test_tile_scores_counts_the_padded_tiles(extent, window, shift, n,
+                                             heads):
+    got = K7.tile_scores(extent, window, shift, n, heads)
+    assert got == _brute_tile_scores(extent, window, shift, n, heads)
+    w, _ = K7.window_geometry(extent, window, shift)
+    queries = n * heads * math.prod(extent)
+    assert got >= queries * math.prod(w)
+
+
+def test_tile_scores_is_a_counter_that_replays_add():
+    from efficientq_tpu_torch.kernels import COUNTERS
+    assert (K7.window_attention, "tile_scores") in COUNTERS
+    # the cell's 64^3 stage: 6.7 % of its tiles' scores are padding
+    ext, n = (64,) * 3, 8
+    pad = K7.tile_scores(ext, (7,) * 3, (0,) * 3, n, 3) / (
+        n * 3 * 64 ** 3 * 343)
+    assert 1.06 < pad < 1.07
+
+
 def _deployed(cfg, sd):
     g, v = _port(cfg, sd)
     dg, dv = to_int8_inference(g, v)

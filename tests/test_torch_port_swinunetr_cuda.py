@@ -8,8 +8,11 @@ channels of 3 heads, 32^3 x 96 of 6, 16^3 x 192 of 12, 8^3 x 384 of 24;
 the grids padded to 70, 35, 21 and 14), shifted and not, they are equal
 but where a float64 value straddles a float32 rounding boundary: at most
 one element in 10^5 differs, by at most one float32 ulp.  A window that shrinks to the grid's
-extent, on one axis or all, takes MONAI's index of the configured window.
-Under a CUDA graph K7 equals it eagerly and a replay counts its launches.
+extent, on one axis or all, takes MONAI's index of the configured window;
+so do windows whose tokens are no multiple of K7's tiles of 16 (1, 30 and
+245 tokens), scores spread wide enough that exp underflows inside a key
+tile, and a shifted stage without a qkv bias.  Under a CUDA graph K7
+equals it eagerly and a replay counts its launches and its tiles' scores.
 
 The offset grid's codes: with the identity as weights (K3's 1x1, K1's
 centre tap) a kernel's output is its codes, so ``torch.equal`` holds them
@@ -55,10 +58,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _attention_inputs(n, extent, c, heads, device, seed, window=7):
+def _attention_inputs(n, extent, c, heads, device, seed, window=7,
+                      spread=1.0):
     gen = torch.Generator(device=device).manual_seed(seed)
     d, h, w = (extent,) * 3 if isinstance(extent, int) else extent
-    qkv = torch.randn((n, d, h, w, 3 * c), generator=gen, device=device)
+    qkv = spread * torch.randn((n, d, h, w, 3 * c), generator=gen,
+                               device=device)
     rows = (2 * window - 1) ** 3
     table = 0.5 * torch.randn((rows, heads), generator=gen, device=device)
     bias = 0.3 * torch.randn(3 * c, generator=gen, device=device)
@@ -75,14 +80,18 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("shift", [0, 3])
-@pytest.mark.parametrize("stage", sorted(STAGES))
-def test_k7_matches_plain_at_the_cells_stages(cuda, stage, shift):
+@pytest.mark.parametrize("stage,n", [("stage1", 2), ("stage1", 8),
+                                     ("stage2", 2), ("stage3", 8),
+                                     ("stage4", 8)])
+def test_k7_matches_plain_at_the_cells_stages(cuda, stage, n, shift):
     extent, c, heads = STAGES[stage]
-    n = 8 if stage in ("stage3", "stage4") else 2
     qkv, table, bias = _attention_inputs(n, extent, c, heads, cuda, 7)
     before = K7.window_attention.launches
+    scores = K7.window_attention.tile_scores
     got = K7.window_attention(qkv, table, bias, heads, (7,) * 3, (shift,) * 3)
     assert K7.window_attention.launches == before + 1
+    assert K7.window_attention.tile_scores - scores == K7.tile_scores(
+        (extent,) * 3, (7,) * 3, (shift,) * 3, n, heads)
     want = K7.window_attention_reference(qkv, table, bias, heads, (7,) * 3,
                                          (shift,) * 3)
     _close(got, want)
@@ -93,6 +102,9 @@ def test_k7_matches_plain_at_the_cells_stages(cuda, stage, shift):
     ((5, 9, 16), 3),       # one axis shrinks: the others shift
     ((7, 8, 15), 3),       # an extent equal to the window shrinks it
     ((13, 10, 9), 0),
+    ((1, 1, 1), 3),        # a window of one token
+    ((2, 3, 5), 3),        # 30 tokens: no multiple of a tile
+    ((16, 9, 5), 3),       # 7 x 7 x 5 = 245 tokens, two axes shifted
 ])
 def test_k7_shrunk_and_ragged_windows(cuda, extent, shift):
     qkv, table, bias = _attention_inputs(2, extent, 32, 2, cuda, 11)
@@ -119,10 +131,74 @@ def test_k7_in_a_cuda_graph(cuda):
     cap(qkv)  # eager, then captured at the second call of the shape
     cap(qkv)
     before = K7.window_attention.launches
+    scores = K7.window_attention.tile_scores
     out = cap(qkv)
     assert torch.equal(out, eager)
     assert cap.captures == 1
     assert K7.window_attention.launches == before + 1
+    assert K7.window_attention.tile_scores - scores == K7.tile_scores(
+        (16,) * 3, (7,) * 3, (3,) * 3, 2, 4)
+
+
+@pytest.mark.parametrize("spread", [4.5, 10.0])
+@pytest.mark.parametrize("shift", [0, 3])
+def test_k7_wide_scores(cuda, spread, shift):
+    """Scores of std spread^2 about 0 (to about +-80 at 4.5, +-400 at 10):
+    within a tile of keys exp underflows (at 10 to 0) beside scores near
+    the row's max, and where the block shifts the -100 mask moves whole
+    rows of a tile below the rest."""
+    qkv, table, bias = _attention_inputs(2, 21, 48, 3, cuda, 5,
+                                         spread=spread)
+    got = K7.window_attention(qkv, table, bias, 3, (7,) * 3, (shift,) * 3)
+    want = K7.window_attention_reference(qkv, table, bias, 3, (7,) * 3,
+                                         (shift,) * 3)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want)
+
+
+def test_k7_written_out_exp_is_the_toolkits(cuda):
+    """K7's exp, written out so a thread's exps interleave, equals the
+    toolkit's float64 exp bit for bit: densely over [-746, 0] (softmax's
+    range, the fast path to -708.4 and the slow one past it), on random
+    values of every size, and on zeros, infinities, NaN, subnormals and
+    the ends of the fast path."""
+    import ctypes
+
+    from efficientq_tpu_torch.kernels import build, on_device
+    fn = build.load("window_attention.cu").effq_window_attention_exp_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    f64 = dict(dtype=torch.float64, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    edge = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                         float("nan"), 5e-324, -5e-324,
+                         2.2250738585072014e-308,
+                         -708.3964185322641, -708.39641853226, -708.4,
+                         708.3964185322641, 709.78, 709.79, -745.13,
+                         -745.14, -745.1332191019411, 1e-300, -1e-300], **f64)
+    x = torch.cat([
+        torch.linspace(-746.0, 0.0, 1 << 21, **f64),
+        -746.0 * torch.rand(1 << 20, generator=gen, **f64),
+        torch.randn(1 << 20, generator=gen, **f64)
+        * torch.exp2(torch.randint(-60, 11, (1 << 20,), generator=gen,
+                                   device=cuda).to(torch.float64)),
+        edge, torch.nextafter(edge, torch.zeros_like(edge))])
+    written, toolkit = torch.empty_like(x), torch.empty_like(x)
+    assert on_device(torch.cuda.current_device(), fn, x.data_ptr(),
+                     written.data_ptr(), toolkit.data_ptr(), x.numel()) == 0
+    torch.cuda.synchronize()
+    same = (written.view(torch.int64) == toolkit.view(torch.int64)) | (
+        written.isnan() & toolkit.isnan())
+    assert bool(same.all()), x[~same][:8].tolist()
+
+
+def test_k7_shifted_stage_without_qkv_bias(cuda):
+    extent, c, heads = STAGES["stage2"]
+    qkv, table, _ = _attention_inputs(2, extent, c, heads, cuda, 13)
+    got = K7.window_attention(qkv, table, None, heads, (7,) * 3, (3,) * 3)
+    want = K7.window_attention_reference(qkv, table, None, heads, (7,) * 3,
+                                         (3,) * 3)
+    _close(got, want)
 
 
 def _tie_dense(alpha, levels, k, device, n=4096):
